@@ -1,0 +1,36 @@
+"""knode_cosserat_tpu_torch — the PyTorch + CUDA port of knode_cosserat_tpu.
+
+Dynamic Cosserat-rod simulation and KNODE hybrid (physics + residual MLP)
+models of tendon-driven continuum robots, in PyTorch. Module paths and
+public names mirror the JAX package ``knode_cosserat_tpu``, which stays the
+reference this port is tested against. The port imports neither jax nor
+optax.
+
+On the CPU every kernel runs as its plain PyTorch version. On a CUDA device
+the hot path runs hand-written Hopper kernels (``csrc/``), built with nvcc
+at their first launch: K1 (the per-node hybrid RHS), K3 (the spatial
+sweep, ops/sweep.py) and K2 (one whole Newton shooting step, ops/step.py).
+
+Importing the package builds and loads nothing: the kernel modules
+(ops/sweep.py, ops/step.py, ops/_build.py) are imported at first use.
+"""
+import torch
+
+from . import controls
+from .controls import calc_controls
+from .core.fast_rollout import (make_fast_rollout, make_fast_step,
+                                mega_rollout_cached)
+from .core.params import (MODS, MODS_ORIGINAL, RodParams, apply_mod, derive,
+                          experimental_rod, make_rod, original_rod,
+                          rod_from_numpy)
+from .core.rhs import rhs
+from .core.stepper import SimOutput, initial_state, simulate, simulate_scan
+from .models.mlp import (KnodeMLP, MLPSpec, bind, init_mlp, mlp_apply,
+                         params_from_jax)
+from .serving import CompiledStepper, StepState
+
+__version__ = "0.1.0"
+
+# float32 matmuls in full precision on the card (the JAX package pins its
+# physics to Precision.HIGHEST; TF32 keeps ~3 decimal digits)
+torch.backends.cuda.matmul.allow_tf32 = False

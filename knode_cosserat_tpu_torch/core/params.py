@@ -1,0 +1,286 @@
+"""Rod parameters as a frozen dataclass of tensors.
+
+PyTorch counterpart of ``knode_cosserat_tpu/core/params.py``. The derived
+terms are computed by :func:`derive` in float64 numpy on the host (for
+conditioning, including the ``v_rest`` precompute that keeps the float32
+path exact) and then cast to the requested dtype. ``RodParams.to`` moves
+every tensor leaf to a device and/or dtype.
+
+State conventions:
+  y (19,) = [p(3), h(4), n(3), m(3), q(3), w(3)]
+  z  (6,) = [v(3), u(3)]
+All layouts are state-last: ``(..., N, 19)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = [
+    "RodParams",
+    "make_rod",
+    "derive",
+    "experimental_rod",
+    "original_rod",
+    "apply_mod",
+    "rod_from_numpy",
+    "MODS",
+    "MODS_ORIGINAL",
+]
+
+_STATIC = ("N", "n_tendons")
+
+
+@dataclasses.dataclass(frozen=True)
+class RodParams:
+    """Physical + derived parameters for one tendon-driven Cosserat rod.
+
+    ``N`` (node count) and ``n_tendons`` are Python ints; every other field
+    is a tensor (derived fields are ``None`` until :func:`derive`)."""
+
+    N: int
+    n_tendons: int
+
+    # --- base physical parameters ---
+    L: Any
+    E: Any
+    r: Any
+    rho: Any
+    vstar: Any          # (3,)
+    g: Any              # (3,)
+    Bse: Any            # (3,3)
+    Bbt: Any            # (3,3)
+    C: Any              # (3,)
+    del_t: Any
+    F_tip: Any          # (3,)
+    M_tip: Any          # (3,)
+    T0: Any
+    tendon_offset: Any
+    tendon_dirs: Any    # (n_tendons, 3)
+
+    # --- boundary conditions ---
+    p0: Any             # (3,)
+    h0: Any             # (4,)
+    q0: Any             # (3,)
+    w0: Any             # (3,)
+
+    # --- derived (filled by `derive`) ---
+    A: Any = None
+    Gmod: Any = None
+    ds: Any = None
+    J: Any = None               # (3,3)
+    Kse: Any = None             # (3,3)
+    Kbt: Any = None             # (3,3)
+    c0: Any = None
+    c1: Any = None
+    c2: Any = None
+    Kse_c0Bse_inv: Any = None   # (3,3)
+    Kbt_c0Bbt_inv: Any = None   # (3,3)
+    Kse_vstar: Any = None       # (3,)
+    # Kse_c0Bse_inv @ Kse_vstar, precomputed in f64 on the host so the f32
+    # path avoids adding O(1e5) stiffness terms to O(1) internal forces
+    v_rest: Any = None          # (3,)
+    rhoA: Any = None
+    rhoAg: Any = None           # (3,)
+    rhoJ: Any = None            # (3,3)
+
+    def replace(self, **kw) -> "RodParams":
+        return dataclasses.replace(self, **kw)
+
+    def leaves(self):
+        """(name, tensor) for every tensor field, in declaration order."""
+        return [(f.name, getattr(self, f.name))
+                for f in dataclasses.fields(self)
+                if f.name not in _STATIC and getattr(self, f.name) is not None]
+
+    def to(self, device=None, dtype=None) -> "RodParams":
+        """Copy with every tensor leaf moved to ``device`` / cast to
+        ``dtype``. Cast down from a float64 rod (as :func:`derive` does),
+        never up from a float32 one."""
+        return self.replace(**{k: v.to(device=device, dtype=dtype)
+                               for k, v in self.leaves()})
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.L.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.L.device
+
+
+def derive(p: RodParams, dtype: torch.dtype = torch.float64,
+           device=None) -> RodParams:
+    """Fill the derived terms (reference cosserat_ode.py:58-78). Computed in
+    float64 numpy on the host for conditioning, then cast to ``dtype``."""
+    f64 = lambda x: np.asarray(_host(x), np.float64)
+    L = float(f64(p.L))
+    E = float(f64(p.E))
+    r = float(f64(p.r))
+    rho = float(f64(p.rho))
+    del_t = float(f64(p.del_t))
+    Bse, Bbt, vstar, g = f64(p.Bse), f64(p.Bbt), f64(p.vstar), f64(p.g)
+
+    A = np.pi * r ** 2
+    Gmod = E / (2 * (1 + 0.3))
+    ds = L / (p.N - 1)
+    J = np.diag([np.pi * r ** 4 / 4, np.pi * r ** 4 / 4, np.pi * r ** 4 / 2])
+    Kse = np.diag([Gmod * A, Gmod * A, E * A])
+    Kbt = np.diag([E * J[0, 0], E * J[1, 1], Gmod * J[2, 2]])
+
+    c0 = 1.5 / del_t
+    c1 = -2.0 / del_t
+    c2 = 0.5 / del_t
+
+    Kse_c0Bse_inv = np.linalg.inv(Kse + c0 * Bse)
+    Kbt_c0Bbt_inv = np.linalg.inv(Kbt + c0 * Bbt)
+    Kse_vstar = Kse @ vstar
+    v_rest = Kse_c0Bse_inv @ Kse_vstar
+
+    cast = lambda x: torch.as_tensor(np.asarray(x, np.float64)).to(
+        device=device, dtype=dtype)
+
+    return p.replace(
+        L=cast(L), E=cast(E), r=cast(r), rho=cast(rho), del_t=cast(del_t),
+        vstar=cast(vstar), g=cast(g), Bse=cast(Bse), Bbt=cast(Bbt),
+        C=cast(f64(p.C)), F_tip=cast(f64(p.F_tip)), M_tip=cast(f64(p.M_tip)),
+        T0=cast(f64(p.T0)), tendon_offset=cast(f64(p.tendon_offset)),
+        tendon_dirs=cast(f64(p.tendon_dirs)),
+        p0=cast(f64(p.p0)), h0=cast(f64(p.h0)), q0=cast(f64(p.q0)),
+        w0=cast(f64(p.w0)),
+        A=cast(A), Gmod=cast(Gmod), ds=cast(ds), J=cast(J),
+        Kse=cast(Kse), Kbt=cast(Kbt), c0=cast(c0), c1=cast(c1), c2=cast(c2),
+        Kse_c0Bse_inv=cast(Kse_c0Bse_inv), Kbt_c0Bbt_inv=cast(Kbt_c0Bbt_inv),
+        Kse_vstar=cast(Kse_vstar), v_rest=cast(v_rest),
+        rhoA=cast(rho * A), rhoAg=cast(rho * A * g), rhoJ=cast(rho * J),
+    )
+
+
+def _host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float64).numpy()
+    return x
+
+
+def make_rod(N: int = 10, dtype: torch.dtype = torch.float64, device=None,
+             **overrides) -> RodParams:
+    """Rod with the reference's default ("paper") parameters
+    (cosserat_ode.py:14-47): L=0.4 m, E=109 GPa, r=1.2 mm, rho=8000,
+    4 tendons at 45-degree-offset directions, cantilever base BCs."""
+    n_tendons = int(overrides.pop("n_tendons", 4))
+    theta = np.pi / n_tendons
+    tendon_dirs = np.array([
+        [np.cos(theta + k * np.pi / 2), np.sin(theta + k * np.pi / 2), 0.0]
+        for k in range(4)
+    ])
+    base = dict(
+        N=N, n_tendons=n_tendons,
+        L=0.4, E=109e9, r=0.0012, rho=8000.0,
+        vstar=np.array([0.0, 0.0, 1.0]),
+        g=np.array([0.0, 0.0, -9.81]),
+        Bse=np.zeros((3, 3)),
+        Bbt=np.diag([3e-2, 3e-2, 3e-2]),
+        C=np.array([1e-4, 1e-4, 1e-4]),
+        del_t=0.005,
+        F_tip=np.zeros(3), M_tip=np.zeros(3),
+        T0=5.0, tendon_offset=0.02, tendon_dirs=tendon_dirs,
+        p0=np.zeros(3), h0=np.array([1.0, 0.0, 0.0, 0.0]),
+        q0=np.zeros(3), w0=np.zeros(3),
+    )
+    base.update(overrides)
+    return derive(RodParams(**base), dtype=dtype, device=device)
+
+
+# --- configurations + perturbation "mods" (fault-injection registry) -------
+
+MODS = ("noair", "nsw", "short", "damping", "dampstiff", "lengthstiff", "youngs")
+MODS_ORIGINAL = ("nsw", "short", "damping", "diameter", "youngs", "dampstiff",
+                 "lengthstiff")
+
+
+def experimental_rod(mod: str | None = None, N: int = 10,
+                     dtype: torch.dtype = torch.float64,
+                     device=None) -> RodParams:
+    """Measured-hardware (Delrin rod) parameters + optional perturbation mod
+    (reference: knode.py:6-53). Mods deliberately inject wrong physics that
+    the KNODE residual must compensate for."""
+    kw = dict(del_t=0.05, L=0.635, tendon_offset=0.04445,
+              r=0.003175, rho=1411.6751, E=2.757903e9)
+    Bbt = 3e-2
+    if mod is None:
+        pass
+    elif mod == "noair":
+        kw["C"] = np.zeros(3)
+    elif mod == "nsw":
+        kw["g"] = np.zeros(3)
+    elif mod == "short":
+        kw["L"] = 0.4
+    elif mod == "damping":
+        Bbt = 0.2
+    elif mod == "dampstiff":
+        Bbt, kw["E"] = 0.2, 10e9
+    elif mod == "lengthstiff":
+        kw["L"], kw["E"] = 0.4, 10e9
+    elif mod == "youngs":
+        kw["E"] = 10e9
+    else:
+        raise ValueError(f"Unknown mod {mod!r}")
+    kw["Bbt"] = np.diag([Bbt, Bbt, Bbt])
+    return make_rod(N=N, dtype=dtype, device=device, **kw)
+
+
+def original_rod(mod: str | None = None, N: int = 10,
+                 dtype: torch.dtype = torch.float64, device=None) -> RodParams:
+    """Original-paper parameters + mods (reference: prepare.py:35-73)."""
+    kw = dict(del_t=0.005, L=0.4, E=209e9, r=0.0012, rho=8000.0)
+    Bbt = 5e-4
+    if mod is None:
+        pass
+    elif mod == "nsw":
+        kw["g"] = np.zeros(3)
+    elif mod == "short":
+        kw["L"] = 0.3
+    elif mod == "damping":
+        Bbt = 9e-4
+    elif mod == "diameter":
+        kw["r"] = 0.002
+    elif mod == "youngs":
+        kw["E"] = 109e9
+    elif mod == "dampstiff":
+        Bbt, kw["E"] = 3e-2, 109e9
+    elif mod == "lengthstiff":
+        kw["L"], kw["E"] = 0.3, 109e9
+    else:
+        raise ValueError(f"Unknown mod {mod!r}")
+    kw["Bbt"] = np.diag([Bbt, Bbt, Bbt])
+    return make_rod(N=N, dtype=dtype, device=device, **kw)
+
+
+def apply_mod(mod: str | None, original: bool = False, N: int = 10,
+              dtype: torch.dtype = torch.float64, device=None) -> RodParams:
+    """Dispatch matching reference setup_robot(robot, mod, original)."""
+    if original:
+        return original_rod(mod, N=N, dtype=dtype, device=device)
+    return experimental_rod(mod, N=N, dtype=dtype, device=device)
+
+
+def rod_from_numpy(p, dtype: torch.dtype | None = None,
+                   device=None) -> RodParams:
+    """Build a RodParams from any object with the same field names (e.g. the
+    JAX package's rod), reading every leaf through ``np.asarray``. The
+    leaves are taken as they are (no re-derivation); ``dtype`` defaults to
+    the source leaves' dtype."""
+    kw = {}
+    for f in dataclasses.fields(RodParams):
+        v = getattr(p, f.name)
+        if f.name in _STATIC:
+            kw[f.name] = int(v)
+        elif v is not None:
+            t = torch.from_numpy(np.array(v))       # a writable copy
+            kw[f.name] = t.to(device=device, dtype=dtype or t.dtype)
+        else:
+            kw[f.name] = None
+    return RodParams(**kw)

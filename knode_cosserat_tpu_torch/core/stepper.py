@@ -1,0 +1,163 @@
+"""BDF-2 time stepping: the closed-loop rollout ``simulate``.
+
+PyTorch counterpart of ``knode_cosserat_tpu/core/stepper.py`` (reference
+rollout driver knode.py:55-102): a Python loop over control steps, each
+step a warm-started, rod-batched Newton shooting solve (core/shooting.py).
+A batch of rollouts is a leading axis on ``controls``.
+
+Reference quirks kept as they are:
+  * trajectory[0] is the initial straight rod recorded as [y, z, y, z];
+    the final control step's result is dropped (knode.py:68,102), so
+    len(traj) == len(controls).
+  * z at the tip node is never written by the spatial sweep
+    (cosserat_ode.py:198-201), so it stays at its initial value
+    [0,0,1,0,0,0] for the whole rollout.
+  * the Newton warm start is extrapolated as 2G - G_prev
+    (``extrapolate=False`` gives the reference's plain warm start).
+  * history midpoints for RK4 are linear interpolations (knode.py:80-81).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from .params import RodParams
+from .shooting import newton_solve
+from .spatial import integrate_euler, integrate_rk4, tip_residual
+
+__all__ = ["initial_state", "simulate", "simulate_scan", "SimOutput",
+           "tendon_forces"]
+
+
+class SimOutput(NamedTuple):
+    """Rollout output (a leading batch axis when controls had one).
+
+    traj: (..., T, N, 50) with last axis = [y(19), z(6), yh(19), zh(6)].
+    G: (..., T, 6) solved base reactions.
+    newton_iters / residuals / lm_retries: (..., T) per-step solver stats.
+    """
+    traj: torch.Tensor
+    G: torch.Tensor
+    newton_iters: torch.Tensor
+    residuals: torch.Tensor
+    lm_retries: torch.Tensor
+
+
+def initial_state(p: RodParams):
+    """Straight-rod initial condition (knode.py:58-64): z positions linearly
+    spaced, identity quaternion, v = e_z, everything else zero."""
+    N = p.N
+    zpos = torch.arange(N, dtype=p.dtype, device=p.device) * (p.L / (N - 1))
+    y = torch.zeros((N, 19), dtype=p.dtype, device=p.device)
+    y[:, 2] = zpos
+    y[:, 3] = 1.0
+    z = torch.zeros((N, 6), dtype=p.dtype, device=p.device)
+    z[:, 2] = 1.0
+    return y, z
+
+
+def tendon_forces(p: RodParams, tensions: torch.Tensor) -> torch.Tensor:
+    """(..., n_tendons) tensions -> (..., 3) body force, summed elementwise
+    (full precision; no TF32 matmul)."""
+    return (tensions.unsqueeze(-1) * p.tendon_dirs).sum(-2)
+
+
+def simulate_scan(
+    p: RodParams,
+    controls: torch.Tensor,
+    nn_fn: Optional[Callable] = None,
+    nn_history: bool = False,
+    method: str = "euler",
+    tol: Optional[float] = None,
+    max_iter: int = 50,
+    extrapolate: bool = True,
+    initial: Optional[tuple] = None,
+) -> SimOutput:
+    """Rollout over a (T, 4) or (B, T, 4) tension schedule.
+
+    initial: optional (y0 (N, 19), z0 (N, 6)) starting state instead of the
+    at-rest straight rod; the BDF-2 history seeds from the state itself.
+
+    Per step (knode.py:70-100): BDF-2 history yh = c1*y + c2*y_prev, Newton
+    shooting solve for G warm-started from the previous step, then one
+    final spatial sweep at the solved G to produce the recorded state.
+    """
+    if method not in ("euler", "rk4"):
+        raise ValueError(f"unknown method {method!r}")
+    if tol is None:
+        # sum(r^2) < 1e-16 is unreachable in f32; pick by dtype
+        tol = 1e-16 if p.dtype == torch.float64 else 1e-10
+    controls = torch.as_tensor(controls, dtype=p.dtype, device=p.device)
+    batched = controls.dim() == 3
+    if not batched:
+        controls = controls[None]
+    B, T = controls.shape[0], controls.shape[1]
+    if initial is None:
+        y0, z0 = initial_state(p)
+    else:
+        y0 = torch.as_tensor(initial[0], dtype=p.dtype, device=p.device)
+        z0 = torch.as_tensor(initial[1], dtype=p.dtype, device=p.device)
+    y0 = y0.expand(B, -1, -1)
+    z0 = z0.expand(B, -1, -1)
+    z_tip = z0[:, -1:]                      # frozen forever (see docstring)
+    G0 = torch.zeros((B, 6), dtype=p.dtype, device=p.device)
+
+    y, z, y_prev, z_prev, G, G_prev = y0, z0, y0, z0, G0, G0
+    records = [torch.cat([y0, z0, y0, z0], dim=-1)]
+    Gs, iters, res, lm = [G0], [], [], []
+    for t in range(T - 1):
+        yh = p.c1 * y + p.c2 * y_prev
+        zh = p.c1 * z + p.c2 * z_prev
+        G_guess = 2.0 * G - G_prev if extrapolate else G
+        tf = tendon_forces(p, controls[:, t])
+
+        if method == "euler":
+            integrate = lambda Gx: integrate_euler(p, Gx, yh, zh, tf, nn_fn,
+                                                   nn_history)
+        else:
+            yh_int = 0.5 * (yh[:, :-1] + yh[:, 1:])
+            zh_int = 0.5 * (zh[:, :-1] + zh[:, 1:])
+            integrate = lambda Gx: integrate_rk4(p, Gx, yh, zh, yh_int,
+                                                 zh_int, tf, nn_fn, nn_history)
+        G_new, stats = newton_solve(lambda Gx: tip_residual(p, integrate(Gx)[0]),
+                                    G_guess, tol=tol, max_iter=max_iter)
+        y_new, z_body = integrate(G_new)
+        z_new = torch.cat([z_body, z_tip], dim=-2)
+        records.append(torch.cat([y_new, z_new, yh, zh], dim=-1))
+        Gs.append(G_new)
+        iters.append(stats.iterations)
+        res.append(stats.residual_norm)
+        lm.append(stats.lm_retries)
+        y, z, y_prev, z_prev, G, G_prev = y_new, z_new, y, z, G_new, G
+
+    zero_i = torch.zeros(B, dtype=torch.int32, device=p.device)
+    zero_f = torch.zeros(B, dtype=p.dtype, device=p.device)
+    out = SimOutput(torch.stack(records, dim=1), torch.stack(Gs, dim=1),
+                    torch.stack([zero_i] + iters, dim=1),
+                    torch.stack([zero_f] + res, dim=1),
+                    torch.stack([zero_i] + lm, dim=1))
+    return out if batched else SimOutput(*(a[0] for a in out))
+
+
+@torch.no_grad()
+def simulate(
+    p: RodParams,
+    controls,
+    nn_fn: Optional[Callable] = None,
+    nn_history: bool = False,
+    method: str = "euler",
+    tol: Optional[float] = None,
+    max_iter: int = 50,
+    reference_layout: bool = False,
+):
+    """Trajectory of the rollout, matching the reference
+    ``simulate(robot, ctl)`` contract (knode.py:55-102).
+
+    reference_layout=True returns (T, 50, N) like the reference; the default
+    is (T, N, 50)."""
+    traj = simulate_scan(p, controls, nn_fn=nn_fn, nn_history=nn_history,
+                         method=method, tol=tol, max_iter=max_iter).traj
+    if reference_layout:
+        traj = traj.transpose(-1, -2)
+    return traj

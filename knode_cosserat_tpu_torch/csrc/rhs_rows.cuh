@@ -1,0 +1,353 @@
+// K1: the per-node hybrid Cosserat right-hand side, one thread per lane.
+//
+// Replaces the per-node body of the TPU kernels,
+// knode_cosserat_tpu/ops/pallas_sweep.py::make_rhs_rows, which K3
+// (sweep.cu) and K2 (step.cu) inline here as they did there. Mirrors
+// reference cosserat_ode.py:114-186 and the plain version
+// knode_cosserat_tpu_torch/core/rhs.py::rhs step for step:
+//   quaternion -> R; constitutive solve through the pre-inverted
+//   Kse+c0*Bse, Kbt+c0*Bbt plus v_rest; BDF-2 history terms; drag,
+//   gravity and tendon force; rod derivatives; optionally the KNODE MLP on
+//   [y, z, tf] (28 inputs) or [y, yh, z, zh, tf] (53), added to dy (19)
+//   and z (6).
+//
+// Where the H100 bounds it: the physics is ~300 flops on 19 states held
+// in registers; the MLP is the cost, 2*(28*H + 25*H) ~ 54 kflop per node
+// at H = 512, all of it dependent scalar FMAs of one thread, each with a
+// load of one weight. So one call is bound by the thread's instruction
+// issue and the latency of its weight loads, not by bandwidth: every lane
+// of a warp reads the same weight address (a broadcast through the
+// read-only path, served from L1 after the first warp; 110.7 KB of f32
+// weights at H = 512), and the hidden layer is streamed one unit at a time
+// so no H-wide array lives per thread. Shared memory would not hold the
+// f64 weights (221 KB at H = 512, 324 KB for the 53-input net), and the
+// broadcast already costs one transaction per load.
+//
+// What the design leaves for later (the first perf target): one thread
+// per lane uses 32 lanes of an SM for a whole warp's worth of MLP work.
+// A warp per rod with the hidden dimension spread across its lanes (and a
+// shuffle reduction for the 25 outputs) would issue 32x fewer dependent
+// FMAs per thread.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+// Rod constants as the host fills them (float64, via ctypes). The layout
+// must match RodConstsHost in knode_cosserat_tpu_torch/ops/_build.py.
+struct RodConstsHost {
+  double Kse_inv[9], Kbt_inv[9], Bse[9], Bbt[9], rhoJ[9];  // row-major 3x3
+  double v_rest[3], rhoAg[3], C[3];
+  double c0, rhoA, ds;
+  double p0[3], h0[4], q0[3], w0[3], F_tip[3], M_tip[3];
+};
+
+// The same constants in the kernel's working type, passed by value (one
+// build serves every rod; the TPU kernels baked them in as literals).
+template <typename T>
+struct RodConsts {
+  T Kse_inv[9], Kbt_inv[9], Bse[9], Bbt[9], rhoJ[9];
+  T v_rest[3], rhoAg[3], C[3];
+  T c0, rhoA, ds;
+  T p0[3], h0[4], q0[3], w0[3], F_tip[3], M_tip[3];
+};
+
+template <typename T>
+inline RodConsts<T> cast_consts(const RodConstsHost& h) {
+  RodConsts<T> c;
+  for (int i = 0; i < 9; ++i) {
+    c.Kse_inv[i] = T(h.Kse_inv[i]);
+    c.Kbt_inv[i] = T(h.Kbt_inv[i]);
+    c.Bse[i] = T(h.Bse[i]);
+    c.Bbt[i] = T(h.Bbt[i]);
+    c.rhoJ[i] = T(h.rhoJ[i]);
+  }
+  for (int i = 0; i < 3; ++i) {
+    c.v_rest[i] = T(h.v_rest[i]);
+    c.rhoAg[i] = T(h.rhoAg[i]);
+    c.C[i] = T(h.C[i]);
+    c.p0[i] = T(h.p0[i]);
+    c.q0[i] = T(h.q0[i]);
+    c.w0[i] = T(h.w0[i]);
+    c.F_tip[i] = T(h.F_tip[i]);
+    c.M_tip[i] = T(h.M_tip[i]);
+  }
+  for (int i = 0; i < 4; ++i) c.h0[i] = T(h.h0[i]);
+  c.c0 = T(h.c0);
+  c.rhoA = T(h.rhoA);
+  c.ds = T(h.ds);
+  return c;
+}
+
+enum Activation { ACT_ELU = 0, ACT_TANH = 1, ACT_RELU = 2, ACT_SOFTPLUS = 3 };
+
+// A 2-layer KNODE net: W1 (hidden, NNIN), b1 (hidden), W2 (25, hidden),
+// b2 (25), all row-major as nn.Linear holds them. W1 == nullptr: no net.
+template <typename T>
+struct Mlp {
+  const T* __restrict__ W1;
+  const T* __restrict__ b1;
+  const T* __restrict__ W2;
+  const T* __restrict__ b2;
+  int hidden;
+  int act;
+};
+
+__device__ __forceinline__ float m_expm1(float x) { return expm1f(x); }
+__device__ __forceinline__ double m_expm1(double x) { return expm1(x); }
+__device__ __forceinline__ float m_tanh(float x) { return tanhf(x); }
+__device__ __forceinline__ double m_tanh(double x) { return tanh(x); }
+__device__ __forceinline__ float m_log1p(float x) { return log1pf(x); }
+__device__ __forceinline__ double m_log1p(double x) { return log1p(x); }
+__device__ __forceinline__ float m_exp(float x) { return expf(x); }
+__device__ __forceinline__ double m_exp(double x) { return exp(x); }
+__device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double m_abs(double x) { return fabs(x); }
+
+template <typename T>
+__device__ __forceinline__ T activate(T a, int act) {
+  switch (act) {
+    case ACT_ELU: return a > T(0) ? a : m_expm1(a);
+    case ACT_TANH: return m_tanh(a);
+    case ACT_RELU: return a > T(0) ? a : T(0);
+    default:  // softplus = log1p(exp(-|a|)) + max(a, 0)
+      return m_log1p(m_exp(-m_abs(a))) + (a > T(0) ? a : T(0));
+  }
+}
+
+// M (row-major 3x3) @ x
+template <typename T>
+__device__ __forceinline__ void mv3(const T* M, const T* x, T* out) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    out[i] = M[3 * i] * x[0] + M[3 * i + 1] * x[1] + M[3 * i + 2] * x[2];
+}
+
+template <typename T>
+__device__ __forceinline__ void cross3(const T* a, const T* b, T* out) {
+  out[0] = a[1] * b[2] - a[2] * b[1];
+  out[1] = a[2] * b[0] - a[0] * b[2];
+  out[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+// One node: y, yh (19), zh (6), tf (3) -> dy (19), z (6). yh, zh may point
+// to global memory; y, dy, z are the thread's own arrays.
+template <typename T, int NNIN>
+__device__ __forceinline__ void rhs_node(const RodConsts<T>& rc,
+                                         const Mlp<T>& mlp, const T* y,
+                                         const T* yh, const T* zh,
+                                         const T* tf, T* dy, T* z) {
+  const T h1 = y[3], h2 = y[4], h3 = y[5], h4 = y[6];
+  const T* n = y + 7;
+  const T* m = y + 10;
+  const T* q = y + 13;
+  const T* w = y + 16;
+  T vh[3], uh[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    vh[i] = zh[i];
+    uh[i] = zh[3 + i];
+  }
+
+  // quaternion -> R, the reference's non-unit-safe form
+  const T s = T(2) / (h1 * h1 + h2 * h2 + h3 * h3 + h4 * h4);
+  T R[9];
+  R[0] = T(1) + s * (-h3 * h3 - h4 * h4);
+  R[1] = s * (h2 * h3 - h4 * h1);
+  R[2] = s * (h2 * h4 + h3 * h1);
+  R[3] = s * (h2 * h3 + h4 * h1);
+  R[4] = T(1) + s * (-h2 * h2 - h4 * h4);
+  R[5] = s * (h3 * h4 - h2 * h1);
+  R[6] = s * (h2 * h4 - h3 * h1);
+  R[7] = s * (h3 * h4 + h2 * h1);
+  R[8] = T(1) + s * (-h2 * h2 - h3 * h3);
+
+  // constitutive solve: v = Kinv (R^T n - Bse vh) + v_rest,
+  //                     u = Kinv (R^T m - Bbt uh)
+  T t0[3], t1[3], v[3], u[3];
+  mv3(rc.Bse, vh, t1);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    t0[i] = R[i] * n[0] + R[3 + i] * n[1] + R[6 + i] * n[2] - t1[i];
+  mv3(rc.Kse_inv, t0, v);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) v[i] += rc.v_rest[i];
+  mv3(rc.Bbt, uh, t1);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    t0[i] = R[i] * m[0] + R[3 + i] * m[1] + R[6 + i] * m[2] - t1[i];
+  mv3(rc.Kbt_inv, t0, u);
+
+  // BDF-2 time derivatives
+  T vt[3], ut[3], qt[3], wt[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    vt[i] = rc.c0 * v[i] + vh[i];
+    ut[i] = rc.c0 * u[i] + uh[i];
+    qt[i] = rc.c0 * q[i] + yh[13 + i];
+    wt[i] = rc.c0 * w[i] + yh[16 + i];
+  }
+
+  // body force: weight - R (C q|q|) + tendons
+  T drag[3], fb[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) drag[i] = rc.C[i] * q[i] * m_abs(q[i]);
+  mv3(R, drag, t0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) fb[i] = rc.rhoAg[i] - t0[i] + tf[i];
+
+  // rod state derivatives
+  T ps[3], ns[3], ms[3], qs[3], ws[3];
+  mv3(R, v, ps);
+  cross3(w, q, t0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t0[i] += qt[i];
+  mv3(R, t0, t1);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ns[i] = rc.rhoA * t1[i] - fb[i];
+
+  T rJw[3], rJwt[3];
+  mv3(rc.rhoJ, w, rJw);
+  mv3(rc.rhoJ, wt, rJwt);
+  cross3(w, rJw, t0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t0[i] += rJwt[i];
+  mv3(R, t0, t1);
+  cross3(ps, n, t0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ms[i] = t1[i] - t0[i];
+
+  cross3(u, q, t0);
+  cross3(w, v, t1);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) qs[i] = vt[i] - t0[i] + t1[i];
+  cross3(u, w, t0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ws[i] = ut[i] - t0[i];
+
+  const T u1 = u[0], u2 = u[1], u3 = u[2];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    dy[i] = ps[i];
+    dy[7 + i] = ns[i];
+    dy[10 + i] = ms[i];
+    dy[13 + i] = qs[i];
+    dy[16 + i] = ws[i];
+    z[i] = v[i];
+    z[3 + i] = u[i];
+  }
+  dy[3] = T(0.5) * (-u1 * h2 - u2 * h3 - u3 * h4);
+  dy[4] = T(0.5) * (u1 * h1 + u3 * h3 - u2 * h4);
+  dy[5] = T(0.5) * (u2 * h1 - u3 * h2 + u1 * h4);
+  dy[6] = T(0.5) * (u3 * h1 + u2 * h2 - u1 * h3);
+
+  if constexpr (NNIN > 0) {
+    // input layout (cosserat_ode.py:171-175): [y, z, tf] or
+    // [y, yh, z, zh, tf]
+    T x[NNIN];
+    int o = 0;
+#pragma unroll
+    for (int i = 0; i < 19; ++i) x[o++] = y[i];
+    if constexpr (NNIN == 53) {
+#pragma unroll
+      for (int i = 0; i < 19; ++i) x[o++] = yh[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) x[o++] = z[i];
+    if constexpr (NNIN == 53) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) x[o++] = zh[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) x[o++] = tf[i];
+
+    // hidden layer streamed one unit at a time
+    T out[25];
+#pragma unroll
+    for (int j = 0; j < 25; ++j) out[j] = T(0);
+    const int H = mlp.hidden;
+    for (int k = 0; k < H; ++k) {
+      const T* wk = mlp.W1 + (size_t)k * NNIN;
+      T a = T(0);
+#pragma unroll
+      for (int i = 0; i < NNIN; ++i) a += __ldg(wk + i) * x[i];
+      a = activate(a + __ldg(mlp.b1 + k), mlp.act);
+#pragma unroll
+      for (int j = 0; j < 25; ++j) out[j] += __ldg(mlp.W2 + (size_t)j * H + k) * a;
+    }
+#pragma unroll
+    for (int i = 0; i < 19; ++i) dy[i] += out[i] + __ldg(mlp.b2 + i);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) z[i] += out[19 + i] + __ldg(mlp.b2 + 19 + i);
+  }
+}
+
+// One spatial step at node j: y (19) advanced in place to node j+1, z (6)
+// the strains at node j. Euler, or RK4 with the linear history midpoints
+// 0.5*(yh_j + yh_j+1) formed here (knode.py:80-81).
+template <typename T, int NNIN, bool RK4>
+__device__ __forceinline__ void node_update(const RodConsts<T>& rc,
+                                            const Mlp<T>& mlp, T* y,
+                                            const T* yh_j, const T* zh_j,
+                                            const T* tf, T* z) {
+  const T ds = rc.ds;
+  T k1[19];
+  rhs_node<T, NNIN>(rc, mlp, y, yh_j, zh_j, tf, k1, z);
+  if constexpr (!RK4) {
+#pragma unroll
+    for (int i = 0; i < 19; ++i) y[i] += ds * k1[i];
+  } else {
+    const T* yh_j1 = yh_j + 19;   // node j+1 follows node j
+    const T* zh_j1 = zh_j + 6;
+    T yhm[19], zhm[6], yt[19], k[19], acc[19], zd[6];
+#pragma unroll
+    for (int i = 0; i < 19; ++i) yhm[i] = T(0.5) * (yh_j[i] + yh_j1[i]);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) zhm[i] = T(0.5) * (zh_j[i] + zh_j1[i]);
+#pragma unroll
+    for (int i = 0; i < 19; ++i) yt[i] = y[i] + k1[i] * (ds / T(2));
+    rhs_node<T, NNIN>(rc, mlp, yt, yhm, zhm, tf, k, zd);          // k2
+#pragma unroll
+    for (int i = 0; i < 19; ++i) {
+      acc[i] = k[i];
+      yt[i] = y[i] + k[i] * (ds / T(2));
+    }
+    rhs_node<T, NNIN>(rc, mlp, yt, yhm, zhm, tf, k, zd);          // k3
+#pragma unroll
+    for (int i = 0; i < 19; ++i) {
+      acc[i] += k[i];
+      yt[i] = y[i] + k[i] * ds;
+    }
+    rhs_node<T, NNIN>(rc, mlp, yt, yh_j1, zh_j1, tf, k, zd);      // k4
+#pragma unroll
+    for (int i = 0; i < 19; ++i)
+      y[i] += ds * (k1[i] + T(2) * acc[i] + k[i]) / T(6);
+  }
+}
+
+// Base node y0 = [p0, h0, G, q0, w0] (cosserat_ode.py:194).
+template <typename T>
+__device__ __forceinline__ void base_node(const RodConsts<T>& rc, const T* G,
+                                          T* y) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    y[i] = rc.p0[i];
+    y[13 + i] = rc.q0[i];
+    y[16 + i] = rc.w0[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) y[3 + i] = rc.h0[i];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) y[7 + i] = G[i];
+}
+
+// Tip residual [F_tip - n_L, M_tip - m_L] (cosserat_ode.py:204-211).
+template <typename T>
+__device__ __forceinline__ void tip_residual(const RodConsts<T>& rc,
+                                             const T* y, T* r) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    r[i] = rc.F_tip[i] - y[7 + i];
+    r[3 + i] = rc.M_tip[i] - y[10 + i];
+  }
+}

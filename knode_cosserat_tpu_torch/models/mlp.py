@@ -1,0 +1,150 @@
+"""The KNODE residual MLP as an ``nn.Module``.
+
+PyTorch counterpart of ``knode_cosserat_tpu/models/mlp.py``: Linear(in ->
+hidden) - activation - ... - Linear(hidden -> 25), input 28 = [y, z,
+tendon_forces] or 53 with history, output 25 = residual on [ys(19), z(6)]
+(reference cosserat_ode_torch.py:53-105). Weights are ``(dout, din)``,
+the JAX package's layout (and ``nn.Linear``'s), so weights move between
+the two packages unchanged (:func:`params_from_jax`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["MLPSpec", "KnodeMLP", "init_mlp", "mlp_apply", "clamp_nonnegative",
+           "count_params", "bind", "params_from_jax", "ACTIVATIONS"]
+
+
+def _softplus(x):
+    # logaddexp(x, 0), as jax.nn.softplus (F.softplus switches to the
+    # identity above its threshold, which the JAX package does not)
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+ACTIVATIONS = {
+    "tanh": torch.tanh,
+    "softplus": _softplus,
+    "relu": torch.relu,
+    "elu": F.elu,
+    "identity": lambda x: x,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPSpec:
+    """Static architecture description (hashable).
+
+    dims: layer widths, e.g. (28, 512, 25) for the reference default.
+    activation: name from ACTIVATIONS applied between Linear layers.
+    history: 53-input variant using [y, yh, z, zh, tf] (cosserat_ode.py:173).
+    compute_dtype: kept for parity with the JAX spec; the port computes in
+      the weights' dtype and rejects any other value.
+    """
+    dims: Tuple[int, ...] = (28, 512, 25)
+    activation: str = "elu"
+    history: bool = False
+    compute_dtype: str | None = None
+
+    @staticmethod
+    def for_knode(hidden: int = 512, history: bool = False,
+                  activation: str = "elu",
+                  compute_dtype: str | None = None) -> "MLPSpec":
+        return MLPSpec(dims=(53 if history else 28, hidden, 25),
+                       activation=activation, history=history,
+                       compute_dtype=compute_dtype)
+
+
+class KnodeMLP(nn.Module):
+    """The residual net: ``layers`` is an ``nn.ModuleList`` of
+    ``nn.Linear``, the activation applied between them."""
+
+    def __init__(self, spec: MLPSpec, dtype=torch.float64, device=None):
+        super().__init__()
+        if spec.compute_dtype is not None:
+            raise NotImplementedError(
+                "MLPSpec.compute_dtype (mixed-precision storage) is not "
+                "ported; build the net in the dtype it should compute in")
+        self.spec = spec
+        self.layers = nn.ModuleList(
+            nn.Linear(din, dout, dtype=dtype, device=device)
+            for din, dout in zip(spec.dims[:-1], spec.dims[1:]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act = ACTIVATIONS[self.spec.activation]
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            x = F.linear(x, layer.weight, layer.bias)
+            if i < n - 1:
+                x = act(x)
+        return x
+
+    def weights(self):
+        """[(w (dout, din), b (dout,)), ...] per layer."""
+        return [(layer.weight, layer.bias) for layer in self.layers]
+
+
+def init_mlp(spec: MLPSpec, generator: torch.Generator,
+             dtype=torch.float32, device=None) -> KnodeMLP:
+    """Non-negative normal init matching non_negative_normal_init
+    (cosserat_ode_torch.py:90-105): W = |N(0.01, 0.01)|, b = N(0, 0.01).
+    Draws on the CPU from ``generator`` (same numbers on every device)."""
+    net = KnodeMLP(spec, dtype=dtype, device=device)
+    with torch.no_grad():
+        for layer in net.layers:
+            dout, din = layer.weight.shape
+            w = (0.01 + 0.01 * torch.randn((dout, din), generator=generator,
+                                           dtype=dtype)).abs()
+            b = 0.01 * torch.randn((dout,), generator=generator, dtype=dtype)
+            layer.weight.copy_(w)
+            layer.bias.copy_(b)
+    return net
+
+
+def mlp_apply(spec: MLPSpec, params: KnodeMLP, x: torch.Tensor) -> torch.Tensor:
+    """Forward pass on (..., din) -> (..., dout)."""
+    if params.spec.dims != spec.dims or params.spec.activation != spec.activation:
+        raise ValueError(f"net built for {params.spec}, called as {spec}")
+    return params(x)
+
+
+def bind(spec: MLPSpec, params: KnodeMLP) -> Callable[[torch.Tensor],
+                                                      torch.Tensor]:
+    """Close the weights over the apply function -> an ``nn_fn`` for
+    core.rhs / core.stepper."""
+    return lambda x: mlp_apply(spec, params, x)
+
+
+def clamp_nonnegative(params: KnodeMLP, skip_first: bool = False) -> KnodeMLP:
+    """Post-step weight clamp (physics_train.py:299-304), in place."""
+    with torch.no_grad():
+        for i, layer in enumerate(params.layers):
+            if not (skip_first and i == 0):
+                layer.weight.clamp_(min=0.0)
+    return params
+
+
+def count_params(params: KnodeMLP) -> int:
+    return sum(int(t.numel()) for t in params.parameters())
+
+
+def params_from_jax(params, spec: MLPSpec, dtype=None, device=None) -> KnodeMLP:
+    """The JAX package's params (a tuple of {"w" (dout, din), "b" (dout,)}
+    arrays) -> a KnodeMLP computing the same function. ``dtype`` defaults
+    to the arrays' dtype."""
+    ws = [torch.from_numpy(np.array(layer["w"])) for layer in params]
+    bs = [torch.from_numpy(np.array(layer["b"])) for layer in params]
+    dtype = dtype or ws[0].dtype
+    net = KnodeMLP(spec, dtype=dtype, device=device)
+    if len(ws) != len(net.layers):
+        raise ValueError(f"{len(ws)} layers given, spec has {len(net.layers)}")
+    with torch.no_grad():
+        for layer, w, b in zip(net.layers, ws, bs):
+            layer.weight.copy_(w)
+            layer.bias.copy_(b)
+    return net

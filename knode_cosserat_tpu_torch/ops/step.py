@@ -1,0 +1,122 @@
+"""One whole BDF-2 shooting step per launch: kernel K2 and its plain
+PyTorch version.
+
+Counterpart of ``knode_cosserat_tpu/ops/pallas_step.py``
+(``make_step_kernel``). The CUDA kernel is ``csrc/step.cu``; its design
+note is there. Per rod: a forward-difference Jacobian from 6 probe sweeps,
+a Levenberg-Marquardt term, a pivoted 6x6 elimination, a backtracking line
+search that takes the first improving alpha 0.5**k, a hold-and-escalate
+stall ladder, and a final recording sweep.
+
+``make_step_kernel(p, spec, ...)`` returns fn(G (B,6), yh (B,N,19),
+zh (B,N,6), tf (B,3), nn_params|None) -> (G_new (B,6), y (B,N,19),
+z (B,N-1,6), r2 (B,), iters (B,) int32). A CPU tensor runs
+:func:`step_reference`, a CUDA tensor launches the kernel (or raises).
+``iters`` counts each rod's own Newton iterations (on the TPU it was one
+count per block of rods); compare it only through its maximum.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.params import RodParams
+from ..models.mlp import KnodeMLP, MLPSpec
+from .sweep import (check_inputs, check_spec, raise_on, rod_consts,
+                    stream_of, sweep_reference, weight_args)
+
+__all__ = ["make_step_kernel", "step_reference", "LAUNCHES"]
+
+# Levenberg-Marquardt stall escalation: lambda starts at 1e-4, grows x30
+# per consecutive failed line search, and a rod stops after 4 failures.
+# The FD-Newton driver (core/fast_rollout.py) imports these so the kernel
+# and the driver stay in step.
+_LM_LAMBDA0 = 1e-4
+_LM_GROWTH = 30.0
+_MAX_ESCALATIONS = 4
+
+#: K2 launches made by this module's wrapper since the count was last reset
+LAUNCHES = 0
+
+_BLOCK = 32     # threads per block: one rod per thread
+
+
+def fd1_eps(dtype: torch.dtype) -> float:
+    """Forward-difference probe step (times 1 + |G_k|)."""
+    return 1e-8 if dtype == torch.float64 else 3e-4
+
+
+@torch.no_grad()
+def step_reference(p: RodParams, G, yh, zh, tf,
+                   nn_params: KnodeMLP | None = None, tol: float = 1e-10,
+                   max_iter: int = 30, n_alphas: int = 7,
+                   method: str = "euler"):
+    """Plain PyTorch version of K2, any device: the FD-Newton driver of
+    core/fast_rollout.py over :func:`sweep_reference`, with forward
+    differences and a Jacobian refreshed every iteration (K2's semantics).
+    Like the kernel, it records no autograd graph."""
+    from ..core.fast_rollout import fd_newton
+
+    k_res = lambda Gx, a, b, c, nn: sweep_reference(p, Gx, a, b, c, nn,
+                                                    method, want_rod=False)
+    G_new, r2, iters = fd_newton(k_res, G, yh, zh, tf, nn_params, tol=tol,
+                                 max_iter=max_iter, n_alphas=n_alphas,
+                                 jacobian_refresh=1, fd_order=1)
+    _, y, z = sweep_reference(p, G_new, yh, zh, tf, nn_params, method)
+    return G_new, y, z, r2, iters
+
+
+def make_step_kernel(p: RodParams, spec: MLPSpec | None = None,
+                     tol: float = 1e-10, max_iter: int = 30,
+                     n_alphas: int = 7, method: str = "euler"):
+    """The whole Newton shooting step for a concrete rod (+ optional KNODE
+    net). See the module docstring for the returned function."""
+    if method not in ("euler", "rk4"):
+        raise ValueError(method)
+    cache = {}
+
+    def fn(G, yh, zh, tf, nn_params=None):
+        nn_params = nn_params if spec is not None else None
+        if G.device.type == "cpu":
+            return step_reference(p, G, yh, zh, tf, nn_params, tol, max_iter,
+                                  n_alphas, method)
+        if G.device.type != "cuda":
+            raise ValueError(f"no step kernel for device {G.device}")
+        if "consts" not in cache:
+            check_spec(spec)
+            cache["consts"] = rod_consts(p)
+        return _launch(p, cache["consts"], spec, tol, max_iter, n_alphas,
+                       method, G, yh, zh, tf, nn_params)
+
+    return fn
+
+
+def _launch(p, consts, spec, tol, max_iter, n_alphas, method, G, yh, zh, tf,
+            nn_params):
+    global LAUNCHES
+    from ._build import library
+
+    check_inputs(p, G, yh, zh, tf)
+    B, N = G.shape[0], p.N
+    kw = dict(dtype=G.dtype, device=G.device)
+    G_out = torch.empty((B, 6), **kw)
+    y = torch.empty((B, N, 19), **kw)
+    z = torch.empty((B, N - 1, 6), **kw)
+    r2 = torch.empty((B,), **kw)
+    iters = torch.empty((B,), dtype=torch.int32, device=G.device)
+    if B == 0:
+        return G_out, y, z, r2, iters
+    nn_in, act, W1, b1, W2, b2, hidden = weight_args(spec, nn_params, G)
+    with torch.cuda.device(G.device):
+        code = library().knode_step(
+            int(G.dtype == torch.float64), nn_in, act, int(method == "rk4"),
+            B, N, ctypes.byref(consts), float(tol), fd1_eps(G.dtype),
+            int(max_iter), int(n_alphas), _LM_LAMBDA0, _LM_GROWTH,
+            _MAX_ESCALATIONS, G.data_ptr(), yh.data_ptr(), zh.data_ptr(),
+            tf.data_ptr(), W1, b1, W2, b2, hidden, G_out.data_ptr(),
+            y.data_ptr(), z.data_ptr(), r2.data_ptr(), iters.data_ptr(),
+            _BLOCK, stream_of(G))
+    raise_on(code, "K2 step")
+    LAUNCHES += 1
+    return G_out, y, z, r2, iters

@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: every test skips where no GPU is present. On a GPU machine:
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+(``--noconftest``: tests/conftest.py sets up JAX, which a GPU machine
+need not have; this file imports only the port.)
+(chip_smoke.py runs the same comparisons at the model's full width.)
+"""
+import numpy as np
+import pytest
+import torch
+
+import knode_cosserat_tpu_torch as K
+from knode_cosserat_tpu_torch.core.fast_rollout import make_fast_rollout
+from knode_cosserat_tpu_torch.core.stepper import initial_state
+from knode_cosserat_tpu_torch.ops import step as kstep
+from knode_cosserat_tpu_torch.ops import sweep as ksweep
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float64: (1e-10, 1e-12), torch.float32: (1e-4, 1e-5)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda", 0)
+
+
+def _inputs(p, B, seed, dev):
+    g = np.random.RandomState(seed)
+    y0, z0 = (a.cpu().double().numpy() for a in initial_state(p))
+    y = y0 + 1e-3 * g.randn(B, p.N, 19)
+    z = z0 + 1e-3 * g.randn(B, p.N, 6)
+    c1, c2 = float(p.c1), float(p.c2)
+    tf = (5 + 2 * g.rand(B, 4)) @ p.tendon_dirs.cpu().double().numpy()
+    arrays = (0.05 * g.randn(B, 6), c1 * y + c2 * y0, c1 * z + c2 * z0, tf)
+    return [torch.tensor(a, dtype=p.dtype, device=dev) for a in arrays]
+
+
+def _net(history, dtype, dev, scale=1.0):
+    spec = K.MLPSpec.for_knode(64, history=history)
+    net = K.init_mlp(spec, torch.Generator().manual_seed(0), dtype, dev)
+    with torch.no_grad():
+        for t in net.parameters():
+            t.mul_(scale)
+    return spec, net
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", ["euler", "rk4"])
+@pytest.mark.parametrize("history", [None, False, True])
+def test_sweep_kernel_matches_plain(dev, dtype, method, history):
+    p = K.experimental_rod(N=10).to(dev, dtype)
+    G, yh, zh, tf = _inputs(p, 67, 0, dev)
+    spec, net = (None, None) if history is None else _net(history, dtype, dev)
+    before = ksweep.LAUNCHES
+    with torch.no_grad():
+        got = ksweep.make_sweep_kernel(p, spec, method=method)(G, yh, zh, tf, net)
+        want = ksweep.sweep_reference(p, G, yh, zh, tf, net, method)
+    torch.cuda.synchronize()
+    assert ksweep.LAUNCHES == before + 1
+    rtol, atol = TOL[dtype]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("history", [None, False])
+def test_step_kernel_matches_plain(dev, dtype, history):
+    p = K.experimental_rod(N=10).to(dev, dtype)
+    G, yh, zh, tf = _inputs(p, 45, 1, dev)
+    G = torch.zeros_like(G)
+    spec, net = (None, None) if history is None else _net(history, dtype, dev,
+                                                          1e-2)
+    tol = 1e-18 if dtype == torch.float64 else 1e-13   # both to the floor
+    with torch.no_grad():
+        got = kstep.make_step_kernel(p, spec, tol=tol)(G, yh, zh, tf, net)
+        want = kstep.step_reference(p, G, yh, zh, tf, net, tol=tol)
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        for a, b in zip(got[:4], want[:4]):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-10)
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+
+
+def test_deeper_net_raises_on_cuda(dev):
+    p = K.experimental_rod().to(dev, torch.float32)
+    spec = K.MLPSpec(dims=(28, 16, 16, 25))
+    net = K.init_mlp(spec, torch.Generator().manual_seed(0), torch.float32, dev)
+    G, yh, zh, tf = _inputs(p, 4, 2, dev)
+    with pytest.raises(NotImplementedError):
+        ksweep.make_sweep_kernel(p, spec)(G, yh, zh, tf, net)
+
+
+def test_mega_rollout_matches_plain(dev):
+    p = K.experimental_rod(N=10, dtype=torch.float32).to(dev)
+    spec, net = _net(False, torch.float32, dev, 1e-3)
+    ctl = torch.tensor(np.stack([K.calc_controls("sine", 0.5 + i / 8, 0.05, 12)
+                                 for i in range(8)]), device=dev)
+    # both solvers run to the f32 floor: at tol=1e-10 each stops at its own
+    # point inside |r| <= 1e-5, and the states differ by more than 1e-4
+    traj, _, _ = make_fast_rollout(p, spec, tol=1e-13, impl="mega")(ctl, net)
+    ref, _, _ = make_fast_rollout(p, spec, tol=1e-13, impl="plain",
+                                  fd_order=1)(ctl, net)
+    torch.testing.assert_close(traj, ref, rtol=1e-4, atol=1e-4)

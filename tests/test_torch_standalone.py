@@ -1,0 +1,65 @@
+"""The port stands alone: it imports and steps a rod with jax blocked, and
+importing it neither runs a compiler nor loads a kernel library."""
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import torch
+
+torch.set_num_threads(1)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import ctypes, subprocess, sys
+    sys.modules["jax"] = None          # any `import jax` now fails
+    sys.modules["optax"] = None
+    import torch                       # (loads its own libraries first)
+    calls = []
+    real_run, real_popen, real_cdll = subprocess.run, subprocess.Popen, ctypes.CDLL
+    subprocess.run = lambda *a, **k: calls.append(("run", a)) or real_run(*a, **k)
+    subprocess.Popen = lambda *a, **k: calls.append(("popen", a)) or real_popen(*a, **k)
+    ctypes.CDLL = lambda *a, **k: calls.append(("cdll", a)) or real_cdll(*a, **k)
+
+    torch.set_num_threads(1)
+    import knode_cosserat_tpu_torch as K
+    loaded = sorted(m for m in sys.modules if m.startswith("knode_cosserat_tpu_torch"))
+    assert "knode_cosserat_tpu_torch.ops._build" not in loaded, loaded
+    assert "knode_cosserat_tpu_torch.ops.step" not in loaded, loaded
+    assert "knode_cosserat_tpu_torch.ops.sweep" not in loaded, loaded
+    assert not any(m.startswith("knode_cosserat_tpu.") or m == "knode_cosserat_tpu"
+                   for m in sys.modules), "the JAX package was imported"
+    assert calls == [], calls
+
+    # a CPU step through the fast (K2) path: the plain version, no build
+    p = K.experimental_rod(N=6)
+    st = K.CompiledStepper(p, fast=True, fast_impl="mega", tol=1e-16)
+    s, info = st.step(st.reset(), [6.0, 5.0, 4.0, 5.0])
+    assert float(info["residual"]) < 1e-7 and bool(torch.isfinite(s.y).all())
+    assert calls == [], calls
+    from knode_cosserat_tpu_torch.ops import _build, step
+    assert _build._LIB is None and step.LAUNCHES == 0
+    print("STANDALONE_OK")
+""")
+
+
+def test_port_imports_and_steps_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "STANDALONE_OK" in out.stdout
+
+
+def test_port_sources_never_import_jax():
+    pkg = os.path.join(ROOT, "knode_cosserat_tpu_torch")
+    bad = re.compile(r"^\s*(import|from)\s+(jax|optax|knode_cosserat_tpu)\b",
+                     re.M)
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(dirpath, f)).read()
+                assert not bad.search(text), f"{f}: {bad.search(text)}"
+    assert {"rhs_rows.cuh", "sweep.cu", "step.cu"} <= set(
+        os.listdir(os.path.join(pkg, "csrc")))
