@@ -1,14 +1,14 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check and
-time the hand-written kernels, and drive the serving path.
+time the hand-written kernels, and drive the serving and training paths.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines (any failure ends the run non-zero):
   1. device: needs CUDA; prints the card's name and power limit
      (nvidia-smi).
-  2. build: compiles csrc/*.cu with nvcc (ops/_build.py), prints seconds
-     and each kernel's registers / spills (the full ptxas log is kept beside
-     the library in build/torch_kernels/).
+  2. build: compiles each csrc/*.cu with its own nvcc, all at once
+     (ops/_build.py), prints seconds and each kernel's registers / spills
+     (the ptxas logs are kept beside the libraries in build/torch_kernels/).
   3. K3 (sweep) against its plain PyTorch version, B=300 lanes, N=10/40,
      Euler/RK4, no net / for_knode(512) / for_knode(512, history=True),
      float64 and float32.
@@ -20,7 +20,18 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      (K2) is checked against the plain driver; a default-impl rollout runs
      the per-phase sweep (K3). The launch counts of this phase must show
      both kernels.
-  6. timings, kernel vs plain, each with the card's name and power limit.
+  6. K4 (whole training run) against its plain version, 40 epochs on
+     tests/golden/bench_data.npz (232 cells, for_knode(512), nsw rod, f32):
+     plain, weight decay, a plateau that fires, the 53-input net, and 1,904
+     cells (train-real's size, data made on the card); 100 + 100 epochs
+     against one 200-epoch launch.
+  7. the training path, counted: train_knode at the reference configuration
+     (for_knode(512), 2000 epochs, validation every 200 on 100 steps); the
+     generated data against bench_data.npz (RMSE <= 1e-7); the loss must
+     fall, the DTWs be finite, and the run must launch K4 and K2.
+  8. timings, kernel vs plain, each with the card's name and power limit,
+     and each kernel's bound (the larger of its operations over the
+     float32 peak and its bytes over the memory rate).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -44,6 +55,21 @@ SWEEP_TOL = {torch.float64: (1e-10, 1e-12),   # K3 vs plain: (rtol, atol)
 STEP_F64 = (1e-9, 1e-10)          # K2 f64: rtol / atol on G, y, z, r2
 STEP_F32_ATOL = {"G": 1e-4, "y": 1e-5}
 ROLLOUT_F32 = (1e-4, 1e-4)        # mega vs plain rollout, f32 (rtol, atol)
+# K4 vs its plain version: the JAX package's own fused-vs-scan tolerances
+# (tests/test_pallas_train.py:49-54); both run float32 and sum in other
+# orders, and over 40 epochs Adam carries that rounding forward
+K4_LOSS = (2e-4, 1e-9)            # rtol, atol on the per-epoch losses
+K4_PARAM = (3e-3, 3e-5)           # rtol, atol on the trained weights
+DATA_RMSE = 1e-7                  # generated data vs bench_data.npz
+# the H100 SXM's published peaks (NVIDIA's data sheet): float32 outside
+# the tensor cores, and the device memory's rate
+PEAK_F32 = 67e12                  # FLOP/s
+PEAK_BYTES = 3.35e12              # B/s
+# arithmetic of one node of the physics RHS besides the MLP (quaternion
+# to rotation, two 3x3 solves, drag, cross products): an estimate, <1% of
+# a hybrid node at hidden 512
+PHYS_FLOPS = 400
+BIG_SPECS = [("sine", 0.5), ("sine", 1.0), ("sine", 1.25), ("sine", 1.5)]
 
 
 def log(*a):
@@ -144,7 +170,7 @@ def phase_sweep(K, dev, errs):
     for dtype in (torch.float64, torch.float32):
         rtol, atol = SWEEP_TOL[dtype]
         for N in (10, 40):
-            p = K.experimental_rod(N=N).to(dev, dtype)
+            p = K.experimental_rod(N=N, device=dev).to(dtype=dtype)
             G, yh, zh, tf = on(dev, dtype, *history_inputs(p, B, SEED + N))
             for hist in (None, False, True):
                 spec, net = (None, None) if hist is None else make_net(
@@ -180,7 +206,7 @@ def phase_step(K, dev, errs):
              (torch.float32, 10, "euler", False), (torch.float32, 10, "rk4", True),
              (torch.float32, 40, "rk4", None)]
     for dtype, N, method, hist in cases:
-        p = K.experimental_rod(N=N).to(dev, dtype)
+        p = K.experimental_rod(N=N, device=dev).to(dtype=dtype)
         G, yh, zh, tf = on(dev, dtype, *history_inputs(p, B, SEED + 7 * N))
         G = torch.zeros_like(G)
         spec, net = (None, None) if hist is None else make_net(
@@ -227,7 +253,7 @@ def phase_serving(K, dev):
     from knode_cosserat_tpu_torch.ops import step as kstep
     from knode_cosserat_tpu_torch.ops import sweep as ksweep
 
-    p = K.experimental_rod(N=10, dtype=torch.float32).to(dev)
+    p = K.experimental_rod(N=10, dtype=torch.float32, device=dev)
     spec, net = make_net(K, False, torch.float32, dev, scale=1e-3)
     R = 256
     ctl = sine_tensions(p, R, 50)
@@ -300,7 +326,7 @@ def phase_timings(K, dev, name_power):
     R = 256
 
     # K1: one node per lane (a K3 sweep over N=2), hybrid 512, 256x7 lanes
-    p2 = K.experimental_rod(N=2).to(dev, dt)
+    p2 = K.experimental_rod(N=2, device=dev).to(dtype=dt)
     spec, net = make_net(K, False, dt, dev)
     G, yh, zh, tf = on(dev, dt, *history_inputs(p2, R * 7, SEED))
     k1 = make_sweep_kernel(p2, spec, want_rod=False)
@@ -318,7 +344,7 @@ def phase_timings(K, dev, name_power):
         f"{ms['K1'][0]:.3f} ms, plain {ms['K1'][1]:.3f} ms (max err {e1:.3e}) {tag}")
 
     # K3: the line-search sweep of the FD driver, 256 rods x 7 candidates
-    p = K.experimental_rod(N=10).to(dev, dt)
+    p = K.experimental_rod(N=10, device=dev).to(dtype=dt)
     G, yh, zh, tf = on(dev, dt, *history_inputs(p, R * 7, SEED))
     k3 = make_sweep_kernel(p, spec, want_rod=False)
     with torch.no_grad():
@@ -337,12 +363,18 @@ def phase_timings(K, dev, name_power):
         ms["K2"] = (timed(lambda: k2(G, yh, zh, tf, net3), 5),
                     timed(lambda: step_reference(p, G, yh, zh, tf, net3,
                                                  tol=1e-10, max_iter=20), 3))
+        iters = k2(G, yh, zh, tf, net3)[4]
+    # K2's work depends on the data: per rod the first residual sweep, 6
+    # probes and >= 1 line-search candidate per iteration, and the final
+    # recording sweep (a floor: failed candidates are not counted)
+    ms["K2_sweeps"] = int((2 + 7 * iters.long()).sum())
     log(f"[time] K2 step N=10, {R} rods, hybrid 512 f32: kernel "
-        f"{ms['K2'][0]:.3f} ms, plain {ms['K2'][1]:.3f} ms {tag}")
+        f"{ms['K2'][0]:.3f} ms, plain {ms['K2'][1]:.3f} ms "
+        f"({ms['K2_sweeps']} sweeps, iters max {int(iters.max())}) {tag}")
 
     # rod-steps/s of 256-rod rollouts (the plain driver over T=11 steps)
     for N, hybrid in ((10, False), (40, False), (10, True)):
-        pr = K.experimental_rod(N=N, dtype=dt).to(dev)
+        pr = K.experimental_rod(N=N, dtype=dt, device=dev)
         sp, nt = (spec, net3) if hybrid else (None, None)
         rates = []
         for impl, T in (("mega", 50), ("plain", 11)):
@@ -369,6 +401,196 @@ def phase_timings(K, dev, name_power):
     return ms
 
 
+def bound(flops, nbytes):
+    """(ms, "operations" | "bytes"): the least time the card could take."""
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def node_flops(hidden, din):
+    """One hybrid RHS node: the 2-layer MLP, its ELU and the physics."""
+    return 2 * hidden * (din + 25) + hidden + PHYS_FLOPS
+
+
+def bench_data(dev):
+    """tests/golden/bench_data.npz: 2 trajectories x 30 steps, N=10, f64."""
+    d = np.load(os.path.join(HERE, "tests", "golden", "bench_data.npz"))
+    trajs = np.moveaxis(d["trajs"], 2, 3)    # (B, T, 25, N) -> (B, T, N, 25)
+    return (torch.tensor(trajs, device=dev),
+            torch.tensor(d["controls"], device=dev))
+
+
+def train_setup(K, dev, **cfg_kw):
+    """The nsw rod (f32), a TrainConfig at hidden 512 and its fresh net."""
+    cfg = K.TrainConfig(hidden=HIDDEN, **cfg_kw)
+    p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+    net = K.init_mlp(cfg.spec(), torch.Generator().manual_seed(SEED),
+                     torch.float32, dev)
+    return p, cfg, net
+
+
+def phase_k4(K, dev, errs):
+    """K4 against train_run_reference on the card; returns the 1,904-cell
+    data for the timings."""
+    from knode_cosserat_tpu_torch.ops.train import make_fused_training_run
+
+    small = bench_data(dev)
+    t0 = time.perf_counter()
+    big = K.make_training_data(K.apply_mod(None, device=dev), BIG_SPECS,
+                               train_len=120)
+    torch.cuda.synchronize()
+    log(f"[K4] train-real-size data {tuple(big[0].shape)} made on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    cases = [("plain", small, {}), ("weight_decay=1e-4", small,
+                                    dict(weight_decay=1e-4)),
+             ("plateau_patience=4", small, dict(plateau_patience=4)),
+             ("history (53 inputs)", small, dict(history=True)),
+             ("1904 cells", big, {})]
+    for name, (trajs, ctls), kw in cases:
+        p, cfg, net = train_setup(K, dev, **kw)
+        got = make_fused_training_run(p, cfg.spec(), cfg, 40)(net, trajs,
+                                                              ctls)
+        want = make_fused_training_run(p, cfg.spec(), cfg, 40, plain=True)(
+            net, trajs, ctls)
+        torch.cuda.synchronize()
+        ok, e_loss = close(got[1], want[1], *K4_LOSS)
+        e_par = 0.0
+        for a, b in zip(got[0].parameters(), want[0].parameters()):
+            ok_p, e = close(a.detach(), b.detach(), *K4_PARAM)
+            ok, e_par = ok and ok_p, max(e_par, e)
+        fired = float(got[2]["scalars"][3]) < 1.0
+        errs.setdefault("K4", []).extend([e_loss, e_par])
+        log(f"[K4] {name:20s} 40 epochs: loss {float(got[1][0]):.4e} -> "
+            f"{float(got[1][-1]):.4e}, max err loss {e_loss:.3e} params "
+            f"{e_par:.3e}, plateau fired {fired}")
+        if not ok:
+            raise AssertionError(f"K4 {name}: beyond loss {K4_LOSS} / params "
+                                 f"{K4_PARAM}: {e_loss:.3e} / {e_par:.3e}")
+        if not float(got[1][-1]) < float(got[1][0]):
+            raise AssertionError(f"K4 {name}: the loss did not fall")
+
+    # chunks compose: 100 + 100 epochs == one 200-epoch launch
+    p, cfg, net = train_setup(K, dev)
+    trajs, ctls = small
+    whole = make_fused_training_run(p, cfg.spec(), cfg, 200)(net, trajs, ctls)
+    half = make_fused_training_run(p, cfg.spec(), cfg, 100)
+    mid = half(net, trajs, ctls)
+    end = half(mid[0], trajs, ctls, mid[2])
+    ok, e = close(torch.cat([mid[1], end[1]]), whole[1], *K4_LOSS)
+    for a, b in zip(end[0].parameters(), whole[0].parameters()):
+        ok_p, e_p = close(a.detach(), b.detach(), *K4_PARAM)
+        ok, e = ok and ok_p, max(e, e_p)
+    log(f"[K4] 100 + 100 epochs vs one 200-epoch launch: max err {e:.3e}")
+    if not ok:
+        raise AssertionError(f"K4 chunks do not compose: {e:.3e}")
+    plain = make_fused_training_run(p, cfg.spec(), cfg, 200, plain=True)(
+        net, trajs, ctls)
+    gap = float(((whole[1] - plain[1]).abs() / plain[1].abs()).max())
+    log(f"[K4] 200 epochs, kernel vs plain (reported, not gated): max "
+        f"relative loss gap {gap:.3e}, final loss {float(whole[1][-1]):.4e} "
+        f"vs {float(plain[1][-1]):.4e}")
+    return small, big
+
+
+def phase_train(K, dev):
+    """The training path, counted: train_knode at the reference config."""
+    from knode_cosserat_tpu_torch.ops import step as kstep
+    from knode_cosserat_tpu_torch.ops import sweep as ksweep
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+
+    ref = K.apply_mod(None, device=dev)
+    t0 = time.perf_counter()
+    trajs, ctls = K.make_training_data(ref, [("sine", 0.5), ("sine", 1.0)],
+                                       train_len=30)
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    bt, bc = bench_data(dev)
+    rmse = float(((trajs - bt) ** 2).mean().sqrt())
+    log(f"[train] data {tuple(trajs.shape)} made on the card in {t_data:.1f} "
+        f"s: RMSE vs bench_data.npz {rmse:.3e} (bar {DATA_RMSE}), controls "
+        f"equal {bool(torch.equal(ctls, bc))}")
+    if not (rmse <= DATA_RMSE and torch.equal(ctls, bc)):
+        raise AssertionError(f"generated data RMSE {rmse:.3e} > {DATA_RMSE}")
+    vc, vt = K.make_validation_reference(ref, ("sine", 1.25), 100)
+    p_mod = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    K.simulate(p_mod, vc, tol=1e-10)        # the epoch-0 evaluation, alone
+    torch.cuda.synchronize()
+    t_eval0 = time.perf_counter() - t0
+    cfg = K.TrainConfig(hidden=HIDDEN, epochs=2000, eval_every=200,
+                        eval_len=100, dtype="float32")
+    kstep.LAUNCHES = ksweep.LAUNCHES = ktrain.LAUNCHES = 0
+    t0 = time.perf_counter()
+    r = K.train_knode(p_mod, trajs, ctls, cfg, vc, vt, log=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K4": ktrain.LAUNCHES, "K2": kstep.LAUNCHES,
+                "K3": ksweep.LAUNCHES}
+    lh = r.loss_history
+    dtws = [d for _, d in r.dtw_history]
+    log(f"[train] train_knode for_knode(512), 2000 epochs, f32: {wall:.1f} s "
+        f"(epoch-0 evaluation alone {t_eval0:.1f} s), epochs_per_sec "
+        f"{r.epochs_per_sec:.1f} on {r.device}")
+    log(f"[train] loss {lh[0]:.4e} -> {lh[-1]:.4e} ({len(lh)} entries); DTW "
+        f"history {[(e, round(d, 6)) for e, d in r.dtw_history]}; best_dtw "
+        f"{r.best_dtw:.6f}")
+    log(f"[train] main-path launches: ops.train.LAUNCHES {launches['K4']}, "
+        f"ops.step.LAUNCHES {launches['K2']}, ops.sweep.LAUNCHES "
+        f"{launches['K3']}")
+    if not (np.isfinite(lh).all() and lh[-1] < lh[0]):
+        raise AssertionError(f"training loss did not fall: {lh[0]} -> {lh[-1]}")
+    if not (np.isfinite(dtws).all() and np.isfinite(r.best_dtw)):
+        raise AssertionError(f"non-finite DTW: {r.dtw_history}")
+    if launches["K4"] == 0 or launches["K2"] == 0:
+        raise AssertionError(f"the training path missed a kernel: {launches}")
+    # one validation rollout alone, as train_knode runs it (K2, tol 1e-10)
+    from knode_cosserat_tpu_torch.core.fast_rollout import make_fast_rollout
+    roll = make_fast_rollout(p_mod, r.spec, tol=1e-10, max_iter=50,
+                             impl="mega")
+    t0 = time.perf_counter()
+    _, res, iters = roll(torch.as_tensor(vc)[None], r.params)
+    torch.cuda.synchronize()
+    log(f"[train] one validation rollout (K2, 1 rod x {iters.shape[0]} steps, "
+        f"final weights): {time.perf_counter() - t0:.2f} s, Newton iterations "
+        f"per step mean {float(iters.float().mean()):.1f} max "
+        f"{int(iters.max())}, residual max {float(res.max()):.3e}")
+    return launches, r
+
+
+def phase_k4_timings(K, dev, name_power, data):
+    """K4 per 200-epoch chunk against its plain version and its bound."""
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+
+    tag = f"[{name_power}]"
+    E = 200
+    out = {}
+    for label, (trajs, ctls) in zip(("232", "1904"), data):
+        p, cfg, net = train_setup(K, dev)
+        spec = cfg.spec()
+        cells = ktrain.precompute(p, spec, cfg.keypoints, trajs, ctls)
+        W = [t.detach() for wb in net.weights() for t in wb]
+        state = ktrain.fused_state_from_optimizer(K.training.make_optimizer(
+            cfg, net))
+        hyper = ktrain.TrainHyper(cfg.lr, cfg.weight_decay, cfg.plateau_factor,
+                                  cfg.plateau_patience, cfg.clamp_weights)
+        C, din = cells.x.shape
+        kern = timed(lambda: ktrain.train_run(cells, W, state, E, hyper), 3)
+        plain = timed(lambda: ktrain.train_run_reference(cells, W, state, E,
+                                                         hyper), 1)
+        n_params = HIDDEN * (din + 25) + HIDDEN + 25
+        flops = E * 2 * C * HIDDEN * (2 * din + 75)
+        nbytes = 4 * (C * (din + 56) + 6 * n_params + E + 8)
+        b_ms, b_by = bound(flops, nbytes)
+        out[label] = dict(ms=kern, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        log(f"[time] K4 {E}-epoch chunk, {C} cells, hidden {HIDDEN} f32: "
+            f"kernel {kern:.3f} ms ({E / kern * 1e3:.1f} epochs/s), plain "
+            f"{plain:.3f} ms ({E / plain * 1e3:.1f} epochs/s), bound "
+            f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB) {tag}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -387,28 +609,47 @@ def main() -> int:
     errs = {}
     phase_sweep(K, dev, errs)
     phase_step(K, dev, errs)
-    launches = phase_serving(K, dev)
+    serve = phase_serving(K, dev)
+    data = phase_k4(K, dev, errs)
+    train, _ = phase_train(K, dev)
     ms = phase_timings(K, dev, name_power)
+    k4 = phase_k4_timings(K, dev, name_power, data)["232"]
 
+    # bounds at the timed shapes (float32, hidden 512, 28 inputs, N=10)
+    R, f_node = 256, node_flops(HIDDEN, 28)
+    w_bytes = 4 * (HIDDEN * (28 + 25) + HIDDEN + 25)
+    k1_bound = bound(R * 7 * f_node, w_bytes + 4 * R * 7 * (6 + 38 + 12 + 3 + 6))
+    k3_bound = bound(R * 7 * 9 * f_node,
+                     w_bytes + 4 * R * 7 * (6 + 190 + 60 + 3 + 6))
+    k2_bound = bound(ms["K2_sweeps"] * 9 * f_node,
+                     w_bytes + 4 * R * (6 + 190 + 60 + 3 + 6 + 190 + 54 + 2))
     src = "knode_cosserat_tpu_torch/csrc/"
     k3_err = max(errs[("K3", torch.float32)] + errs[("K3", torch.float64)])
     k1_err = max(k3_err, ms["K1_err"])
+    row = lambda b: {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
     kernels = [
         {"name": "K1 rhs_rows (hybrid per-node RHS, inlined in K2/K3)",
          "route": "cuda", "source": src + "rhs_rows.cuh",
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:93",
-         "launches": launches["K2"] + launches["K3"], "max_abs_err": k1_err,
-         "ms": ms["K1"][0], "plain_ms": ms["K1"][1]},
+         "launches": serve["K2"] + serve["K3"] + train["K2"] + train["K3"],
+         "max_abs_err": k1_err, "ms": ms["K1"][0], "plain_ms": ms["K1"][1],
+         **row(k1_bound)},
         {"name": "K3 sweep", "route": "cuda", "source": src + "sweep.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:201",
-         "launches": launches["K3"], "max_abs_err": k3_err,
-         "ms": ms["K3"][0], "plain_ms": ms["K3"][1]},
+         "launches": serve["K3"] + train["K3"], "max_abs_err": k3_err,
+         "ms": ms["K3"][0], "plain_ms": ms["K3"][1], **row(k3_bound)},
         {"name": "K2 step", "route": "cuda", "source": src + "step.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_step.py:57",
-         "launches": launches["K2"],
+         "launches": serve["K2"] + train["K2"],
          "max_abs_err": max(errs[("K2", torch.float32)]
                             + errs[("K2", torch.float64)]),
-         "ms": ms["K2"][0], "plain_ms": ms["K2"][1]},
+         "ms": ms["K2"][0], "plain_ms": ms["K2"][1], **row(k2_bound)},
+        {"name": "K4 train (whole training run, 200-epoch chunk, 232 cells)",
+         "route": "cuda", "source": src + "train.cu",
+         "replaces": "knode_cosserat_tpu/ops/pallas_train.py:345",
+         "launches": train["K4"], "max_abs_err": max(errs["K4"]),
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         **row((k4["bound_ms"], k4["bound_by"]))},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,19 @@ public names mirror the JAX package ``knode_cosserat_tpu``, which stays the
 reference this port is tested against. The port imports neither jax nor
 optax.
 
+Constructors that make tensors from nothing (rods, nets) build on the CUDA
+card unless the caller passes ``device="cpu"`` (device.py); without a card
+they raise. Everything downstream follows the device of the rod.
+
 On the CPU every kernel runs as its plain PyTorch version. On a CUDA device
 the hot path runs hand-written Hopper kernels (``csrc/``), built with nvcc
 at their first launch: K1 (the per-node hybrid RHS), K3 (the spatial
-sweep, ops/sweep.py) and K2 (one whole Newton shooting step, ops/step.py).
+sweep, ops/sweep.py), K2 (one whole Newton shooting step, ops/step.py) and
+K4 (the whole training run, ops/train.py).
 
 Importing the package builds and loads nothing: the kernel modules
-(ops/sweep.py, ops/step.py, ops/_build.py) are imported at first use.
+(ops/sweep.py, ops/step.py, ops/train.py, ops/_build.py) are imported at
+first use.
 """
 import torch
 
@@ -28,6 +34,9 @@ from .core.stepper import SimOutput, initial_state, simulate, simulate_scan
 from .models.mlp import (KnodeMLP, MLPSpec, bind, init_mlp, mlp_apply,
                          params_from_jax)
 from .serving import CompiledStepper, StepState
+from .training import (TrainConfig, TrainResult, make_training_data,
+                       make_validation_reference, teacher_forced_loss,
+                       train_knode)
 
 __version__ = "0.1.0"
 

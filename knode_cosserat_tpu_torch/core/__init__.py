@@ -3,5 +3,6 @@ from .params import (MODS, MODS_ORIGINAL, RodParams, apply_mod, derive,
 from .rhs import nn_input_features, rhs
 from .shooting import NewtonStats, newton_solve
 from .spatial import (base_state, integrate_euler, integrate_rk4,
-                      residual_euler, residual_rk4, tip_residual)
+                      next_segment_euler, residual_euler, residual_rk4,
+                      tip_residual)
 from .stepper import SimOutput, initial_state, simulate, simulate_scan

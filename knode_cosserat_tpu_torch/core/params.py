@@ -19,6 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..device import default_device
+
 __all__ = [
     "RodParams",
     "make_rod",
@@ -115,7 +117,9 @@ class RodParams:
 def derive(p: RodParams, dtype: torch.dtype = torch.float64,
            device=None) -> RodParams:
     """Fill the derived terms (reference cosserat_ode.py:58-78). Computed in
-    float64 numpy on the host for conditioning, then cast to ``dtype``."""
+    float64 numpy on the host for conditioning, then cast to ``dtype`` on
+    ``device`` (default: the CUDA card, see device.py)."""
+    device = default_device(device)
     f64 = lambda x: np.asarray(_host(x), np.float64)
     L = float(f64(p.L))
     E = float(f64(p.E))
@@ -272,7 +276,8 @@ def rod_from_numpy(p, dtype: torch.dtype | None = None,
     """Build a RodParams from any object with the same field names (e.g. the
     JAX package's rod), reading every leaf through ``np.asarray``. The
     leaves are taken as they are (no re-derivation); ``dtype`` defaults to
-    the source leaves' dtype."""
+    the source leaves' dtype, ``device`` to the CUDA card (device.py)."""
+    device = default_device(device)
     kw = {}
     for f in dataclasses.fields(RodParams):
         v = getattr(p, f.name)

@@ -24,6 +24,7 @@ __all__ = [
     "tip_residual",
     "residual_euler",
     "residual_rk4",
+    "next_segment_euler",
 ]
 
 
@@ -117,3 +118,36 @@ def residual_rk4(p, G, yh, zh, yh_int, zh_int, tendon_forces,
     y, _ = integrate_rk4(p, G, yh, zh, yh_int, zh_int, tendon_forces,
                          nn_fn, nn_history)
     return tip_residual(p, y)
+
+
+def next_segment_euler(
+    p: RodParams,
+    y_next_truth: torch.Tensor,
+    yh: torch.Tensor,
+    zh: torch.Tensor,
+    tendon_forces: torch.Tensor,
+    nn_fn: Optional[Callable] = None,
+    nn_history: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced one-Euler-step per node: the training hot path
+    (getNextSegmentEuler, cosserat_ode_torch.py:370-399).
+
+    The rod state is the ground-truth NEXT step (the implicit BDF-2
+    evaluation point), the history terms come from the current step, and
+    the nodes are deliberately not chained (cosserat_ode_torch.py:391), so
+    this is one broadcast RHS evaluation over every node and leading axis.
+
+    Args:
+      y_next_truth: (..., M, 19) truth next state at the evaluated nodes.
+      yh/zh: (..., M, 19)/(..., M, 6) current-step history at those nodes.
+      tendon_forces: (3,), or (..., 3) per leading index and shared across
+        the node axis, or already aligned with ``y_next_truth``'s batch.
+    Returns:
+      y_grown (..., M, 19) = y + ds * ODE(y), and z_new (..., M, 6).
+    """
+    tf = tendon_forces
+    if tf.dim() > 1 and tf.shape[:-1] == y_next_truth.shape[:-2]:
+        # per-(batch) forces shared across the node axis -> insert it
+        tf = tf.unsqueeze(-2)
+    dy, z_new = rhs(p, y_next_truth, yh, zh, tf, nn_fn, nn_history)
+    return y_next_truth + p.ds * dy, z_new

@@ -1,0 +1,2 @@
+from .metrics import dtw, fastdtw, pct_error, pose_mse, tip_dtw, traj_mse
+from ..ops.dtw import batch_dtw_device, dtw_device, tip_dtw_device

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import default_device
+
 __all__ = ["MLPSpec", "KnodeMLP", "init_mlp", "mlp_apply", "clamp_nonnegative",
            "count_params", "bind", "params_from_jax", "ACTIVATIONS"]
 
@@ -62,10 +64,12 @@ class MLPSpec:
 
 class KnodeMLP(nn.Module):
     """The residual net: ``layers`` is an ``nn.ModuleList`` of
-    ``nn.Linear``, the activation applied between them."""
+    ``nn.Linear``, the activation applied between them. ``device``
+    defaults to the CUDA card (device.py)."""
 
     def __init__(self, spec: MLPSpec, dtype=torch.float64, device=None):
         super().__init__()
+        device = default_device(device)
         if spec.compute_dtype is not None:
             raise NotImplementedError(
                 "MLPSpec.compute_dtype (mixed-precision storage) is not "
@@ -76,10 +80,14 @@ class KnodeMLP(nn.Module):
             for din, dout in zip(spec.dims[:-1], spec.dims[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Inputs and weights of different dtypes compute in the wider one
+        (JAX's promotion: float32 weights on float64 features give float64,
+        with the gradient flowing back to the float32 weights)."""
         act = ACTIVATIONS[self.spec.activation]
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
-            x = F.linear(x, layer.weight, layer.bias)
+            dt = torch.promote_types(x.dtype, layer.weight.dtype)
+            x = F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
             if i < n - 1:
                 x = act(x)
         return x

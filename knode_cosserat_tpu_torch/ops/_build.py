@@ -1,15 +1,16 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-``library()`` compiles every ``.cu`` file under ``csrc/`` with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, and
-loads it with ``ctypes``. The library lives in ``build/torch_kernels/``
-at the root of the checkout, named by a hash of the sources, the flags and
-the compiler's version, so a changed source or toolkit builds anew and an
+``library()`` compiles each ``.cu`` file under ``csrc/`` with its own
+``nvcc`` process for Hopper (``sm_90a``), all started together, into one
+shared library per source with a plain C interface, and loads them with
+``ctypes``. The libraries live in ``build/torch_kernels/<hash>/`` at the
+root of the checkout, the hash taken over the sources, the flags and the
+compiler's version, so a changed source or toolkit builds anew and an
 unchanged one is loaded as it is. Nothing is built or loaded when this
 module is imported: the first kernel launch calls ``library()``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
-wrappers (ops/sweep.py, ops/step.py) raise when it is not 0.
+wrappers (ops/sweep.py, ops/step.py, ops/train.py) raise when it is not 0.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["library", "RodConstsHost", "build_info", "NVCC_FLAGS"]
+__all__ = ["library", "RodConstsHost", "TrainArgs", "build_info",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -54,6 +56,31 @@ class RodConstsHost(ctypes.Structure):
                 ("M_tip", ctypes.c_double * 3)]
 
 
+class TrainArgs(ctypes.Structure):
+    """Mirror of ``TrainArgs`` in csrc/train.cu: device pointers of the
+    cell slabs, weights, moments and scalars, and the run's constants."""
+    _fields_ = [("cells", ctypes.c_void_p * 6),    # x, y_base, z_phys,
+                                                   # tgt_y, tgt_z, e_tgt
+                ("w_in", ctypes.c_void_p * 4),     # W1, b1, W2, b2
+                ("m_in", ctypes.c_void_p * 8),     # mu, nu of each
+                ("s_in", ctypes.c_void_p),         # count, best, pcount, scale
+                ("w_out", ctypes.c_void_p * 4),
+                ("m_out", ctypes.c_void_p * 8),
+                ("s_out", ctypes.c_void_p),
+                ("losses", ctypes.c_void_p),
+                ("C", ctypes.c_int), ("din", ctypes.c_int),
+                ("hidden", ctypes.c_int), ("n_epochs", ctypes.c_int),
+                ("patience", ctypes.c_int), ("clamp", ctypes.c_int),
+                ("lr", ctypes.c_double), ("weight_decay", ctypes.c_double),
+                ("factor", ctypes.c_double), ("rtol", ctypes.c_double),
+                ("ds", ctypes.c_double),
+                ("inv", ctypes.c_double * 4)]     # pos, states, eul, z
+
+
+class _Kernels:
+    """The C entry points of every kernel library, as attributes."""
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
@@ -69,15 +96,15 @@ def _sources():
 
 
 def build_info() -> dict:
-    """What the last ``library()`` call did: path, seconds spent building
-    (~0 when loaded from an earlier build) and the ptxas register / spill
-    report of a build made in this process (also kept beside the library
-    as ``lib<hash>.ptxas.log``)."""
+    """What the last ``library()`` call did: the libraries' directory,
+    seconds spent building (~0 when loaded from an earlier build) and the
+    ptxas register / spill report of a build made in this process (also
+    kept beside each library as ``lib<source>.ptxas.log``)."""
     return dict(_INFO)
 
 
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
+def library() -> _Kernels:
+    """Build (if needed) and load the kernel libraries; cached per process."""
     global _LIB
     if _LIB is not None:
         return _LIB
@@ -91,42 +118,61 @@ def library() -> ctypes.CDLL:
         h.update(f.read_bytes())
     h.update(repr(NVCC_FLAGS).encode())
     h.update(version.encode())
-    out = BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
+    out_dir = BUILD_DIR / h.hexdigest()[:16]
+    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    log = ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-             *map(str, cu)], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+    outs = {src.stem: out_dir / f"lib{src.stem}.so" for src in cu}
+    jobs = {}
+    for src in cu:                  # one nvcc per source, all at once
+        out = outs[src.stem]
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            jobs[src.stem] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    logs, failed = [], []
+    for stem, (tmp, proc) in jobs.items():
+        log = proc.communicate()[0]
+        logs.append(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        out.with_suffix(".ptxas.log").write_text(log)
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    _declare(lib)
-    _INFO.update(path=str(out), build_seconds=time.perf_counter() - t0,
-                 ptxas=log)
-    _LIB = lib
-    return lib
+            failed.append(f"{stem}.cu ({proc.returncode}):\n{log}")
+            continue
+        outs[stem].with_suffix(".ptxas.log").write_text(log)
+        os.replace(tmp, outs[stem])
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    kernels = _Kernels()
+    for stem, out in outs.items():
+        kernels.__dict__[stem] = ctypes.CDLL(str(out))
+    _declare(kernels)
+    _INFO.update(path=str(out_dir), build_seconds=time.perf_counter() - t0,
+                 ptxas="".join(logs))
+    _LIB = kernels
+    return kernels
 
 
-def _declare(lib):
+def _declare(k: _Kernels):
+    """Set argtypes / restype of each entry point and bind it onto ``k``."""
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     consts = ctypes.POINTER(RodConstsHost)
+    k.knode_sweep = k.sweep.knode_sweep
+    k.knode_step = k.step.knode_step
+    k.knode_train = k.train.knode_train
     # knode_sweep(is_f64, nn_in, act, rk4, B, N, consts, G, yh, zh, tf,
     #             W1, b1, W2, b2, hidden, res, y, z, block, stream)
-    lib.knode_sweep.argtypes = [I, I, I, I, I, I, consts, P, P, P, P,
+    k.knode_sweep.argtypes = [I, I, I, I, I, I, consts, P, P, P, P,
                                 P, P, P, P, I, P, P, P, I, P]
-    lib.knode_sweep.restype = I
+    k.knode_sweep.restype = I
     # knode_step(is_f64, nn_in, act, rk4, B, N, consts, tol, eps0, max_iter,
     #            n_alphas, lm_lambda0, lm_growth, max_escalations,
     #            G, yh, zh, tf, W1, b1, W2, b2, hidden,
     #            G_out, y, z, r2, iters, block, stream)
-    lib.knode_step.argtypes = [I, I, I, I, I, I, consts, D, D, I,
+    k.knode_step.argtypes = [I, I, I, I, I, I, consts, D, D, I,
                                I, D, D, I,
                                P, P, P, P, P, P, P, P, I,
                                P, P, P, P, P, I, P]
-    lib.knode_step.restype = I
+    k.knode_step.restype = I
+    # knode_train(args, threads, stream)
+    k.knode_train.argtypes = [ctypes.POINTER(TrainArgs), I, P]
+    k.knode_train.restype = I

@@ -1,17 +1,20 @@
 """Quaternion operations, broadcast-native (state on the last axis).
 
-PyTorch counterpart of ``knode_cosserat_tpu/ops/quaternion.py`` for the two
-operations the rod physics uses:
+PyTorch counterpart of ``knode_cosserat_tpu/ops/quaternion.py`` for the
+operations the rod physics and the training loss use:
   - quat -> rotation matrix (cosserat_ode.py:132-137, non-normalized form
     R = I + 2/(h.h) * [[...]]),
   - quaternion spatial derivative hs = 0.5 * Omega(u) h
-    (cosserat_ode.py:160-165).
+    (cosserat_ode.py:160-165),
+  - the training loss's quaternion -> Euler angles
+    (Utils/transformations.py:3-31).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["quat_to_rotmat", "quat_spatial_derivative"]
+__all__ = ["quat_to_rotmat", "quat_spatial_derivative",
+           "quaternion_to_euler"]
 
 
 def quat_to_rotmat(h: torch.Tensor) -> torch.Tensor:
@@ -41,3 +44,18 @@ def quat_spatial_derivative(u: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         u2 * h1 - u3 * h2 + u1 * h4,
         u3 * h1 + u2 * h2 - u1 * h3,
     ], dim=-1)
+
+
+def quaternion_to_euler(h: torch.Tensor) -> torch.Tensor:
+    """The training-loss Euler transform (Utils/transformations.py:3-31).
+
+    Input (..., 4) [w,x,y,z]; output (..., 3). This is the reference's own
+    (nonstandard) convention, kept so that losses match:
+    roll = atan2(2(wy+xz), 1-2(y^2+z^2)), pitch = asin(clip(2(wz-xy))),
+    yaw = atan2(2(wx+yz), 1-2(x^2+z^2))."""
+    hn = h / torch.linalg.vector_norm(h, dim=-1, keepdim=True)
+    w, x, y, z = hn.unbind(-1)
+    roll = torch.atan2(2 * (w * y + x * z), 1 - 2 * (y ** 2 + z ** 2))
+    pitch = torch.asin(torch.clamp(2 * (w * z - x * y), -1.0, 1.0))
+    yaw = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x ** 2 + z ** 2))
+    return torch.stack([roll, pitch, yaw], dim=-1)

@@ -15,6 +15,7 @@ from knode_cosserat_tpu_torch.core.fast_rollout import make_fast_rollout
 from knode_cosserat_tpu_torch.core.stepper import initial_state
 from knode_cosserat_tpu_torch.ops import step as kstep
 from knode_cosserat_tpu_torch.ops import sweep as ksweep
+from knode_cosserat_tpu_torch.ops import train as ktrain
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float64: (1e-10, 1e-12), torch.float32: (1e-4, 1e-5)}
@@ -51,7 +52,7 @@ def _net(history, dtype, dev, scale=1.0):
 @pytest.mark.parametrize("method", ["euler", "rk4"])
 @pytest.mark.parametrize("history", [None, False, True])
 def test_sweep_kernel_matches_plain(dev, dtype, method, history):
-    p = K.experimental_rod(N=10).to(dev, dtype)
+    p = K.experimental_rod(N=10, device=dev).to(dtype=dtype)
     G, yh, zh, tf = _inputs(p, 67, 0, dev)
     spec, net = (None, None) if history is None else _net(history, dtype, dev)
     before = ksweep.LAUNCHES
@@ -68,7 +69,7 @@ def test_sweep_kernel_matches_plain(dev, dtype, method, history):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("history", [None, False])
 def test_step_kernel_matches_plain(dev, dtype, history):
-    p = K.experimental_rod(N=10).to(dev, dtype)
+    p = K.experimental_rod(N=10, device=dev).to(dtype=dtype)
     G, yh, zh, tf = _inputs(p, 45, 1, dev)
     G = torch.zeros_like(G)
     spec, net = (None, None) if history is None else _net(history, dtype, dev,
@@ -87,7 +88,7 @@ def test_step_kernel_matches_plain(dev, dtype, history):
 
 
 def test_deeper_net_raises_on_cuda(dev):
-    p = K.experimental_rod().to(dev, torch.float32)
+    p = K.experimental_rod(device=dev).to(dtype=torch.float32)
     spec = K.MLPSpec(dims=(28, 16, 16, 25))
     net = K.init_mlp(spec, torch.Generator().manual_seed(0), torch.float32, dev)
     G, yh, zh, tf = _inputs(p, 4, 2, dev)
@@ -96,7 +97,7 @@ def test_deeper_net_raises_on_cuda(dev):
 
 
 def test_mega_rollout_matches_plain(dev):
-    p = K.experimental_rod(N=10, dtype=torch.float32).to(dev)
+    p = K.experimental_rod(N=10, dtype=torch.float32, device=dev)
     spec, net = _net(False, torch.float32, dev, 1e-3)
     ctl = torch.tensor(np.stack([K.calc_controls("sine", 0.5 + i / 8, 0.05, 12)
                                  for i in range(8)]), device=dev)
@@ -106,3 +107,59 @@ def test_mega_rollout_matches_plain(dev):
     ref, _, _ = make_fast_rollout(p, spec, tol=1e-13, impl="plain",
                                   fd_order=1)(ctl, net)
     torch.testing.assert_close(traj, ref, rtol=1e-4, atol=1e-4)
+
+
+def _train_case(dev, history=False, **cfg_kw):
+    ref = K.apply_mod(None, device=dev)
+    trajs, ctls = K.make_training_data(ref, [("sine", 0.5), ("sine", 1.0)],
+                                       train_len=8)
+    cfg = K.TrainConfig(hidden=64, history=history, **cfg_kw)
+    p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+    net = K.init_mlp(cfg.spec(), torch.Generator().manual_seed(0),
+                     torch.float32, dev)
+    return p, cfg, net, trajs.float(), ctls.float()
+
+
+# K4 against its plain version: the tolerances of the JAX package's own
+# fused-vs-scan tests (tests/test_pallas_train.py): both run float32 and
+# sum in different orders
+@pytest.mark.parametrize("case", [dict(), dict(weight_decay=1e-4),
+                                  dict(plateau_patience=4),
+                                  dict(history=True)])
+def test_train_kernel_matches_plain(dev, case):
+    p, cfg, net, trajs, ctls = _train_case(dev, **case)
+    before = ktrain.LAUNCHES
+    got = ktrain.make_fused_training_run(p, cfg.spec(), cfg, 30)(net, trajs,
+                                                                 ctls)
+    want = ktrain.make_fused_training_run(p, cfg.spec(), cfg, 30,
+                                          plain=True)(net, trajs, ctls)
+    torch.cuda.synchronize()
+    assert ktrain.LAUNCHES == before + 1
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=1e-9)
+    for a, b in zip(got[0].parameters(), want[0].parameters()):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-5)
+    torch.testing.assert_close(got[2]["scalars"], want[2]["scalars"])
+
+
+def test_train_kernel_chunks_compose(dev):
+    p, cfg, net, trajs, ctls = _train_case(dev)
+    run20 = ktrain.make_fused_training_run(p, cfg.spec(), cfg, 20)
+    run10 = ktrain.make_fused_training_run(p, cfg.spec(), cfg, 10)
+    whole, l20, _ = run20(net, trajs, ctls)
+    mid, la, s = run10(net, trajs, ctls)
+    end, lb, _ = run10(mid, trajs, ctls, s)
+    torch.testing.assert_close(torch.cat([la, lb]), l20, rtol=1e-6, atol=0)
+    for a, b in zip(end.parameters(), whole.parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+def test_train_knode_runs_on_the_kernels(dev):
+    p, cfg, _, trajs, ctls = _train_case(dev)
+    cfg.epochs, cfg.eval_every, cfg.eval_len = 20, 10, 8
+    vc, vt = K.make_validation_reference(K.apply_mod(None, device=dev),
+                                         ("sine", 1.25), 8)
+    k4, k2 = ktrain.LAUNCHES, kstep.LAUNCHES
+    r = K.train_knode(p, trajs, ctls, cfg, vc, vt, log=None)
+    assert ktrain.LAUNCHES - k4 == 3 and kstep.LAUNCHES > k2
+    assert r.loss_history.shape == (21,) and np.isfinite(r.best_dtw)
+    assert r.device == torch.cuda.get_device_name(dev)

@@ -21,7 +21,7 @@ ROD_CASES = ([(False, m) for m in (None,) + MODS]
 @pytest.mark.parametrize("original,mod", ROD_CASES)
 def test_rod_leaves_match_jax(original, mod):
     pj = J.apply_mod(mod, original=original)
-    pk = K.apply_mod(mod, original=original)
+    pk = K.apply_mod(mod, original=original, device="cpu")
     assert (pk.N, pk.n_tendons) == (pj.N, pj.n_tendons)
     assert pk.dtype == torch.float64
     names = [n for n, _ in pk.leaves()]
@@ -33,18 +33,18 @@ def test_rod_leaves_match_jax(original, mod):
 
 def test_rod_float32_and_from_numpy():
     pj = J.experimental_rod(N=12, dtype=jnp.float32)
-    pk = K.experimental_rod(N=12, dtype=torch.float32)
+    pk = K.experimental_rod(N=12, dtype=torch.float32, device="cpu")
     assert pk.dtype == torch.float32 and pk.N == 12
     for name, leaf in pk.leaves():
         np.testing.assert_array_equal(leaf.numpy(), np.asarray(getattr(pj, name)),
                                       err_msg=name)
     # .to() casts the float64 rod's leaves exactly as derive(dtype=f32) does
-    cast = K.experimental_rod(N=12).to(dtype=torch.float32)
+    cast = K.experimental_rod(N=12, device="cpu").to(dtype=torch.float32)
     for (name, a), (_, b) in zip(cast.leaves(), pk.leaves()):
         assert torch.equal(a, b), name
     # rod_from_numpy takes the JAX rod's leaves as they are
-    back = K.rod_from_numpy(J.apply_mod("youngs"))
-    ref = K.apply_mod("youngs")
+    back = K.rod_from_numpy(J.apply_mod("youngs"), device="cpu")
+    ref = K.apply_mod("youngs", device="cpu")
     for (name, a), (_, b) in zip(back.leaves(), ref.leaves()):
         assert torch.equal(a, b), name
 

@@ -24,7 +24,7 @@ def _jax_net(dims, activation, seed, scale=1.0):
     params = jax.tree.map(lambda a: a * scale, params)
     kspec = kmlp.MLPSpec(dims=dims, activation=activation,
                          history=dims[0] == 53)
-    return spec, params, kspec, kmlp.params_from_jax(params, kspec)
+    return spec, params, kspec, kmlp.params_from_jax(params, kspec, device="cpu")
 
 
 def test_quaternion_ops():
@@ -53,13 +53,15 @@ def test_mlp_apply_matches_jax(dims, activation):
 
 def test_init_and_clamp():
     spec = kmlp.MLPSpec.for_knode(64)
-    net = kmlp.init_mlp(spec, torch.Generator().manual_seed(0), torch.float64)
+    net = kmlp.init_mlp(spec, torch.Generator().manual_seed(0),
+                        torch.float64, device="cpu")
     w0, b0 = (t.detach() for t in net.weights()[0])
     assert w0.shape == (64, 28) and b0.shape == (64,)
     assert bool((w0 >= 0).all())                       # |N(0.01, 0.01)|
     assert abs(float(w0.mean()) - 0.0126) < 2e-3       # E|N(.01,.01)|
     assert abs(float(b0.std()) - 0.01) < 3e-3
-    same = kmlp.init_mlp(spec, torch.Generator().manual_seed(0), torch.float64)
+    same = kmlp.init_mlp(spec, torch.Generator().manual_seed(0),
+                         torch.float64, device="cpu")
     assert torch.equal(same.weights()[1][0], net.weights()[1][0])
     with torch.no_grad():
         net.layers[1].weight.sub_(0.05)
@@ -69,7 +71,7 @@ def test_init_and_clamp():
 
 @pytest.mark.parametrize("net_kind", [None, 28, 53])
 def test_rhs_matches_jax(net_kind):
-    pj, pk = J.apply_mod("damping"), K.apply_mod("damping")
+    pj, pk = J.apply_mod("damping"), K.apply_mod("damping", device="cpu")
     rng = np.random.RandomState(2)
     y = rng.randn(4, 5, 19)
     y[..., 3:7] += np.array([1.0, 0, 0, 0])

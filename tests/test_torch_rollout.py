@@ -25,13 +25,13 @@ def _nets(hidden, history, seed):
                           jmlp.init_mlp(spec, jax.random.PRNGKey(seed),
                                         jnp.float64))
     kspec = kmlp.MLPSpec.for_knode(hidden, history=history)
-    return spec, params, kspec, kmlp.params_from_jax(params, kspec)
+    return spec, params, kspec, kmlp.params_from_jax(params, kspec, device="cpu")
 
 
 @pytest.mark.parametrize("case", ["euler", "rk4", "hybrid"])
 def test_simulate_scan_matches_jax(case):
     mod = "nsw" if case == "hybrid" else None
-    pj, pk = J.apply_mod(mod), K.apply_mod(mod)
+    pj, pk = J.apply_mod(mod), K.apply_mod(mod, device="cpu")
     method = "rk4" if case == "rk4" else "euler"
     ctl = J.calc_controls("sine", 1.0, float(pj.del_t), 6)
     nn_j = nn_k = None
@@ -65,7 +65,7 @@ def jax_mega_rollout():
 @pytest.mark.parametrize("impl", ["plain", "mega"])
 def test_fast_rollout_matches_jax_mega(jax_mega_rollout, impl):
     ctls, kspec, net, want, _ = jax_mega_rollout
-    pk = K.apply_mod("nsw")
+    pk = K.apply_mod("nsw", device="cpu")
     roll = make_fast_rollout(pk, kspec, tol=1e-18, impl=impl)
     traj, res, iters = roll(torch.tensor(ctls), net)
     assert traj.shape == want.shape and res.shape == (5, 2)
@@ -75,10 +75,11 @@ def test_fast_rollout_matches_jax_mega(jax_mega_rollout, impl):
 
 
 def test_mega_rollout_cache_is_keyed_by_content():
-    a = mega_rollout_cached(K.apply_mod("short"))
-    assert mega_rollout_cached(K.apply_mod("short")) is a
-    assert mega_rollout_cached(K.apply_mod("short"), max_iter=7) is not a
-    assert mega_rollout_cached(K.apply_mod("youngs")) is not a
+    rod = lambda mod: K.apply_mod(mod, device="cpu")
+    a = mega_rollout_cached(rod("short"))
+    assert mega_rollout_cached(rod("short")) is a
+    assert mega_rollout_cached(rod("short"), max_iter=7) is not a
+    assert mega_rollout_cached(rod("youngs")) is not a
 
 
 @pytest.mark.parametrize("name,mod,bar", [("sine_0_5_30_None", None, 1e-7),
@@ -86,7 +87,8 @@ def test_mega_rollout_cache_is_keyed_by_content():
 def test_golden_trajectories(golden_dir, name, mod, bar):
     """Reference goldens at the JAX package's own bars (test_parity.py)."""
     controls, ref = load_golden(golden_dir, name)
-    traj = K.simulate(K.apply_mod(mod), controls, reference_layout=True)
+    traj = K.simulate(K.apply_mod(mod, device="cpu"), controls,
+                      reference_layout=True)
     assert traj.shape == ref.shape
     rmse = float(np.sqrt(np.mean((traj.numpy() - ref) ** 2)))
     assert rmse < bar, f"RMSE {rmse:.3e} vs reference for {name}"

@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 @pytest.mark.parametrize("fast", [False, True])
 def test_stepper_matches_jax(fast):
-    pj, pk = J.apply_mod(None), K.apply_mod(None)
+    pj, pk = J.apply_mod(None), K.apply_mod(None, device="cpu")
     kw = dict(tol=1e-16, max_iter=50)
     js = JaxStepper(pj, fast=fast, fast_impl="xla" if fast else None, **kw)
     ks = CompiledStepper(pk, fast=fast, **kw)
@@ -35,13 +35,13 @@ def test_stepper_matches_jax(fast):
 
 
 def test_stepper_batched_hybrid_matches_jax():
-    pj, pk = J.apply_mod("nsw"), K.apply_mod("nsw")
+    pj, pk = J.apply_mod("nsw"), K.apply_mod("nsw", device="cpu")
     spec = jmlp.MLPSpec.for_knode(16)
     params = jax.tree.map(lambda a: a * 1e-3,
                           jmlp.init_mlp(spec, jax.random.PRNGKey(0),
                                         jnp.float64))
     kspec = kmlp.MLPSpec.for_knode(16)
-    net = kmlp.params_from_jax(params, kspec)
+    net = kmlp.params_from_jax(params, kspec, device="cpu")
     tensions = np.array([[6.0, 5.0, 4.0, 5.0], [5.0, 6.5, 5.0, 4.0],
                          [5.5, 5.5, 5.5, 5.5]])
     for fast in (False, True):

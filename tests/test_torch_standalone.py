@@ -28,12 +28,13 @@ SCRIPT = textwrap.dedent("""
     assert "knode_cosserat_tpu_torch.ops._build" not in loaded, loaded
     assert "knode_cosserat_tpu_torch.ops.step" not in loaded, loaded
     assert "knode_cosserat_tpu_torch.ops.sweep" not in loaded, loaded
+    assert "knode_cosserat_tpu_torch.ops.train" not in loaded, loaded
     assert not any(m.startswith("knode_cosserat_tpu.") or m == "knode_cosserat_tpu"
                    for m in sys.modules), "the JAX package was imported"
     assert calls == [], calls
 
     # a CPU step through the fast (K2) path: the plain version, no build
-    p = K.experimental_rod(N=6)
+    p = K.experimental_rod(N=6, device="cpu")
     st = K.CompiledStepper(p, fast=True, fast_impl="mega", tol=1e-16)
     s, info = st.step(st.reset(), [6.0, 5.0, 4.0, 5.0])
     assert float(info["residual"]) < 1e-7 and bool(torch.isfinite(s.y).all())
@@ -61,5 +62,5 @@ def test_port_sources_never_import_jax():
             if f.endswith(".py"):
                 text = open(os.path.join(dirpath, f)).read()
                 assert not bad.search(text), f"{f}: {bad.search(text)}"
-    assert {"rhs_rows.cuh", "sweep.cu", "step.cu"} <= set(
+    assert {"rhs_rows.cuh", "sweep.cu", "step.cu", "train.cu"} <= set(
         os.listdir(os.path.join(pkg, "csrc")))

@@ -37,7 +37,7 @@ def _nets(hidden, history, seed):
                           jmlp.init_mlp(spec, jax.random.PRNGKey(seed),
                                         jnp.float64))
     return spec, params, kmlp.params_from_jax(
-        params, kmlp.MLPSpec.for_knode(hidden, history=history))
+        params, kmlp.MLPSpec.for_knode(hidden, history=history), device="cpu")
 
 
 def _check(got, want, n=4):
@@ -47,7 +47,7 @@ def _check(got, want, n=4):
 
 
 def test_step_reference_matches_pallas_interpret():
-    pj, pk = J.apply_mod("nsw"), K.apply_mod("nsw")
+    pj, pk = J.apply_mod("nsw"), K.apply_mod("nsw", device="cpu")
     spec, params, net = _nets(8, False, seed=0)
     ins = _step_inputs(pj, 3, seed=1)
     k = jax.jit(jax_step(pj, spec, block_b=8, tol=1e-18, max_iter=30,
@@ -64,7 +64,7 @@ def test_step_reference_matches_pallas_interpret():
 def test_step_reference_matches_fd1_driver(method, history):
     """K2's semantics are JAX's _build_step with fd_order=1 and a Jacobian
     refreshed every iteration (JAX's XLA sweeps take no history net)."""
-    pj, pk = J.apply_mod(None), K.apply_mod(None)
+    pj, pk = J.apply_mod(None), K.apply_mod(None, device="cpu")
     spec = params = net = None
     if history is not None:
         spec, params, net = _nets(8, history, seed=2)
@@ -89,7 +89,7 @@ def test_step_reference_matches_fd1_driver(method, history):
 
 
 def test_make_step_kernel_on_cpu_is_the_reference():
-    pk = K.apply_mod(None)
+    pk = K.apply_mod(None, device="cpu")
     G, yh, zh, tf = map(torch.tensor, _step_inputs(J.apply_mod(None), 2, 4))
     k = kstep.make_step_kernel(pk, tol=1e-16)
     for a, b in zip(k(G, yh, zh, tf),

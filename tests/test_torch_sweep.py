@@ -32,7 +32,7 @@ def _nets(hidden, history, seed=0):
                           jmlp.init_mlp(spec, jax.random.PRNGKey(seed),
                                         jnp.float64))
     kspec = kmlp.MLPSpec.for_knode(hidden, history=history)
-    return spec, params, kspec, kmlp.params_from_jax(params, kspec)
+    return spec, params, kspec, kmlp.params_from_jax(params, kspec, device="cpu")
 
 
 def _jax_rows(pj, method, G, yh, zh, tf, nn_fn=None, history=False):
@@ -55,7 +55,7 @@ def _check(got, want):
 @pytest.mark.parametrize("method", ["euler", "rk4"])
 @pytest.mark.parametrize("history", [None, False, True])
 def test_sweep_reference_matches_integrators(method, history):
-    pj, pk = J.apply_mod("short"), K.apply_mod("short")
+    pj, pk = J.apply_mod("short"), K.apply_mod("short", device="cpu")
     ins = _inputs(pk, 4, seed=3)
     nn_fn = net = None
     if history is not None:
@@ -73,7 +73,7 @@ def test_sweep_reference_matches_integrators(method, history):
 
 def test_sweep_reference_matches_pallas_interpret():
     """One case against the JAX Pallas kernel itself (interpret mode)."""
-    pj, pk = J.apply_mod(None), K.apply_mod(None)
+    pj, pk = J.apply_mod(None), K.apply_mod(None, device="cpu")
     spec, params, _, net = _nets(8, False, seed=4)
     ins = _inputs(pk, 3, seed=5)
     k = jax_sweep(pj, spec, block_b=8, interpret=True)
@@ -92,7 +92,7 @@ def test_kernel_spec_checks():
 
 
 def test_wrapper_refuses_other_devices_and_bad_inputs():
-    pk = K.apply_mod(None)
+    pk = K.apply_mod(None, device="cpu")
     G, yh, zh, tf = map(torch.tensor, _inputs(pk, 2, seed=6))
     k = ksweep.make_sweep_kernel(pk)
     with pytest.raises(ValueError, match="device"):
