@@ -22,16 +22,42 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      both kernels.
   6. K4 (whole training run) against its plain version, 40 epochs on
      tests/golden/bench_data.npz (232 cells, for_knode(512), nsw rod, f32):
-     plain, weight decay, a plateau that fires, the 53-input net, and 1,904
-     cells (train-real's size, data made on the card); 100 + 100 epochs
+     plain, weight decay, a plateau that fires, the 53-input net, 1,904
+     cells (train-real's size, data made on the card), and the train-real
+     configuration (53 inputs, AdamW 0.1) on random data of 1,904 cells at
+     two seeds (train_real_data), after 1 and 40 epochs; 100 + 100 epochs
      against one 200-epoch launch.
   7. the training path, counted: train_knode at the reference configuration
-     (for_knode(512), 2000 epochs, validation every 200 on 100 steps); the
+     (for_knode(512), TRAIN_EPOCHS epochs, validation every 200 on 100
+     steps); the
      generated data against bench_data.npz (RMSE <= 1e-7); the loss must
      fall, the DTWs be finite, and the run must launch K4 and K2.
-  8. timings, kernel vs plain, each with the card's name and power limit,
+  8. K5 (the grid trainer) against its plain version and against K4:
+     grids of 8 runs x 232 cells (bench_data.npz) and 20 runs x 348 cells
+     (3 trajectories), over the 4 mods (for_knode(512), 40 epochs); every
+     run of a grid launch equals a K4 launch on that run bit for bit.
+  9. the multitrain path, counted: ``python -m knode_cosserat_tpu_torch
+     multitrain``'s function at the CLI's grid (2 datas x 4 mods x 5 seeds
+     = 40 models, hidden 512, float32, MULTITRAIN_EPOCHS epochs) and its
+     eval (2 schedules, 100 steps; K2 with the cells of a mod stacked);
+     the launch counts must show K5 and K2 (per schedule and step one K2
+     launch per mod for the cells and one per mod for the baselines; the
+     references take the scan) and every DTW must be finite. Then K2 with
+     the 10 trained nets of the nsw cells stacked (the eval's launch
+     shape) against its plain version and against 10 single-net launches,
+     bit for bit.
+ 10. K6 (the wide trainer) against its plain version: hidden 640 (two
+     256-unit chunks and a ragged one) on bench_data.npz and hidden 8192
+     at the train-real shape (1,904 cells, 53 inputs, AdamW 0.1, random
+     data, train_real_data, two seeds), after 1 and 20 epochs; 100 + 100
+     epochs against one 200-epoch run, bit for bit.
+ 11. the wide training path, counted: train_knode at hidden 8192 on the
+     train-real shape (cfg.fused="auto" routes to K6 on the card).
+ 12. timings, kernel vs plain, each with the card's name and power limit,
      and each kernel's bound (the larger of its operations over the
-     float32 peak and its bytes over the memory rate).
+     float32 peak and its bytes over the memory rate); K6 against the
+     plain epoch loop at hidden 1024 / 2048 / 8192 (the routing's
+     crossover).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -60,6 +86,15 @@ ROLLOUT_F32 = (1e-4, 1e-4)        # mega vs plain rollout, f32 (rtol, atol)
 # orders, and over 40 epochs Adam carries that rounding forward
 K4_LOSS = (2e-4, 1e-9)            # rtol, atol on the per-epoch losses
 K4_PARAM = (3e-3, 3e-5)           # rtol, atol on the trained weights
+# K4 and K6 on random data of the train-real shape (1,904 cells, 53
+# inputs, AdamW 0.1), params: Adam's step divides by the gradient's own size
+# (lr g / (|g| + eps) at the first epoch), so a weight whose gradient sums
+# over the cells to within a few eps (1e-8) of 0 carries the rounding of
+# that sum, taken in another order by each version, into its step: up to
+# lr / 4 (2.5e-3) times its relative error. atol 2e-4 is 1/50 of lr; the
+# checks print their readings after one epoch and after 20-40
+RANDOM_PARAM = (3e-3, 2e-4)
+RANDOM_SEEDS = (0, 1)             # the random data's seeds, each checked
 DATA_RMSE = 1e-7                  # generated data vs bench_data.npz
 # the H100 SXM's published peaks (NVIDIA's data sheet): float32 outside
 # the tensor cores, and the device memory's rate
@@ -70,6 +105,12 @@ PEAK_BYTES = 3.35e12              # B/s
 # a hybrid node at hidden 512
 PHYS_FLOPS = 400
 BIG_SPECS = [("sine", 0.5), ("sine", 1.0), ("sine", 1.25), ("sine", 1.5)]
+MODS = ["nsw", "short", "youngs", "lengthstiff"]
+# train_knode's depth (the reference runs 2000; cut to keep the command
+# inside its time with the grid and wide phases beside it)
+TRAIN_EPOCHS = 1000
+MULTITRAIN_EPOCHS = 1000          # the CLI's default
+WIDE_HIDDEN = 8192                # the JAX bench's wide trainer shape
 
 
 def log(*a):
@@ -133,6 +174,29 @@ def close(a, b, rtol, atol):
     ok = bool(torch.isfinite(a).all() and torch.isfinite(b).all()
               and (err <= atol + rtol * b.abs()).all())
     return ok, float(err.max()) if err.numel() else 0.0
+
+
+def beyond(a, b, tol):
+    """How many entries of a lie outside allclose(b, rtol, atol)."""
+    rtol, atol = tol
+    return int(((a - b).abs() > atol + rtol * b.abs()).sum())
+
+
+def compare_run(make, p, cfg, net, trajs, ctls, epochs, tol):
+    """A training kernel's run against its plain version (``make`` is
+    make_fused_training_run or make_wide_training_run): losses at K4_LOSS,
+    weights at ``tol``. Returns (ok, max loss err, max param err, entries
+    beyond K4_PARAM, the kernel's (net, losses, state))."""
+    got = make(p, cfg.spec(), cfg, epochs)(net, trajs, ctls)
+    want = make(p, cfg.spec(), cfg, epochs, plain=True)(net, trajs, ctls)
+    torch.cuda.synchronize()
+    ok, e_loss = close(got[1], want[1], *K4_LOSS)
+    e_par, n_out = 0.0, 0
+    for a, b in zip(got[0].parameters(), want[0].parameters()):
+        ok_p, e = close(a.detach(), b.detach(), *tol)
+        ok, e_par = ok and ok_p, max(e_par, e)
+        n_out += beyond(a.detach(), b.detach(), K4_PARAM)
+    return ok, e_loss, e_par, n_out, got
 
 
 # ------------------------------------------------------------------- phases
@@ -237,6 +301,46 @@ def phase_step(K, dev, errs):
             f"{'none' if hist is None else ('53' if hist else '28')} ok  "
             + "  ".join(parts) + f"  iters max {int(got[4].max())} "
             f"(plain {int(want[4].max())})")
+
+
+def check_step_per_rod(K, dev, errs, rod, nets, label):
+    """K2 with one net per rod (a StackedMLP: the multitrain eval's cells of
+    a mod) against its plain version with the same stack, and against one
+    single-net launch per rod, bit for bit. float32, one BDF-2 step from a
+    perturbed history, both solvers run to the f32 floor."""
+    from knode_cosserat_tpu_torch.models.mlp import StackedMLP
+    from knode_cosserat_tpu_torch.ops.step import (make_step_kernel,
+                                                   step_reference)
+    B, spec, stack = len(nets), nets[0].spec, StackedMLP(nets)
+    G, yh, zh, tf = on(dev, torch.float32, *history_inputs(rod, B, SEED + 3))
+    G = torch.zeros_like(G)
+    k = make_step_kernel(rod, spec, tol=1e-13, max_iter=30)
+    with torch.no_grad():
+        got = k(G, yh, zh, tf, stack)
+        want = step_reference(rod, G, yh, zh, tf, stack, tol=1e-13,
+                              max_iter=30)
+        singles = [k(G[b:b + 1], yh[b:b + 1], zh[b:b + 1], tf[b:b + 1],
+                     nets[b]) for b in range(B)]
+    torch.cuda.synchronize()
+    parts = []
+    for name, a, b in zip(("G", "y", "z", "r2"), got[:4], want[:4]):
+        atol = STEP_F32_ATOL.get(name)
+        ok, e = (close(a, b, 0.0, atol) if atol is not None
+                 else close(a, b, float("inf"), 0.0))   # z, r2: finite
+        parts.append(f"{name} {e:.3e}")
+        errs.setdefault(("K2", torch.float32), []).append(e)
+        if not ok:
+            raise AssertionError(f"K2 per-rod nets ({label}): {name} max err "
+                                 f"{e:.3e}")
+    same = all(torch.equal(x[b:b + 1], w) for b in range(B)
+               for x, w in zip(got, singles[b]))
+    log(f"[K2] per-rod nets, {label}: {B} rods x {spec.dims} f32, vs plain "
+        + "  ".join(parts) + f"  iters max {int(got[4].max())} (plain "
+        f"{int(want[4].max())}); == {B} single-net launches bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"K2 per-rod nets ({label}) differ from "
+                             f"single-net launches")
 
 
 def sine_tensions(p, R, T):
@@ -430,10 +534,50 @@ def train_setup(K, dev, **cfg_kw):
     return p, cfg, net
 
 
+# the quaternion (1, 0, 0, 0): the rod's orientation at rest
+IDENTITY = np.eye(1, 25, 3)[0]
+
+
+def first_epoch(make, label, p, cfg, net, trajs, ctls):
+    """A kernel against its plain version after one epoch on random data,
+    where Adam's step is lr g / (|g| + eps) (RANDOM_PARAM); the log text."""
+    ok, _, e, n, _ = compare_run(make, p, cfg, net, trajs, ctls, 1,
+                                 RANDOM_PARAM)
+    if not ok:
+        raise AssertionError(f"{label}, 1 epoch: params {e:.3e} beyond "
+                             f"{RANDOM_PARAM}")
+    return f"; after 1 epoch params {e:.3e} ({n} beyond)"
+
+
+def train_real_data(dev, N=10, seed=SEED):
+    """Random data of the train-real shape (4 trajectories x 120 steps:
+    1,904 cells at 4 keypoints), made as the JAX bench makes it
+    (bench.py:612-623) plus the identity quaternion: the bench's random
+    quaternions give Euler angles anywhere in (-pi, pi], and near the
+    loss's +-pi wrap the loss jumps, so two float32 runs that differ only
+    by rounding part there. A real rod's orientation stays near identity,
+    far from the wrap."""
+    g = np.random.default_rng(seed)
+    trajs = torch.tensor(g.normal(size=(4, 120, N, 25)) * 0.01 + IDENTITY,
+                         dtype=torch.float32, device=dev)
+    ctls = torch.tensor(g.uniform(1, 3, size=(4, 120, 4)),
+                        dtype=torch.float32, device=dev)
+    return trajs, ctls
+
+
+def near_wrap(q):
+    """How many quaternions of q (..., 4) have a roll or yaw of the loss's
+    Euler map within 1e-2 of its +-pi wrap."""
+    from knode_cosserat_tpu_torch.ops.quaternion import quaternion_to_euler
+    e = quaternion_to_euler(q.double())[..., [0, 2]]
+    return int(((np.pi - e.abs()) < 1e-2).any(-1).sum())
+
+
 def phase_k4(K, dev, errs):
-    """K4 against train_run_reference on the card; returns the 1,904-cell
-    data for the timings."""
+    """K4 against train_run_reference on the card; returns the 232- and
+    1,904-cell data for the timings."""
     from knode_cosserat_tpu_torch.ops.train import make_fused_training_run
+    from knode_cosserat_tpu_torch.training.loss import DEFAULT_KEYPOINTS_REAL
 
     small = bench_data(dev)
     t0 = time.perf_counter()
@@ -447,26 +591,35 @@ def phase_k4(K, dev, errs):
              ("plateau_patience=4", small, dict(plateau_patience=4)),
              ("history (53 inputs)", small, dict(history=True)),
              ("1904 cells", big, {})]
+    real = dict(history=True, weight_decay=0.1,
+                keypoints=DEFAULT_KEYPOINTS_REAL)
+    rest = torch.tensor(IDENTITY[3:7], device=dev)
+    for s in RANDOM_SEEDS:
+        data = train_real_data(dev, seed=s)
+        q = data[0][..., 3:7]
+        log(f"[K4] random data, seed {s}: {near_wrap(q)} of {q[..., 0].numel()}"
+            f" node states have an Euler roll or yaw within 1e-2 of the "
+            f"loss's +-pi wrap ({near_wrap(q - rest)} without the identity "
+            f"quaternion, as bench.py makes them)")
+        cases.append((f"1904 random, seed {s}", data, real))
     for name, (trajs, ctls), kw in cases:
         p, cfg, net = train_setup(K, dev, **kw)
-        got = make_fused_training_run(p, cfg.spec(), cfg, 40)(net, trajs,
-                                                              ctls)
-        want = make_fused_training_run(p, cfg.spec(), cfg, 40, plain=True)(
-            net, trajs, ctls)
-        torch.cuda.synchronize()
-        ok, e_loss = close(got[1], want[1], *K4_LOSS)
-        e_par = 0.0
-        for a, b in zip(got[0].parameters(), want[0].parameters()):
-            ok_p, e = close(a.detach(), b.detach(), *K4_PARAM)
-            ok, e_par = ok and ok_p, max(e_par, e)
+        tol, first = K4_PARAM, ""
+        if name.startswith("1904 random"):
+            tol = RANDOM_PARAM
+            first = first_epoch(make_fused_training_run, f"K4 {name}", p, cfg,
+                                net, trajs, ctls)
+        ok, e_loss, e_par, n_out, got = compare_run(
+            make_fused_training_run, p, cfg, net, trajs, ctls, 40, tol)
         fired = float(got[2]["scalars"][3]) < 1.0
         errs.setdefault("K4", []).extend([e_loss, e_par])
         log(f"[K4] {name:20s} 40 epochs: loss {float(got[1][0]):.4e} -> "
             f"{float(got[1][-1]):.4e}, max err loss {e_loss:.3e} params "
-            f"{e_par:.3e}, plateau fired {fired}")
+            f"{e_par:.3e} ({n_out} entries beyond {K4_PARAM}){first}, "
+            f"plateau fired {fired}")
         if not ok:
             raise AssertionError(f"K4 {name}: beyond loss {K4_LOSS} / params "
-                                 f"{K4_PARAM}: {e_loss:.3e} / {e_par:.3e}")
+                                 f"{tol}: {e_loss:.3e} / {e_par:.3e}")
         if not float(got[1][-1]) < float(got[1][0]):
             raise AssertionError(f"K4 {name}: the loss did not fall")
 
@@ -514,11 +667,7 @@ def phase_train(K, dev):
         raise AssertionError(f"generated data RMSE {rmse:.3e} > {DATA_RMSE}")
     vc, vt = K.make_validation_reference(ref, ("sine", 1.25), 100)
     p_mod = K.apply_mod("nsw", dtype=torch.float32, device=dev)
-    t0 = time.perf_counter()
-    K.simulate(p_mod, vc, tol=1e-10)        # the epoch-0 evaluation, alone
-    torch.cuda.synchronize()
-    t_eval0 = time.perf_counter() - t0
-    cfg = K.TrainConfig(hidden=HIDDEN, epochs=2000, eval_every=200,
+    cfg = K.TrainConfig(hidden=HIDDEN, epochs=TRAIN_EPOCHS, eval_every=200,
                         eval_len=100, dtype="float32")
     kstep.LAUNCHES = ksweep.LAUNCHES = ktrain.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -529,9 +678,8 @@ def phase_train(K, dev):
                 "K3": ksweep.LAUNCHES}
     lh = r.loss_history
     dtws = [d for _, d in r.dtw_history]
-    log(f"[train] train_knode for_knode(512), 2000 epochs, f32: {wall:.1f} s "
-        f"(epoch-0 evaluation alone {t_eval0:.1f} s), epochs_per_sec "
-        f"{r.epochs_per_sec:.1f} on {r.device}")
+    log(f"[train] train_knode for_knode(512), {TRAIN_EPOCHS} epochs, f32: "
+        f"{wall:.1f} s, epochs_per_sec {r.epochs_per_sec:.1f} on {r.device}")
     log(f"[train] loss {lh[0]:.4e} -> {lh[-1]:.4e} ({len(lh)} entries); DTW "
         f"history {[(e, round(d, 6)) for e, d in r.dtw_history]}; best_dtw "
         f"{r.best_dtw:.6f}")
@@ -591,6 +739,277 @@ def phase_k4_timings(K, dev, name_power, data):
     return out
 
 
+def phase_k5(K, dev, errs, small):
+    """K5 against its plain version and against K4, cell by cell: 8 runs
+    of 232 cells (2 trajectories), and 20 runs of 348 cells (3
+    trajectories), the multitrain grid's two sub-grid shapes."""
+    from knode_cosserat_tpu_torch.models.mlp import StackedMLP
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+
+    trajs, ctls = small
+    # a third trajectory between the two of bench_data.npz
+    three = (torch.cat([trajs, trajs.mean(0, keepdim=True)]),
+             torch.cat([ctls, ctls.mean(0, keepdim=True)]))
+    cfg = K.TrainConfig(hidden=HIDDEN)
+    spec = cfg.spec()
+    for G, (trajs, ctls) in ((8, small), (20, three)):
+        rods = [K.apply_mod(MODS[g % 4], dtype=torch.float32, device=dev)
+                for g in range(G)]
+        nets = [K.init_mlp(spec, torch.Generator().manual_seed(g),
+                           torch.float32, dev) for g in range(G)]
+        tg, cg = torch.stack([trajs] * G), torch.stack([ctls] * G)
+        got = ktrain.make_fused_grid_training_run(spec, cfg, 40)(
+            rods, StackedMLP(nets), tg, cg)
+        want = ktrain.make_fused_grid_training_run(spec, cfg, 40, plain=True)(
+            rods, StackedMLP(nets), tg, cg)
+        torch.cuda.synchronize()
+        ok, e_loss = close(got[1], want[1], *K4_LOSS)
+        e_par = 0.0
+        for a, b in zip(got[0].parameters(), want[0].parameters()):
+            ok_p, e = close(a.detach(), b.detach(), *K4_PARAM)
+            ok, e_par = ok and ok_p, max(e_par, e)
+        errs.setdefault("K5", []).extend([e_loss, e_par])
+        C = trajs.shape[0] * (trajs.shape[1] - 1) * len(cfg.keypoints)
+        log(f"[K5] {G} runs ({', '.join(MODS)}) x {C} cells, hidden "
+            f"{HIDDEN}, 40 epochs: max err vs plain loss {e_loss:.3e} "
+            f"params {e_par:.3e}")
+        if not ok:
+            raise AssertionError(f"K5 {G} x {C} vs plain beyond loss "
+                                 f"{K4_LOSS} / params {K4_PARAM}: "
+                                 f"{e_loss:.3e} / {e_par:.3e}")
+        unstacked = got[0].unstack()
+        for g in range(G):
+            one = ktrain.make_fused_training_run(rods[g], spec, cfg, 40)(
+                nets[g], trajs, ctls)
+            same = (torch.equal(got[1][g], one[1])
+                    and torch.equal(got[2]["scalars"][g], one[2]["scalars"])
+                    and all(torch.equal(a, b) for a, b in
+                            zip(unstacked[g].parameters(),
+                                one[0].parameters())))
+            if not same:
+                raise AssertionError(f"K5 {G} x {C}: cell {g} differs from "
+                                     f"a K4 launch")
+        log(f"[K5] {G} x {C}: every run of the grid launch == a K4 launch "
+            f"on that run, bit for bit (losses, weights, scalars)")
+
+
+def phase_multitrain(K, dev):
+    """The multitrain path, counted: the CLI's multitrain function."""
+    from knode_cosserat_tpu_torch import cli
+    from knode_cosserat_tpu_torch.ops import step as kstep
+    from knode_cosserat_tpu_torch.ops import sweep as ksweep
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+
+    out_dir = os.path.join(HERE, "build", "multitrain")
+    argv = ["multitrain", "--n_seeds", "5", "--epochs",
+            str(MULTITRAIN_EPOCHS), "--layers", str(HIDDEN),
+            "--save_dir", os.path.join(out_dir, "saved_models"),
+            "--evals_dir", os.path.join(out_dir, "evals")]
+    log(f"[multitrain] python -m knode_cosserat_tpu_torch {' '.join(argv)}")
+    kstep.LAUNCHES = ksweep.LAUNCHES = 0
+    ktrain.LAUNCHES = ktrain.GRID_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K5": ktrain.GRID_LAUNCHES, "K2": kstep.LAUNCHES,
+                "K4": ktrain.LAUNCHES, "K3": ksweep.LAUNCHES}
+    res, records, secs = out["result"], out["records"], out["seconds"]
+    G = len(res.cells)
+    rate = G * MULTITRAIN_EPOCHS / res.train_seconds
+    worst = max(r.residual for r in records)
+    n_steps, n_sched = cli.EVAL_LEN - 1, len(cli.EVAL_SETS[False])
+    # per schedule and step: one launch per mod for the cells, one per mod
+    # for the baselines (the reference rollouts take the scan)
+    want_k2 = 2 * len(MODS) * n_sched * n_steps
+    log(f"[multitrain] {G} models x {MULTITRAIN_EPOCHS} epochs, hidden "
+        f"{HIDDEN} f32: grid training {res.train_seconds:.3f} s = "
+        f"{rate:.1f} models x epochs/s; datagen+train "
+        f"{secs['datagen+train']:.1f} s, eval {secs['eval']:.1f} s, "
+        f"command {wall:.1f} s")
+    log(f"[multitrain] loss {float(res.loss_history[0].mean()):.4e} -> "
+        f"{float(res.loss_history[-1].mean()):.4e} (mean over cells); worst "
+        f"served residual of the eval rollouts {worst:.3e}")
+    log(f"[multitrain] main-path launches: ops.train.GRID_LAUNCHES "
+        f"{launches['K5']}, ops.step.LAUNCHES {launches['K2']} (want "
+        f"{want_k2}: 2 x {len(MODS)} mods x {n_sched} schedules x "
+        f"{n_steps} steps), "
+        f"ops.train.LAUNCHES {launches['K4']}, ops.sweep.LAUNCHES "
+        f"{launches['K3']}")
+    if launches["K5"] == 0 or launches["K2"] != want_k2:
+        raise AssertionError(f"the multitrain path's launches: {launches}")
+    if not (np.isfinite(res.loss_history).all()
+            and all(np.isfinite(r.dtw) for r in records)):
+        raise AssertionError("non-finite loss or DTW in the multitrain run")
+    if not (res.loss_history[-1] < res.loss_history[0]).all():
+        raise AssertionError("a grid cell's loss did not fall")
+    return launches, res
+
+
+def wide_case(K, dev, hidden, data=None, seed=SEED):
+    """A wide run's rod, config, net and data: ``data`` (bench_data.npz) at
+    28 inputs, or the train-real shape (4 x 120 steps -> 1,904 cells, 53
+    inputs, AdamW 0.1, keypoints (1, 3, 6, 9)) on random data made as the
+    JAX bench makes it (bench.py:612-623)."""
+    from knode_cosserat_tpu_torch.training.loss import DEFAULT_KEYPOINTS_REAL
+
+    p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+    if data is not None:
+        cfg = K.TrainConfig(hidden=hidden)
+        trajs, ctls = data
+    else:
+        trajs, ctls = train_real_data(dev, p.N, seed)
+        cfg = K.TrainConfig(hidden=hidden, history=True, weight_decay=0.1,
+                            keypoints=DEFAULT_KEYPOINTS_REAL)
+    net = K.init_mlp(cfg.spec(), torch.Generator().manual_seed(SEED),
+                     torch.float32, dev)
+    return p, cfg, net, trajs, ctls
+
+
+def phase_k6(K, dev, errs, small):
+    """K6 against its plain version; chunks compose."""
+    from knode_cosserat_tpu_torch.ops.train_wide import make_wide_training_run
+
+    cases = [(640, small, SEED, "232 cells, 28 inputs")]
+    cases += [(WIDE_HIDDEN, None, s, f"1904 random, seed {s}, 53 inputs, "
+               f"AdamW 0.1") for s in RANDOM_SEEDS]
+    for hidden, data, seed, name in cases:
+        p, cfg, net, trajs, ctls = wide_case(K, dev, hidden, data, seed)
+        tol, first = K4_PARAM, ""
+        if data is None:
+            tol = RANDOM_PARAM
+            first = first_epoch(make_wide_training_run, f"K6 {name}", p, cfg,
+                                net, trajs, ctls)
+        ok, e_loss, e_par, n_out, got = compare_run(
+            make_wide_training_run, p, cfg, net, trajs, ctls, 20, tol)
+        errs.setdefault("K6", []).extend([e_loss, e_par])
+        log(f"[K6] hidden {hidden}, {name}, 20 epochs: loss "
+            f"{float(got[1][0]):.4e} -> {float(got[1][-1]):.4e}, max err "
+            f"vs plain loss {e_loss:.3e} params {e_par:.3e} (params tol "
+            f"{tol}; {n_out} entries beyond {K4_PARAM}){first}")
+        if not ok:
+            raise AssertionError(f"K6 hidden {hidden}: beyond loss {K4_LOSS} "
+                                 f"/ params {tol}: {e_loss:.3e} / "
+                                 f"{e_par:.3e}")
+        if not float(got[1][-1]) < float(got[1][0]):
+            raise AssertionError(f"K6 hidden {hidden}: the loss did not fall")
+    # p, cfg, ... are the last train-real case's now
+    whole = make_wide_training_run(p, cfg.spec(), cfg, 200)(net, trajs, ctls)
+    half = make_wide_training_run(p, cfg.spec(), cfg, 100)
+    mid = half(net, trajs, ctls)
+    end = half(mid[0], trajs, ctls, mid[2])
+    same = (torch.equal(torch.cat([mid[1], end[1]]), whole[1])
+            and torch.equal(end[2]["scalars"], whole[2]["scalars"])
+            and all(torch.equal(a, b) for a, b in
+                    zip(end[0].parameters(), whole[0].parameters())))
+    log(f"[K6] hidden {WIDE_HIDDEN}: 100 + 100 epochs == one 200-epoch run, "
+        f"bit for bit: {same}")
+    if not same:
+        raise AssertionError("K6 chunks do not compose bit for bit")
+
+
+def phase_wide_train(K, dev):
+    """The wide training path, counted: train_knode at hidden 8192."""
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+    from knode_cosserat_tpu_torch.ops import train_wide as kwide
+
+    p, cfg, _, trajs, ctls = wide_case(K, dev, WIDE_HIDDEN)
+    cfg.epochs, cfg.log_every = 400, 100
+    kwide.LAUNCHES = ktrain.LAUNCHES = 0
+    t0 = time.perf_counter()
+    r = K.train_knode(p, trajs, ctls, cfg, log=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K6": kwide.LAUNCHES, "K4": ktrain.LAUNCHES}
+    lh = r.loss_history
+    log(f"[wide] train_knode hidden {WIDE_HIDDEN}, 1904 cells, {cfg.epochs} "
+        f"epochs (cfg.fused='auto'): {wall:.1f} s, epochs_per_sec "
+        f"{r.epochs_per_sec:.1f} on {r.device}; loss {lh[0]:.4e} -> "
+        f"{lh[-1]:.4e}")
+    log(f"[wide] main-path launches: ops.train_wide.LAUNCHES "
+        f"{launches['K6']}, ops.train.LAUNCHES {launches['K4']}")
+    if launches["K6"] == 0 or not (np.isfinite(lh).all() and lh[-1] < lh[0]):
+        raise AssertionError(f"the wide path: launches {launches}, loss "
+                             f"{lh[0]} -> {lh[-1]}")
+    return launches
+
+
+def phase_train_timings(K, dev, name_power, small):
+    """K5 at 40 cells and K6 at hidden 8192, 200 epochs each, against
+    their plain versions and bounds; K6 against the plain epoch loop."""
+    from knode_cosserat_tpu_torch.models.mlp import StackedMLP
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+    from knode_cosserat_tpu_torch.ops import train_wide as kwide
+    from knode_cosserat_tpu_torch.training.train import (make_epoch_scan,
+                                                         make_optimizer)
+
+    tag = f"[{name_power}]"
+    E, out = 200, {}
+    cfg = K.TrainConfig(hidden=HIDDEN)
+    hyper = ktrain._hyper(cfg)
+
+    # K5: 40 cells on bench_data.npz (the JAX bench's grid)
+    G = 40
+    trajs, ctls = small
+    spec = cfg.spec()
+    cells = [ktrain.precompute(K.apply_mod(MODS[g % 4], dtype=torch.float32,
+                                           device=dev), spec, cfg.keypoints,
+                               trajs, ctls) for g in range(G)]
+    nets = StackedMLP([K.init_mlp(spec, torch.Generator().manual_seed(g),
+                                  torch.float32, dev) for g in range(G)])
+    W = [t.detach() for wb in nets.weights() for t in wb]
+    state = ktrain._stack_states([ktrain.fresh_state([w[g] for w in W])
+                                  for g in range(G)])
+    kern = timed(lambda: ktrain.train_grid_run(cells, W, state, E, hyper), 3)
+    plain = timed(lambda: ktrain.train_grid_reference(cells, W, state, E,
+                                                      hyper), 1)
+    C, din = cells[0].x.shape
+    n_params = HIDDEN * (din + 25) + HIDDEN + 25
+    flops = G * E * 2 * C * HIDDEN * (2 * din + 75)
+    nbytes = G * 4 * (C * (din + 56) + 6 * n_params + E + 8)
+    b_ms, b_by = bound(flops, nbytes)
+    out["K5"] = dict(ms=kern, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+    log(f"[time] K5 {E} epochs, {G} cells x {C} cells, hidden {HIDDEN} f32: "
+        f"kernel {kern:.3f} ms ({G * E / kern * 1e3:.1f} models x epochs/s), "
+        f"plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) {tag}")
+
+    # K6 at the train-real shape, and the plain epoch loop beside it
+    for hidden in (1024, 2048, WIDE_HIDDEN):
+        p, wcfg, net, wt, wc = wide_case(K, dev, hidden)
+        wspec = wcfg.spec()
+        cw = ktrain.precompute(p, wspec, wcfg.keypoints, wt, wc)
+        Ww = [t.detach() for wb in net.weights() for t in wb]
+        st = ktrain.fresh_state(Ww)
+        wh = ktrain._hyper(wcfg)
+        kern = timed(lambda: kwide.train_run(cw, Ww, st, E, wh), 3)
+        loop_net = K.init_mlp(wspec, torch.Generator().manual_seed(SEED),
+                              torch.float32, dev)
+        loop = make_epoch_scan(p, wspec, make_optimizer(wcfg, loop_net),
+                               wcfg.keypoints, wcfg.clamp_weights, E)
+        loop_ms = timed(lambda: loop(loop_net, wt, wc), 1)
+        C, din = cw.x.shape
+        line = (f"[time] K6 {E} epochs, {C} cells, hidden {hidden}, {din} "
+                f"inputs f32: kernel {kern:.3f} ms ({E / kern * 1e3:.1f} "
+                f"epochs/s), plain epoch loop {loop_ms:.3f} ms "
+                f"({E / loop_ms * 1e3:.1f} epochs/s)")
+        if hidden == WIDE_HIDDEN:
+            plain = timed(lambda: ktrain.train_run_reference(cw, Ww, st, E,
+                                                             wh), 1)
+            n_params = hidden * (din + 25) + hidden + 25
+            flops = E * 2 * C * hidden * (2 * din + 75)
+            nbytes = 4 * (C * (din + 56) + 6 * n_params + E + 8)
+            b_ms, b_by = bound(flops, nbytes)
+            out["K6"] = dict(ms=kern, plain_ms=plain, bound_ms=b_ms,
+                             bound_by=b_by)
+            line += (f", plain version {plain:.3f} ms, bound {b_ms:.4f} ms "
+                     f"({b_by}; {flops / 1e9:.2f} GFLOP, "
+                     f"{nbytes / 1e6:.2f} MB)")
+        log(line + f" {tag}")
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -612,8 +1031,17 @@ def main() -> int:
     serve = phase_serving(K, dev)
     data = phase_k4(K, dev, errs)
     train, _ = phase_train(K, dev)
+    phase_k5(K, dev, errs, data[0])
+    multi, grid = phase_multitrain(K, dev)
+    nsw = [n for c, n in zip(grid.cells, grid.params) if c.mod == "nsw"]
+    check_step_per_rod(K, dev, errs, K.apply_mod("nsw", dtype=torch.float32,
+                                                 device=dev), nsw,
+                       "the multitrain's trained nsw nets")
+    phase_k6(K, dev, errs, data[0])
+    wide = phase_wide_train(K, dev)
     ms = phase_timings(K, dev, name_power)
     k4 = phase_k4_timings(K, dev, name_power, data)["232"]
+    tt = phase_train_timings(K, dev, name_power, data[0])
 
     # bounds at the timed shapes (float32, hidden 512, 28 inputs, N=10)
     R, f_node = 256, node_flops(HIDDEN, 28)
@@ -631,25 +1059,41 @@ def main() -> int:
         {"name": "K1 rhs_rows (hybrid per-node RHS, inlined in K2/K3)",
          "route": "cuda", "source": src + "rhs_rows.cuh",
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:93",
-         "launches": serve["K2"] + serve["K3"] + train["K2"] + train["K3"],
+         "launches": (serve["K2"] + serve["K3"] + train["K2"] + train["K3"]
+                      + multi["K2"] + multi["K3"]),
          "max_abs_err": k1_err, "ms": ms["K1"][0], "plain_ms": ms["K1"][1],
          **row(k1_bound)},
         {"name": "K3 sweep", "route": "cuda", "source": src + "sweep.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:201",
-         "launches": serve["K3"] + train["K3"], "max_abs_err": k3_err,
+         "launches": serve["K3"] + train["K3"] + multi["K3"],
+         "max_abs_err": k3_err,
          "ms": ms["K3"][0], "plain_ms": ms["K3"][1], **row(k3_bound)},
         {"name": "K2 step", "route": "cuda", "source": src + "step.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_step.py:57",
-         "launches": serve["K2"] + train["K2"],
+         "launches": serve["K2"] + train["K2"] + multi["K2"],
          "max_abs_err": max(errs[("K2", torch.float32)]
                             + errs[("K2", torch.float64)]),
          "ms": ms["K2"][0], "plain_ms": ms["K2"][1], **row(k2_bound)},
         {"name": "K4 train (whole training run, 200-epoch chunk, 232 cells)",
          "route": "cuda", "source": src + "train.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_train.py:345",
-         "launches": train["K4"], "max_abs_err": max(errs["K4"]),
+         "launches": train["K4"] + multi["K4"] + wide["K4"],
+         "max_abs_err": max(errs["K4"]),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          **row((k4["bound_ms"], k4["bound_by"]))},
+        {"name": "K5 train grid (40 runs x 232 cells, 200 epochs)",
+         "route": "cuda", "source": src + "train.cu",
+         "replaces": "knode_cosserat_tpu/ops/pallas_train.py:692",
+         "launches": multi["K5"], "max_abs_err": max(errs["K5"]),
+         "ms": tt["K5"]["ms"], "plain_ms": tt["K5"]["plain_ms"],
+         **row((tt["K5"]["bound_ms"], tt["K5"]["bound_by"]))},
+        {"name": f"K6 train wide (hidden {WIDE_HIDDEN}, 1904 cells, 200 "
+                 f"epochs)",
+         "route": "cuda", "source": src + "train_wide.cu",
+         "replaces": "knode_cosserat_tpu/ops/pallas_train_wide.py:158",
+         "launches": wide["K6"], "max_abs_err": max(errs["K6"]),
+         "ms": tt["K6"]["ms"], "plain_ms": tt["K6"]["plain_ms"],
+         **row((tt["K6"]["bound_ms"], tt["K6"]["bound_by"]))},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,12 +13,15 @@ they raise. Everything downstream follows the device of the rod.
 On the CPU every kernel runs as its plain PyTorch version. On a CUDA device
 the hot path runs hand-written Hopper kernels (``csrc/``), built with nvcc
 at their first launch: K1 (the per-node hybrid RHS), K3 (the spatial
-sweep, ops/sweep.py), K2 (one whole Newton shooting step, ops/step.py) and
-K4 (the whole training run, ops/train.py).
+sweep, ops/sweep.py), K2 (one whole Newton shooting step, ops/step.py),
+K4 and K5 (the whole training run, and a grid of them, ops/train.py) and
+K6 (the whole training run at any hidden width, ops/train_wide.py). The
+multitrain study (parallel/grid.py, evaluation/tables.py) runs as
+``python -m knode_cosserat_tpu_torch multitrain``.
 
 Importing the package builds and loads nothing: the kernel modules
-(ops/sweep.py, ops/step.py, ops/train.py, ops/_build.py) are imported at
-first use.
+(ops/sweep.py, ops/step.py, ops/train.py, ops/train_wide.py,
+ops/_build.py) are imported at first use.
 """
 import torch
 
@@ -31,8 +34,8 @@ from .core.params import (MODS, MODS_ORIGINAL, RodParams, apply_mod, derive,
                           rod_from_numpy)
 from .core.rhs import rhs
 from .core.stepper import SimOutput, initial_state, simulate, simulate_scan
-from .models.mlp import (KnodeMLP, MLPSpec, bind, init_mlp, mlp_apply,
-                         params_from_jax)
+from .models.mlp import (KnodeMLP, MLPSpec, StackedMLP, bind, init_mlp,
+                         mlp_apply, params_from_jax, stacked_params_from_jax)
 from .serving import CompiledStepper, StepState
 from .training import (TrainConfig, TrainResult, make_training_data,
                        make_validation_reference, teacher_forced_loss,

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from ..models.mlp import MLPSpec
+from ..models.mlp import MLPSpec, StackedMLP
 from ..ops.linalg import solve_small
 from .params import RodParams
 from .stepper import initial_state, tendon_forces
@@ -42,7 +42,8 @@ _MEGA_LRU: "OrderedDict[str, object]" = OrderedDict()
 
 def mega_rollout_cached(p: RodParams, spec=None, tol: float = 1e-10,
                         max_iter: int = 50, method: str = "euler"):
-    """Shared content-keyed LRU (16 entries) of mega rollouts. The key
+    """Shared content-keyed LRU (16 entries) of mega rollouts (each takes
+    one net or a StackedMLP, see make_fast_rollout). The key
     hashes the rod's tensor bytes and device (not object identity), so
     logically identical rods built by separate ``apply_mod`` calls share
     one entry (and one set of host-side rod constants)."""
@@ -173,6 +174,10 @@ def _build_step(p, k_res, k_full, tol, max_iter, n_alphas,
     iters). All leading axes are the rod batch R."""
 
     def step(y, z, y_prev, z_prev, G, tensions, nn_params=None):
+        if isinstance(nn_params, StackedMLP):
+            raise NotImplementedError("the FD-Newton loop (impl 'sweep' / "
+                                      "'plain') takes one net; stacked nets "
+                                      "run on impl='mega'")
         yh, zh, tf = _history(p, y, z, y_prev, z_prev, tensions)
         G_new, r2, iters = fd_newton(
             k_res, G, yh, zh, tf, nn_params, tol=tol, max_iter=max_iter,
@@ -249,6 +254,10 @@ def make_fast_rollout(
 ):
     """Build fn(controls (R, T, 4), nn_params|None) -> (traj (R, T, N, 50),
     residual norms (T-1, R), iters (T-1, R)).
+
+    nn_params: one net for all R rods or, with impl "mega", a StackedMLP
+    of R nets (rod r runs net r: the eval tables' per-cell nets, one K2
+    launch per step for all of them).
 
     The trajectory matches core.stepper.simulate_scan over a rod batch
     (same record layout, same dropped final step, same frozen tip z).

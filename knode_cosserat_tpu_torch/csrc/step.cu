@@ -15,6 +15,11 @@
 //        lam0), fails += 1
 // then a final sweep records y (B, N, 19) and z (B, N-1, 6).
 //
+// The net is one for all rods, or one per rod (nn_per_rod = 1: rod b reads
+// the b-th of B nets stacked on a leading axis, each tensor at b times its
+// per-net size) -- the JAX package lifts the step kernel over per-cell
+// params with vmap for the eval tables; here the rod index is the cell.
+//
 // What the TPU kernel needed and this one drops: pre-stalled pad lanes,
 // the f32-carried fails/found masks, 8-row padding of the node slabs, and
 // running every line-search candidate (stopping at the first improving
@@ -33,8 +38,10 @@
 // parallel (the probes are independent sweeps).
 #include "rhs_rows.cuh"
 
-// Residual of the sweep from base reaction G (6), no recording.
-template <typename T, int NNIN, bool RK4>
+// Residual of the sweep from base reaction G (6), no recording. PER_ROD
+// gives the per-rod kernel its own copy: the shared-net kernel's copy then
+// only ever sees its net in the kernel's parameters, as before per-rod nets.
+template <typename T, int NNIN, bool RK4, bool PER_ROD>
 __device__ __noinline__ void sweep_res(const RodConsts<T>& rc,
                                        const Mlp<T>& mlp, int N, const T* G,
                                        const T* yhb, const T* zhb,
@@ -102,8 +109,11 @@ struct NewtonArgs {
   int max_iter, n_alphas, max_escalations;
 };
 
-template <typename T, int NNIN, bool RK4>
-__global__ void step_kernel(const RodConsts<T> rc, const Mlp<T> mlp,
+// PER_ROD: rod b runs the b-th net of the stack (a copy of the net's
+// pointers advanced to it); otherwise every rod reads the one net straight
+// from the kernel's parameter.
+template <typename T, int NNIN, bool RK4, bool PER_ROD>
+__global__ void step_kernel(const RodConsts<T> rc, const Mlp<T> mlp_arg,
                             const NewtonArgs na, int B, int N,
                             const T* __restrict__ G_in,
                             const T* __restrict__ yh,
@@ -113,6 +123,16 @@ __global__ void step_kernel(const RodConsts<T> rc, const Mlp<T> mlp,
                             T* __restrict__ r2_out, int* __restrict__ iters) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
+  Mlp<T> own;
+  if constexpr (PER_ROD) {
+    const size_t h = (size_t)mlp_arg.hidden;
+    own = mlp_arg;
+    own.W1 += b * h * NNIN;
+    own.b1 += b * h;
+    own.W2 += b * h * 25;
+    own.b2 += (size_t)b * 25;
+  }
+  const Mlp<T>& mlp = PER_ROD ? own : mlp_arg;
   const T* yhb = yh + (size_t)b * N * 19;
   const T* zhb = zh + (size_t)b * N * 6;
   const T tfb[3] = {tf[3 * b], tf[3 * b + 1], tf[3 * b + 2]};
@@ -122,7 +142,7 @@ __global__ void step_kernel(const RodConsts<T> rc, const Mlp<T> mlp,
   T G[6], r[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) G[i] = G_in[6 * (size_t)b + i];
-  sweep_res<T, NNIN, RK4>(rc, mlp, N, G, yhb, zhb, tfb, r);
+  sweep_res<T, NNIN, RK4, PER_ROD>(rc, mlp, N, G, yhb, zhb, tfb, r);
   T r2 = sumsq6(r);
   T lam = T(0);
   int fails = 0, it = 0;
@@ -138,7 +158,7 @@ __global__ void step_kernel(const RodConsts<T> rc, const Mlp<T> mlp,
       for (int i = 0; i < 6; ++i) Gp[i] = G[i];
       const T h = eps0 * (T(1) + m_abs(G[k]));
       Gp[k] = G[k] + h;
-      sweep_res<T, NNIN, RK4>(rc, mlp, N, Gp, yhb, zhb, tfb, rp);
+      sweep_res<T, NNIN, RK4, PER_ROD>(rc, mlp, N, Gp, yhb, zhb, tfb, rp);
 #pragma unroll
       for (int i = 0; i < 6; ++i) J[6 * i + k] = (rp[i] - r[i]) / h;
     }
@@ -167,7 +187,7 @@ __global__ void step_kernel(const RodConsts<T> rc, const Mlp<T> mlp,
       T Gc[6], rc_[6];
 #pragma unroll
       for (int i = 0; i < 6; ++i) Gc[i] = G[i] + a * dG[i];
-      sweep_res<T, NNIN, RK4>(rc, mlp, N, Gc, yhb, zhb, tfb, rc_);
+      sweep_res<T, NNIN, RK4, PER_ROD>(rc, mlp, N, Gc, yhb, zhb, tfb, rc_);
       const T r2c = sumsq6(rc_);
       if (r2c < r2) {
         found = true;
@@ -214,54 +234,64 @@ __global__ void step_kernel(const RodConsts<T> rc, const Mlp<T> mlp,
 template <typename T, int NNIN, bool RK4>
 static void launch(const RodConstsHost* h, const NewtonArgs& na,
                    const void* W1, const void* b1, const void* W2,
-                   const void* b2, int hidden, int act, int B, int N,
-                   const void* G, const void* yh, const void* zh,
+                   const void* b2, int hidden, int act, int per_rod, int B,
+                   int N, const void* G, const void* yh, const void* zh,
                    const void* tf, void* G_out, void* y, void* z, void* r2,
                    void* iters, int block, cudaStream_t stream) {
   const Mlp<T> mlp{(const T*)W1, (const T*)b1, (const T*)W2, (const T*)b2,
                    hidden, act};
   const int grid = (B + block - 1) / block;
-  step_kernel<T, NNIN, RK4><<<grid, block, 0, stream>>>(
-      cast_consts<T>(*h), mlp, na, B, N, (const T*)G, (const T*)yh,
-      (const T*)zh, (const T*)tf, (T*)G_out, (T*)y, (T*)z, (T*)r2,
-      (int*)iters);
+  const RodConsts<T> rc = cast_consts<T>(*h);
+  if constexpr (NNIN != 0) {
+    if (per_rod) {
+      step_kernel<T, NNIN, RK4, true><<<grid, block, 0, stream>>>(
+          rc, mlp, na, B, N, (const T*)G, (const T*)yh, (const T*)zh,
+          (const T*)tf, (T*)G_out, (T*)y, (T*)z, (T*)r2, (int*)iters);
+      return;
+    }
+  }
+  step_kernel<T, NNIN, RK4, false><<<grid, block, 0, stream>>>(
+      rc, mlp, na, B, N, (const T*)G, (const T*)yh, (const T*)zh,
+      (const T*)tf, (T*)G_out, (T*)y, (T*)z, (T*)r2, (int*)iters);
 }
 
 template <typename T, int NNIN>
 static void launch_m(int rk4, const RodConstsHost* h, const NewtonArgs& na,
                      const void* W1, const void* b1, const void* W2,
-                     const void* b2, int hidden, int act, int B, int N,
-                     const void* G, const void* yh, const void* zh,
+                     const void* b2, int hidden, int act, int per_rod, int B,
+                     int N, const void* G, const void* yh, const void* zh,
                      const void* tf, void* G_out, void* y, void* z, void* r2,
                      void* iters, int block, cudaStream_t stream) {
   if (rk4)
-    launch<T, NNIN, true>(h, na, W1, b1, W2, b2, hidden, act, B, N, G, yh, zh,
-                          tf, G_out, y, z, r2, iters, block, stream);
+    launch<T, NNIN, true>(h, na, W1, b1, W2, b2, hidden, act, per_rod, B, N,
+                          G, yh, zh, tf, G_out, y, z, r2, iters, block,
+                          stream);
   else
-    launch<T, NNIN, false>(h, na, W1, b1, W2, b2, hidden, act, B, N, G, yh,
-                           zh, tf, G_out, y, z, r2, iters, block, stream);
+    launch<T, NNIN, false>(h, na, W1, b1, W2, b2, hidden, act, per_rod, B, N,
+                           G, yh, zh, tf, G_out, y, z, r2, iters, block,
+                           stream);
 }
 
 template <typename T>
 static int launch_t(int nn_in, int rk4, const RodConstsHost* h,
                     const NewtonArgs& na, const void* W1, const void* b1,
                     const void* W2, const void* b2, int hidden, int act,
-                    int B, int N, const void* G, const void* yh,
+                    int per_rod, int B, int N, const void* G, const void* yh,
                     const void* zh, const void* tf, void* G_out, void* y,
                     void* z, void* r2, void* iters, int block,
                     cudaStream_t stream) {
   switch (nn_in) {
     case 0:
-      launch_m<T, 0>(rk4, h, na, W1, b1, W2, b2, hidden, act, B, N, G, yh, zh,
-                     tf, G_out, y, z, r2, iters, block, stream);
+      launch_m<T, 0>(rk4, h, na, W1, b1, W2, b2, hidden, act, per_rod, B, N, G,
+                     yh, zh, tf, G_out, y, z, r2, iters, block, stream);
       return 0;
     case 28:
-      launch_m<T, 28>(rk4, h, na, W1, b1, W2, b2, hidden, act, B, N, G, yh,
-                      zh, tf, G_out, y, z, r2, iters, block, stream);
+      launch_m<T, 28>(rk4, h, na, W1, b1, W2, b2, hidden, act, per_rod, B, N,
+                      G, yh, zh, tf, G_out, y, z, r2, iters, block, stream);
       return 0;
     case 53:
-      launch_m<T, 53>(rk4, h, na, W1, b1, W2, b2, hidden, act, B, N, G, yh,
-                      zh, tf, G_out, y, z, r2, iters, block, stream);
+      launch_m<T, 53>(rk4, h, na, W1, b1, W2, b2, hidden, act, per_rod, B, N,
+                      G, yh, zh, tf, G_out, y, z, r2, iters, block, stream);
       return 0;
     default:
       return (int)cudaErrorInvalidValue;
@@ -278,19 +308,22 @@ extern "C" int knode_step(int is_f64, int nn_in, int act, int rk4, int B,
                           int max_escalations, const void* G, const void* yh,
                           const void* zh, const void* tf, const void* W1,
                           const void* b1, const void* W2, const void* b2,
-                          int hidden, void* G_out, void* y, void* z, void* r2,
-                          void* iters, int block, void* stream) {
-  if (B <= 0 || N < 2 || block <= 0 || (nn_in && !W1) || n_alphas > 62)
+                          int hidden, int nn_per_rod, void* G_out, void* y,
+                          void* z, void* r2, void* iters, int block,
+                          void* stream) {
+  if (B <= 0 || N < 2 || block <= 0 || (nn_in && !W1) || n_alphas > 62 ||
+      (nn_per_rod && !nn_in))
     return (int)cudaErrorInvalidValue;
   const NewtonArgs na{tol, eps0, lm_lambda0, lm_growth, max_iter, n_alphas,
                       max_escalations};
   const int bad =
       is_f64 ? launch_t<double>(nn_in, rk4, consts, na, W1, b1, W2, b2,
-                                hidden, act, B, N, G, yh, zh, tf, G_out, y, z,
-                                r2, iters, block, (cudaStream_t)stream)
+                                hidden, act, nn_per_rod, B, N, G, yh, zh, tf,
+                                G_out, y, z, r2, iters, block,
+                                (cudaStream_t)stream)
              : launch_t<float>(nn_in, rk4, consts, na, W1, b1, W2, b2, hidden,
-                               act, B, N, G, yh, zh, tf, G_out, y, z, r2,
-                               iters, block, (cudaStream_t)stream);
+                               act, nn_per_rod, B, N, G, yh, zh, tf, G_out, y,
+                               z, r2, iters, block, (cudaStream_t)stream);
   if (bad) return bad;
   return (int)cudaGetLastError();
 }

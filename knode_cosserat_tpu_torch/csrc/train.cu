@@ -22,6 +22,18 @@
 // losses, the new weights and moments and the 4 scalars (count, best,
 // plateau count, scale), so chunked runs compose.
 //
+// K5 (knode_train_grid) is this kernel over a grid of experiment cells: it
+// replaces knode_cosserat_tpu/ops/pallas_train.py::
+// make_fused_grid_training_run (jax.vmap of the run over the (data x mod x
+// seed) cells). gridDim.x = G, and block g trains cell g on its own slabs,
+// net, moments, scalars and ds (grid_cell below); the cells of one launch
+// share C, din, hidden, the hyperparameters and the loss denominators (one
+// trajectory count: parallel/grid.py splits a grid into such sub-grids).
+// Block g runs exactly K4's arithmetic on its cell, so K5's cell g equals a
+// K4 launch on cell g bit for bit. Plain version: train_run_reference per
+// cell (ops/train.py::train_grid_reference). The blocks are independent, so
+// G <= 132 runs take one run's time on as many SMs.
+//
 // Design: one block of 512 threads trains one run (a grid of such blocks
 // is K5, the grid trainer). Thread j owns hidden unit j (hidden <= 512):
 // its dW1 row and dW2 column are register accumulators over the whole
@@ -50,8 +62,7 @@
 // bound's 0.1 ms. The next design is a cluster of up to 8 blocks splitting
 // the hidden units (64 each), reducing the 25 output rows over
 // distributed shared memory in rank order.
-#include <cuda_runtime.h>
-#include <math.h>
+#include "train_common.cuh"
 
 struct TrainArgs {
   const float* cells[6];  // x, y_base, z_phys, tgt_y, tgt_z, e_tgt
@@ -65,105 +76,43 @@ struct TrainArgs {
   int C, din, hidden, n_epochs, patience, clamp;
   double lr, weight_decay, factor, rtol, ds;
   double inv[4];          // mean denominators: pos, states, eul, z
+  const double* ds_grid;  // K5: each grid cell's ds (device); K4: null
 };
+
+// The arguments of grid cell g: every slab, weight, moment, scalar and loss
+// pointer advanced past the g cells before it (K5 stacks them on a leading
+// grid axis; K4 is cell 0 of a grid of one), and the cell's own ds.
+__device__ TrainArgs grid_cell(const TrainArgs& a, int g) {
+  TrainArgs c = a;
+  const size_t C = a.C, h = a.hidden;
+  const size_t cw[6] = {(size_t)a.din, 19, 6, 19, 6, 3};
+  const size_t pw[4] = {h * a.din, h, h * kOut, kOut};
+#pragma unroll
+  for (int i = 0; i < 6; ++i) c.cells[i] += g * C * cw[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c.w_in[i] += g * pw[i];
+    c.w_out[i] += g * pw[i];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      c.m_in[2 * i + j] += g * pw[i];
+      c.m_out[2 * i + j] += g * pw[i];
+    }
+  }
+  c.s_in += 4 * (size_t)g;
+  c.s_out += 4 * (size_t)g;
+  c.losses += (size_t)g * a.n_epochs;
+  if (a.ds_grid) c.ds = a.ds_grid[g];
+  return c;
+}
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kOut = 25;
-
-// Adam's constants and this epoch's step, as AdamPlateau computes them.
-struct AdamStep {
-  float b1, omb1, b2, omb2, eps, bc1, bc2, neg_lr, scale, wd;
-  bool clamp;
-};
-
-// One parameter's Adam(W) update; its moments are updated in place.
-__device__ __forceinline__ float adam_update(float P, float g, float* mu_p,
-                                             float* nu_p, const AdamStep& s,
-                                             bool is_weight) {
-  const float mu = s.omb1 * g + s.b1 * (*mu_p);
-  const float nu = s.omb2 * (g * g) + s.b2 * (*nu_p);
-  *mu_p = mu;
-  *nu_p = nu;
-  float u = (mu / s.bc1) / (sqrtf(nu / s.bc2) + s.eps);
-  if (s.wd != 0.f) u = u + s.wd * P;
-  u = u * s.neg_lr;
-  u = u * s.scale;
-  P = P + u;
-  return (is_weight && s.clamp) ? fmaxf(P, 0.f) : P;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
-}
-
-// Loss of one cell and its cotangent g = dL/dNN (25) given the cell's net
-// output nn (25). The Euler map and its derivative follow
-// pallas_train.py::_euler_forward / _euler_backward.
-__device__ float cell_loss(const float* nn, const float* yb, const float* zp,
-                           const float* ty, const float* tz, const float* te,
-                           float ds, const float* inv, float* g) {
-  float yg[19];
-#pragma unroll
-  for (int i = 0; i < 19; ++i) yg[i] = yb[i] + ds * nn[i];
-  float sp = 0.f, ss = 0.f, sz = 0.f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float d = yg[i] - ty[i];
-    sp += d * d;
-    g[i] = 2.f * ds * inv[0] * d;
-  }
-#pragma unroll
-  for (int i = 7; i < 19; ++i) {
-    const float d = yg[i] - ty[i];
-    ss += d * d;
-    g[i] = 2.f * ds * inv[1] * d;
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    const float d = zp[i] + nn[19 + i] - tz[i];
-    sz += d * d;
-    g[19 + i] = 2.f * inv[3] * d;
-  }
-  // Euler angles of the normalized quaternion, the reference's convention;
-  // the floor keeps a zero quaternion finite
-  const float qw = yg[3], qx = yg[4], qy = yg[5], qz = yg[6];
-  const float s = rsqrtf(fmaxf(qw * qw + qx * qx + qy * qy + qz * qz, 1e-30f));
-  const float w = qw * s, x = qx * s, y = qy * s, z = qz * s;
-  const float A = 2.f * (w * y + x * z), B = 1.f - 2.f * (y * y + z * z);
-  const float Cv = 2.f * (w * z - x * y);
-  const float Cc = fminf(fmaxf(Cv, -1.f), 1.f);
-  const float D = 2.f * (w * x + y * z), E = 1.f - 2.f * (x * x + z * z);
-  const float de0 = atan2f(A, B) - te[0];
-  const float de1 = asinf(Cc) - te[1];
-  const float de2 = atan2f(D, E) - te[2];
-  const float se = de0 * de0 + de1 * de1 + de2 * de2;
-  // backward: roll = atan2(A, B), pitch = asin(clip(C)) (no gradient
-  // outside the clip), yaw = atan2(D, E)
-  const float rden = 2.f * inv[2] * de0 / (A * A + B * B);
-  const float cA = B * rden, cB = -A * rden;
-  const float pden = fabsf(Cv) < 1.f
-      ? 2.f * inv[2] * de1 * rsqrtf(fmaxf(1.f - Cc * Cc, 1e-30f)) : 0.f;
-  const float yden = 2.f * inv[2] * de2 / (D * D + E * E);
-  const float cD = E * yden, cE = -D * yden;
-  const float dw = cA * 2.f * y + pden * 2.f * z + cD * 2.f * x;
-  const float dx = cA * 2.f * z - pden * 2.f * y + cD * 2.f * w + cE * (-4.f * x);
-  const float dy = cA * 2.f * w + cB * (-4.f * y) - pden * 2.f * x + cD * 2.f * z;
-  const float dz = cA * 2.f * x + cB * (-4.f * z) + pden * 2.f * w + cD * 2.f * y
-                   + cE * (-4.f * z);
-  // through the normalization: dq = s (I - hn hn^T) dhn
-  const float dot = w * dw + x * dx + y * dy + z * dz;
-  g[3] = ds * s * (dw - w * dot);
-  g[4] = ds * s * (dx - x * dot);
-  g[5] = ds * s * (dy - y * dot);
-  g[6] = ds * s * (dz - z * dot);
-  return sp * inv[0] + ss * inv[1] + se * inv[2] + sz * inv[3];
-}
 
 template <int DIN, int TILE>
-__global__ void __launch_bounds__(kThreads, 1) train_kernel(const TrainArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) train_kernel(
+    const TrainArgs grid_args) {
+  const TrainArgs a = grid_cell(grid_args, blockIdx.x);
   static_assert(TILE % 16 == 0 && TILE <= 32, "TILE: 16 or 32 cells");
   constexpr int CPW = TILE / kWarps;  // cells per warp in NN = W2 H
   extern __shared__ float4 smem4[];
@@ -321,19 +270,9 @@ __global__ void __launch_bounds__(kThreads, 1) train_kernel(const TrainArgs a) {
     if (tid == 0) red[0] = eloss;
     __syncthreads();
     const float L = red[0];
-    const bool improved = (double)L < (1.0 - a.rtol) * (double)best;
-    if (improved) best = L;
-    int cnt = improved ? 0 : pcount + 1;
-    if (cnt == a.patience) {
-      scale = fmax(scale * a.factor, 0.0);
-      cnt = 0;
-    }
-    pcount = cnt;
-    const double t = (double)t0 + e + 1;
-    const AdamStep st{0.9f, (float)(1.0 - 0.9), 0.999f, (float)(1.0 - 0.999),
-                      1e-8f, (float)(1.0 - pow(0.9, t)),
-                      (float)(1.0 - pow(0.999, t)), (float)(-a.lr),
-                      (float)scale, (float)a.weight_decay, a.clamp != 0};
+    plateau_step(L, a.rtol, a.patience, a.factor, best, pcount, scale);
+    const AdamStep st = adam_step((double)t0 + e + 1, scale, a.lr,
+                                  a.weight_decay, a.clamp);
     if (own) {
 #pragma unroll
       for (int k = 0; k < DIN; ++k) {
@@ -370,7 +309,7 @@ __global__ void __launch_bounds__(kThreads, 1) train_kernel(const TrainArgs a) {
 }
 
 template <int DIN, int TILE>
-static int launch(const TrainArgs& a, cudaStream_t stream) {
+static int launch(const TrainArgs& a, int G, cudaStream_t stream) {
   const size_t floats = (size_t)DIN * TILE + kOut * TILE + (size_t)TILE * a.hidden
                         + (size_t)kOut * a.hidden + (size_t)DIN * a.hidden + 28 + 4;
   const size_t bytes = floats * sizeof(float);
@@ -378,28 +317,41 @@ static int launch(const TrainArgs& a, cudaStream_t stream) {
       train_kernel<DIN, TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  train_kernel<DIN, TILE><<<1, kThreads, bytes, stream>>>(a);
+  train_kernel<DIN, TILE><<<G, kThreads, bytes, stream>>>(a);
   return 0;
 }
 
-// C entry point (bound with ctypes in ops/_build.py). Pointers are device
-// pointers of contiguous float32 tensors. Returns cudaGetLastError() after
-// the launch.
-extern "C" int knode_train(const TrainArgs* a, int threads, void* stream) {
-  if (threads != kThreads || a->C < 1 || a->hidden < 1 ||
-      a->hidden > kThreads || a->n_epochs < 1)
+static int launch_din(const TrainArgs* a, int G, int threads, void* stream) {
+  if (threads != kThreads || G < 1 || a->C < 1 || a->hidden < 1 ||
+      a->hidden > kThreads || a->n_epochs < 1 || (G > 1 && !a->ds_grid))
     return (int)cudaErrorInvalidValue;
   int bad;
   switch (a->din) {
     case 28:
-      bad = launch<28, 32>(*a, (cudaStream_t)stream);
+      bad = launch<28, 32>(*a, G, (cudaStream_t)stream);
       break;
     case 53:
-      bad = launch<53, 16>(*a, (cudaStream_t)stream);
+      bad = launch<53, 16>(*a, G, (cudaStream_t)stream);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   if (bad) return bad;
   return (int)cudaGetLastError();
+}
+
+// C entry points (bound with ctypes in ops/_build.py). Pointers are device
+// pointers of contiguous float32 tensors. Each returns cudaGetLastError()
+// after the launch.
+//   K4: one run, one block.
+extern "C" int knode_train(const TrainArgs* a, int threads, void* stream) {
+  return launch_din(a, 1, threads, stream);
+}
+
+//   K5: G runs, one block each; every pointer holds G runs stacked on a
+//   leading axis (the runs share C, din, hidden and the hyperparameters)
+//   and ds_grid their G step sizes.
+extern "C" int knode_train_grid(const TrainArgs* a, int G, int threads,
+                                void* stream) {
+  return launch_din(a, G, threads, stream);
 }

@@ -19,8 +19,9 @@ from torch import nn
 
 from ..device import default_device
 
-__all__ = ["MLPSpec", "KnodeMLP", "init_mlp", "mlp_apply", "clamp_nonnegative",
-           "count_params", "bind", "params_from_jax", "ACTIVATIONS"]
+__all__ = ["MLPSpec", "KnodeMLP", "StackedMLP", "init_mlp", "mlp_apply",
+           "clamp_nonnegative", "count_params", "bind", "params_from_jax",
+           "stacked_params_from_jax", "ACTIVATIONS"]
 
 
 def _softplus(x):
@@ -156,3 +157,74 @@ def params_from_jax(params, spec: MLPSpec, dtype=None, device=None) -> KnodeMLP:
             layer.weight.copy_(w)
             layer.bias.copy_(b)
     return net
+
+
+class StackedMLP(nn.Module):
+    """G nets of one spec stacked on a leading axis: the JAX package's
+    ``vmap``-ed per-cell params (the eval rollouts of a grid, K5's nets).
+
+    ``weights()`` gives ``[(w (G, dout, din), b (G, dout)), ...]``. As an
+    ``nn_fn`` it takes inputs whose leading axis holds G equal, contiguous
+    groups of rows (rods, or rods x probes repeated per rod) and applies
+    net g to group g, one ``F.linear`` per net, so each net sees exactly
+    the rows a single-net call on its own rods gives it."""
+
+    def __init__(self, nets):
+        super().__init__()
+        nets = list(nets)
+        if not nets:
+            raise ValueError("no nets to stack")
+        self.spec = nets[0].spec
+        if any(n.spec != self.spec for n in nets):
+            raise ValueError("stacked nets must share one spec")
+        n_layers = len(nets[0].layers)
+        # registered w, b per layer in order, as KnodeMLP.parameters() gives
+        self.flat = nn.ParameterList(
+            torch.stack([getattr(n.layers[i], name).detach() for n in nets])
+            for i in range(n_layers) for name in ("weight", "bias"))
+
+    def __len__(self) -> int:
+        return self.flat[0].shape[0]
+
+    def weights(self):
+        """[(w (G, dout, din), b (G, dout)), ...] per layer."""
+        return [(self.flat[i], self.flat[i + 1])
+                for i in range(0, len(self.flat), 2)]
+
+    def unstack(self):
+        """The G nets as KnodeMLPs (copies)."""
+        w = self.flat[0]
+        nets = []
+        for g in range(len(self)):
+            net = KnodeMLP(self.spec, dtype=w.dtype, device=w.device)
+            with torch.no_grad():
+                for P, Q in zip(net.parameters(), self.flat):
+                    P.copy_(Q[g])
+            nets.append(net)
+        return nets
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        G = len(self)
+        if x.shape[0] % G:
+            raise ValueError(f"{x.shape[0]} rows do not split into {G} nets")
+        act = ACTIVATIONS[self.spec.activation]
+        layers = self.weights()
+        groups = x.reshape((G, -1) + tuple(x.shape[1:]))
+        outs = []
+        for g in range(G):
+            h = groups[g]
+            for i, (W, b) in enumerate(layers):
+                dt = torch.promote_types(h.dtype, W.dtype)
+                h = F.linear(h.to(dt), W[g].to(dt), b[g].to(dt))
+                if i < len(layers) - 1:
+                    h = act(h)
+            outs.append(h)
+        return torch.stack(outs).reshape(tuple(x.shape[:-1])
+                                         + (outs[0].shape[-1],))
+
+
+def stacked_params_from_jax(trees, spec: MLPSpec, dtype=None,
+                            device=None) -> StackedMLP:
+    """A list of the JAX package's per-cell params (``GridResult.params``)
+    -> one StackedMLP."""
+    return StackedMLP([params_from_jax(t, spec, dtype, device) for t in trees])

@@ -10,7 +10,8 @@ unchanged one is loaded as it is. Nothing is built or loaded when this
 module is imported: the first kernel launch calls ``library()``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
-wrappers (ops/sweep.py, ops/step.py, ops/train.py) raise when it is not 0.
+wrappers (ops/sweep.py, ops/step.py, ops/train.py, ops/train_wide.py)
+raise when it is not 0.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["library", "RodConstsHost", "TrainArgs", "build_info",
+__all__ = ["library", "RodConstsHost", "TrainArgs", "WideArgs", "build_info",
            "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -74,7 +75,30 @@ class TrainArgs(ctypes.Structure):
                 ("lr", ctypes.c_double), ("weight_decay", ctypes.c_double),
                 ("factor", ctypes.c_double), ("rtol", ctypes.c_double),
                 ("ds", ctypes.c_double),
-                ("inv", ctypes.c_double * 4)]     # pos, states, eul, z
+                ("inv", ctypes.c_double * 4),     # pos, states, eul, z
+                ("ds_grid", ctypes.c_void_p)]     # K5: (G,) float64; K4: 0
+
+
+class WideArgs(ctypes.Structure):
+    """Mirror of ``WideArgs`` in csrc/train_wide.cu: the cell slabs, the
+    weights and moments (updated in place), the scalars, the scratch
+    buffers and the run's constants."""
+    _fields_ = [("cells", ctypes.c_void_p * 6),
+                ("w", ctypes.c_void_p * 4),        # W1, b1, W2, b2
+                ("m", ctypes.c_void_p * 8),        # mu, nu of each
+                ("s_in", ctypes.c_void_p),
+                ("s_out", ctypes.c_void_p),
+                ("losses", ctypes.c_void_p),
+                ("g", ctypes.c_void_p),            # (C, 25) scratch
+                ("cell_loss", ctypes.c_void_p),    # (C,) scratch
+                ("run", ctypes.c_void_p),          # (3,) float64
+                ("C", ctypes.c_int), ("din", ctypes.c_int),
+                ("hidden", ctypes.c_int), ("n_epochs", ctypes.c_int),
+                ("patience", ctypes.c_int), ("clamp", ctypes.c_int),
+                ("lr", ctypes.c_double), ("weight_decay", ctypes.c_double),
+                ("factor", ctypes.c_double), ("rtol", ctypes.c_double),
+                ("ds", ctypes.c_double),
+                ("inv", ctypes.c_double * 4)]
 
 
 class _Kernels:
@@ -166,13 +190,21 @@ def _declare(k: _Kernels):
     k.knode_sweep.restype = I
     # knode_step(is_f64, nn_in, act, rk4, B, N, consts, tol, eps0, max_iter,
     #            n_alphas, lm_lambda0, lm_growth, max_escalations,
-    #            G, yh, zh, tf, W1, b1, W2, b2, hidden,
+    #            G, yh, zh, tf, W1, b1, W2, b2, hidden, nn_per_rod,
     #            G_out, y, z, r2, iters, block, stream)
     k.knode_step.argtypes = [I, I, I, I, I, I, consts, D, D, I,
                                I, D, D, I,
-                               P, P, P, P, P, P, P, P, I,
+                               P, P, P, P, P, P, P, P, I, I,
                                P, P, P, P, P, I, P]
     k.knode_step.restype = I
     # knode_train(args, threads, stream)
     k.knode_train.argtypes = [ctypes.POINTER(TrainArgs), I, P]
     k.knode_train.restype = I
+    # knode_train_grid(args, G, threads, stream)
+    k.knode_train_grid = k.train.knode_train_grid
+    k.knode_train_grid.argtypes = [ctypes.POINTER(TrainArgs), I, I, P]
+    k.knode_train_grid.restype = I
+    # knode_train_wide(args, stream)
+    k.knode_train_wide = k.train_wide.knode_train_wide
+    k.knode_train_wide.argtypes = [ctypes.POINTER(WideArgs), P]
+    k.knode_train_wide.restype = I

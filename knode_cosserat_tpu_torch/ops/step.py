@@ -10,9 +10,11 @@ stall ladder, and a final recording sweep.
 
 ``make_step_kernel(p, spec, ...)`` returns fn(G (B,6), yh (B,N,19),
 zh (B,N,6), tf (B,3), nn_params|None) -> (G_new (B,6), y (B,N,19),
-z (B,N-1,6), r2 (B,), iters (B,) int32). A CPU tensor runs
-:func:`step_reference`, a CUDA tensor launches the kernel (or raises).
-``iters`` counts each rod's own Newton iterations (on the TPU it was one
+z (B,N-1,6), r2 (B,), iters (B,) int32). ``nn_params`` is one net for all
+rods or a StackedMLP of B nets, net b for rod b (the JAX package's vmap of
+the step kernel over per-cell params, as the eval tables run it). A CPU
+tensor runs :func:`step_reference`, a CUDA tensor launches the kernel (or
+raises). ``iters`` counts each rod's own Newton iterations (on the TPU it was one
 count per block of rods); compare it only through its maximum.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ import ctypes
 import torch
 
 from ..core.params import RodParams
-from ..models.mlp import KnodeMLP, MLPSpec
+from ..models.mlp import MLPSpec
 from .sweep import (check_inputs, check_spec, raise_on, rod_consts,
                     stream_of, sweep_reference, weight_args)
 
@@ -48,13 +50,15 @@ def fd1_eps(dtype: torch.dtype) -> float:
 
 
 @torch.no_grad()
-def step_reference(p: RodParams, G, yh, zh, tf,
-                   nn_params: KnodeMLP | None = None, tol: float = 1e-10,
+def step_reference(p: RodParams, G, yh, zh, tf, nn_params=None,
+                   tol: float = 1e-10,
                    max_iter: int = 30, n_alphas: int = 7,
                    method: str = "euler"):
     """Plain PyTorch version of K2, any device: the FD-Newton driver of
     core/fast_rollout.py over :func:`sweep_reference`, with forward
     differences and a Jacobian refreshed every iteration (K2's semantics).
+    ``nn_params``: None, one net, or a StackedMLP (net b for rod b; the
+    probe and candidate lanes of the FD-Newton loop are grouped by rod).
     Like the kernel, it records no autograd graph."""
     from ..core.fast_rollout import fd_newton
 
@@ -107,14 +111,15 @@ def _launch(p, consts, spec, tol, max_iter, n_alphas, method, G, yh, zh, tf,
     iters = torch.empty((B,), dtype=torch.int32, device=G.device)
     if B == 0:
         return G_out, y, z, r2, iters
-    nn_in, act, W1, b1, W2, b2, hidden = weight_args(spec, nn_params, G)
+    nn_in, act, W1, b1, W2, b2, hidden, per_rod = weight_args(spec, nn_params,
+                                                              G)
     with torch.cuda.device(G.device):
         code = library().knode_step(
             int(G.dtype == torch.float64), nn_in, act, int(method == "rk4"),
             B, N, ctypes.byref(consts), float(tol), fd1_eps(G.dtype),
             int(max_iter), int(n_alphas), _LM_LAMBDA0, _LM_GROWTH,
             _MAX_ESCALATIONS, G.data_ptr(), yh.data_ptr(), zh.data_ptr(),
-            tf.data_ptr(), W1, b1, W2, b2, hidden, G_out.data_ptr(),
+            tf.data_ptr(), W1, b1, W2, b2, hidden, per_rod, G_out.data_ptr(),
             y.data_ptr(), z.data_ptr(), r2.data_ptr(), iters.data_ptr(),
             _BLOCK, stream_of(G))
     raise_on(code, "K2 step")

@@ -21,7 +21,7 @@ import torch
 
 from ..core.params import RodParams
 from ..core.spatial import integrate_euler, integrate_rk4, tip_residual
-from ..models.mlp import KnodeMLP, MLPSpec
+from ..models.mlp import KnodeMLP, MLPSpec, StackedMLP
 
 __all__ = ["make_sweep_kernel", "sweep_reference", "LAUNCHES"]
 
@@ -103,10 +103,17 @@ def check_inputs(p: RodParams, G, yh, zh, tf):
             raise ValueError(f"{name} must be contiguous")
 
 
-def weight_args(spec: MLPSpec | None, nn_params: KnodeMLP | None, like):
-    """(nn_in, act, W1, b1, W2, b2, hidden) for the C entry points."""
+def weight_args(spec: MLPSpec | None, nn_params, like):
+    """(nn_in, act, W1, b1, W2, b2, hidden, per_rod) for the C entry points.
+    ``nn_params`` is one net for all rods (per_rod 0) or a StackedMLP with
+    one net per rod of ``like`` (per_rod 1: rod b reads net b, at b times
+    each tensor's per-net size)."""
     if spec is None or nn_params is None:
-        return 0, 0, None, None, None, None, 0
+        return 0, 0, None, None, None, None, 0, 0
+    per_rod = int(isinstance(nn_params, StackedMLP))
+    if per_rod and len(nn_params) != like.shape[0]:
+        raise ValueError(f"{len(nn_params)} stacked nets for "
+                         f"{like.shape[0]} rods")
     ts = [t for wb in nn_params.weights() for t in wb]
     for t in ts:
         if t.device != like.device or t.dtype != like.dtype:
@@ -115,7 +122,7 @@ def weight_args(spec: MLPSpec | None, nn_params: KnodeMLP | None, like):
         if not t.is_contiguous():
             raise ValueError("MLP weights must be contiguous")
     return (spec.dims[0], _ACT_CODES[spec.activation],
-            *(t.data_ptr() for t in ts), spec.dims[1])
+            *(t.data_ptr() for t in ts), spec.dims[1], per_rod)
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -140,6 +147,9 @@ def make_sweep_kernel(p: RodParams, spec: MLPSpec | None = None,
 
     def fn(G, yh, zh, tf, nn_params=None):
         nn_params = nn_params if spec is not None else None
+        if isinstance(nn_params, StackedMLP):
+            raise NotImplementedError("K3 takes one net for all lanes; "
+                                      "stacked nets run on K2 (ops/step.py)")
         if G.device.type == "cpu":
             return sweep_reference(p, G, yh, zh, tf, nn_params, method,
                                    want_rod)
@@ -167,7 +177,7 @@ def _launch(p, consts, spec, method, want_rod, G, yh, zh, tf, nn_params):
         z = torch.empty((B, N - 1, 6), dtype=G.dtype, device=G.device)
     if B == 0:
         return (res, y, z) if want_rod else res
-    nn_in, act, W1, b1, W2, b2, hidden = weight_args(spec, nn_params, G)
+    nn_in, act, W1, b1, W2, b2, hidden, _ = weight_args(spec, nn_params, G)
     with torch.cuda.device(G.device):
         code = library().knode_sweep(
             int(G.dtype == torch.float64), nn_in, act, int(method == "rk4"),

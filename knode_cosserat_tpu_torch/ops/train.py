@@ -27,31 +27,47 @@ runs compose exactly; :func:`fused_state_from_optimizer` and
 
 ``train_run`` dispatches by device: cells on the CPU run
 :func:`train_run_reference`, cells on a CUDA device launch K4 (or raise).
+
+K5, the grid trainer (the JAX package's ``make_fused_grid_training_run``,
+``jax.vmap`` of the run over experiment cells), is the same kernel with one
+block per cell: :func:`train_grid_run` takes G cells' constants, nets and
+states stacked on a leading axis; its plain version
+:func:`train_grid_reference` runs :func:`train_run_reference` per cell.
+:func:`fused_state_from_jax` / :func:`fused_state_to_jax` convert the state
+to and from the JAX package's ``{"moments", "scalars"}`` (biases (n, 1),
+scalars (1, 128)), which K4, K5 and K6 (ops/train_wide.py) share.
 """
 from __future__ import annotations
 
 import copy
 import ctypes
 import dataclasses
+import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.params import RodParams
 from ..core.rhs import nn_input_features, rhs
 from ..core.stepper import tendon_forces
-from ..models.mlp import KnodeMLP, MLPSpec
+from ..models.mlp import KnodeMLP, MLPSpec, StackedMLP
 from .quaternion import quaternion_to_euler
 
-__all__ = ["make_fused_training_run", "fused_trainer_supported", "precompute",
-           "train_run", "train_run_reference", "fused_state_from_optimizer",
-           "load_fused_state", "Cells", "TrainHyper", "MAX_CELLS", "LAUNCHES"]
+__all__ = ["make_fused_training_run", "make_fused_grid_training_run",
+           "fused_trainer_supported", "precompute", "train_run",
+           "train_run_reference", "train_grid_run", "train_grid_reference",
+           "fresh_state", "fused_state_from_optimizer", "load_fused_state",
+           "fused_state_from_jax", "fused_state_to_jax", "Cells",
+           "TrainHyper", "MAX_CELLS", "LAUNCHES", "GRID_LAUNCHES"]
 
 MAX_CELLS = 8192
 
 #: K4 launches made by this module's wrapper since the count was last reset
 LAUNCHES = 0
+#: K5 launches made by this module's grid wrapper since the last reset
+GRID_LAUNCHES = 0
 
 _THREADS = 512      # one block; thread j owns hidden unit j (hidden <= 512)
 
@@ -129,6 +145,39 @@ def precompute(p: RodParams, spec: MLPSpec, keypoints: Sequence[int],
            1.0 / (Tm1 * K * 6))
     return Cells(cells(feats), cells(y_base), cells(z_phys), cells(tgt_y),
                  cells(tgt_z), cells(e_tgt), inv, float(p.ds))
+
+
+def fresh_state(W: Sequence[torch.Tensor]) -> dict:
+    """The state of a run that has taken no step: zero moments, Adam count
+    0, best loss inf, plateau count 0, scale 1 (float32, W's device)."""
+    moments = tuple(torch.zeros_like(w, dtype=torch.float32)
+                    for w in W for _ in range(2))
+    scalars = torch.tensor([0.0, math.inf, 0.0, 1.0], dtype=torch.float32,
+                           device=W[0].device)
+    return {"moments": moments, "scalars": scalars}
+
+
+def fused_state_from_jax(state, device=None) -> dict:
+    """The JAX package's fused-kernel state (pallas_train / pallas_train_wide
+    ``{"moments": (8 arrays, biases (n, 1)), "scalars": (1, 128)}``) -> the
+    port's (biases (n,), scalars (4,)), float32 on ``device``."""
+    t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
+    moments = tuple(t(m).reshape(-1) if i in (2, 3, 6, 7) else t(m)
+                    for i, m in enumerate(state["moments"]))
+    return {"moments": moments,
+            "scalars": t(np.asarray(state["scalars"]).reshape(-1)[:4])}
+
+
+def fused_state_to_jax(state) -> dict:
+    """The port's state -> the JAX package's layout (numpy, float32): the
+    inverse of :func:`fused_state_from_jax` (scalars[4], the JAX kernel's
+    own ds slot, is 0: its kernels set it from the rod on every call)."""
+    host = lambda a: a.detach().cpu().numpy().astype(np.float32)
+    moments = tuple(host(m)[:, None] if i in (2, 3, 6, 7) else host(m)
+                    for i, m in enumerate(state["moments"]))
+    scalars = np.zeros((1, 128), np.float32)
+    scalars[0, :4] = host(state["scalars"])
+    return {"moments": moments, "scalars": scalars}
 
 
 def fused_state_from_optimizer(opt) -> dict:
@@ -227,34 +276,49 @@ def _check(name, t, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(cells: Cells, W, state, n_epochs, hyper):
-    global LAUNCHES
+def check_run_args(cells: Cells, W, state, n_epochs: int, lead: tuple,
+                   max_hidden: int, max_cells: int, what: str):
+    """Raise unless a training kernel takes these arguments (float32,
+    contiguous, on one CUDA device, the shapes of one run or of ``lead``
+    runs stacked); returns (C, din, hidden)."""
+    dev = cells.x.device
+    C, din = cells.x.shape[-2:]
+    h = W[0].shape[-2]
+    if din not in (28, 53) or not 1 <= h <= max_hidden or n_epochs < 1:
+        raise ValueError(f"{what} takes 28/53 inputs, hidden 1..{max_hidden} "
+                         f"and >= 1 epoch; got din={din}, hidden={h}, "
+                         f"epochs={n_epochs}")
+    if not 1 <= C <= max_cells:
+        raise ValueError(f"{C} cells, {what} takes 1..{max_cells}")
+    shapes = {"W1": (h, din), "b1": (h,), "W2": (25, h), "b2": (25,)}
+    for (name, shape), t in zip(shapes.items(), W):
+        _check(name, t, lead + shape, dev)
+    for i, t in enumerate(state["moments"]):
+        _check(f"moment {i}", t, W[i // 2].shape, dev)
+    _check("scalars", state["scalars"], lead + (4,), dev)
+    for name, d in (("x", din), ("y_base", 19), ("z_phys", 6), ("tgt_y", 19),
+                    ("tgt_z", 6), ("e_tgt", 3)):
+        _check(name, getattr(cells, name), lead + (C, d), dev)
+    return C, din, h
+
+
+def _launch(cells: Cells, W, state, n_epochs, hyper, ds_grid=None):
+    """K4 (one run), or K5 when ``ds_grid`` holds the G cells' ds and every
+    tensor carries a leading grid axis G."""
+    global LAUNCHES, GRID_LAUNCHES
     from ..training.train import PLATEAU_RTOL
     from ._build import TrainArgs, library
 
     dev = cells.x.device
-    C, din = cells.x.shape
-    h = W[0].shape[0]
-    if din not in (28, 53) or not 1 <= h <= _THREADS or n_epochs < 1:
-        raise ValueError(f"K4 takes 28/53 inputs, hidden 1..{_THREADS} and "
-                         f">= 1 epoch; got din={din}, hidden={h}, "
-                         f"epochs={n_epochs}")
-    if not 1 <= C <= MAX_CELLS:
-        raise ValueError(f"{C} cells, K4 takes 1..{MAX_CELLS}")
-    shapes = {"W1": (h, din), "b1": (h,), "W2": (25, h), "b2": (25,)}
-    for (name, shape), t in zip(shapes.items(), W):
-        _check(name, t, shape, dev)
-    for i, t in enumerate(state["moments"]):
-        _check(f"moment {i}", t, W[i // 2].shape, dev)
-    _check("scalars", state["scalars"], (4,), dev)
-    for name, d in (("x", din), ("y_base", 19), ("z_phys", 6), ("tgt_y", 19),
-                    ("tgt_z", 6), ("e_tgt", 3)):
-        _check(name, getattr(cells, name), (C, d), dev)
+    lead = () if ds_grid is None else (ds_grid.shape[0],)
+    what = "K4 train" if ds_grid is None else "K5 grid train"
+    C, din, h = check_run_args(cells, W, state, n_epochs, lead, _THREADS,
+                               MAX_CELLS, what)
 
     W_out = [torch.empty_like(t) for t in W]
     m_out = [torch.empty_like(t) for t in state["moments"]]
     s_out = torch.empty_like(state["scalars"])
-    losses = torch.empty((n_epochs,), dtype=torch.float32, device=dev)
+    losses = torch.empty(lead + (n_epochs,), dtype=torch.float32, device=dev)
     ptr = lambda ts: [t.data_ptr() for t in ts]
     a = TrainArgs()
     a.cells[:] = ptr([cells.x, cells.y_base, cells.z_phys, cells.tgt_y,
@@ -272,16 +336,116 @@ def _launch(cells: Cells, W, state, n_epochs, hyper):
                                               hyper.factor, PLATEAU_RTOL)
     a.ds = cells.ds
     a.inv[:] = list(cells.inv)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = library().knode_train(ctypes.byref(a), _THREADS,
-                                     torch.cuda.current_stream(dev).cuda_stream)
+        if ds_grid is None:
+            code = library().knode_train(ctypes.byref(a), _THREADS, stream)
+        else:
+            a.ds_grid = ds_grid.data_ptr()
+            code = library().knode_train_grid(ctypes.byref(a), lead[0],
+                                              _THREADS, stream)
     if code != 0:
-        raise RuntimeError(f"K4 train launch failed: CUDA error {code}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{what} launch failed: CUDA error {code}")
+    if ds_grid is None:
+        LAUNCHES += 1
+    else:
+        GRID_LAUNCHES += 1
     return W_out, losses, {"moments": tuple(m_out), "scalars": s_out}
 
 
+# ------------------------------------------------------------- K5 (grid)
+
+def _cell(state: dict, g: int) -> dict:
+    return {"moments": tuple(m[g] for m in state["moments"]),
+            "scalars": state["scalars"][g]}
+
+
+def _stack_states(states) -> dict:
+    return {"moments": tuple(torch.stack(ms) for ms in
+                             zip(*(s["moments"] for s in states))),
+            "scalars": torch.stack([s["scalars"] for s in states])}
+
+
+def train_grid_reference(cells: Sequence[Cells], W: Sequence[torch.Tensor],
+                         state: dict, n_epochs: int, hyper: TrainHyper):
+    """Plain PyTorch version of K5: :func:`train_run_reference` on each of
+    the G cells. W: [W1, b1, W2, b2], each stacked (G, ...); state: the
+    cells' states stacked (moments (G, ...), scalars (G, 4)). Returns
+    (W' stacked, losses (G, n_epochs), state' stacked)."""
+    outs = [train_run_reference(c, [w[g] for w in W], _cell(state, g),
+                                n_epochs, hyper)
+            for g, c in enumerate(cells)]
+    return ([torch.stack(ws) for ws in zip(*(o[0] for o in outs))],
+            torch.stack([o[1] for o in outs]),
+            _stack_states([o[2] for o in outs]))
+
+
+def train_grid_run(cells: Sequence[Cells], W: Sequence[torch.Tensor],
+                   state: dict, n_epochs: int, hyper: TrainHyper):
+    """K5: the G cells' runs in one launch, one block each. Same arguments
+    and returns as :func:`train_grid_reference`, which runs instead for
+    cells on the CPU. The cells must share C, din and the loss
+    denominators (one trajectory count per launch)."""
+    dev = cells[0].x.device
+    if dev.type == "cpu":
+        return train_grid_reference(cells, W, state, n_epochs, hyper)
+    if dev.type != "cuda":
+        raise ValueError(f"no training kernel for device {dev}")
+    if any(c.inv != cells[0].inv or c.x.shape != cells[0].x.shape
+           for c in cells):
+        raise ValueError("K5's cells must share their shape and loss "
+                         "denominators (split the grid by trajectory count)")
+    stacked = Cells(*(torch.stack([getattr(c, f) for c in cells])
+                      for f in ("x", "y_base", "z_phys", "tgt_y", "tgt_z",
+                                "e_tgt")), cells[0].inv, cells[0].ds)
+    ds = torch.tensor([c.ds for c in cells], dtype=torch.float64, device=dev)
+    return _launch(stacked, W, state, n_epochs, hyper, ds_grid=ds)
+
+
 # ------------------------------------------------------------------ runner
+
+def _hyper(cfg) -> TrainHyper:
+    return TrainHyper(lr=float(cfg.lr),
+                      weight_decay=float(cfg.weight_decay or 0.0),
+                      factor=float(cfg.plateau_factor),
+                      patience=int(cfg.plateau_patience),
+                      clamp=bool(cfg.clamp_weights))
+
+
+def _check_two_layer_elu(spec: MLPSpec):
+    if not (len(spec.dims) == 3 and spec.activation == "elu"
+            and spec.compute_dtype is None):
+        raise NotImplementedError(
+            "the fused trainers take 2-layer ELU MLPs in full float32 (the "
+            "reference architecture); use the plain epoch loop otherwise")
+
+
+def make_run(p: RodParams, spec: MLPSpec, cfg, n_epochs: int, fn,
+             max_cells: int = MAX_CELLS):
+    """run(net, trajs, controls, opt_state=None) over a whole-run function
+    ``fn(cells, W, state, n_epochs, hyper)`` (K4's or K6's wrapper, or
+    their plain version); see :func:`make_fused_training_run`."""
+    _check_two_layer_elu(spec)
+    hyper = _hyper(cfg)
+    keypoints = tuple(cfg.keypoints)
+
+    def run(net: KnodeMLP, trajs, controls, opt_state=None):
+        cells = precompute(p, spec, keypoints, trajs, controls)
+        if cells.x.shape[0] > max_cells:
+            raise ValueError(f"{cells.x.shape[0]} cells > {max_cells}")
+        W = [t.detach().to(torch.float32).contiguous()
+             for wb in net.weights() for t in wb]
+        if opt_state is None:
+            opt_state = fresh_state(W)
+        W_out, losses, state = fn(cells, W, opt_state, n_epochs, hyper)
+        out = copy.deepcopy(net)
+        with torch.no_grad():
+            for P, w in zip(out.parameters(), W_out):
+                P.copy_(w)
+        return out, losses, state
+
+    return run
+
 
 def make_fused_training_run(p: RodParams, spec: MLPSpec, cfg, n_epochs: int,
                             plain: bool = False):
@@ -295,28 +459,37 @@ def make_fused_training_run(p: RodParams, spec: MLPSpec, cfg, n_epochs: int,
     plateau_*). opt_state: None for a fresh run or the state a previous
     call returned. plain=True runs :func:`train_run_reference` on any
     device (the JAX package's interpret=True)."""
-    if not (len(spec.dims) == 3 and spec.activation == "elu"
-            and spec.compute_dtype is None):
-        raise NotImplementedError(
-            "the fused trainer takes 2-layer ELU MLPs in full float32 (the "
-            "reference architecture); use the plain epoch loop otherwise")
-    hyper = TrainHyper(lr=float(cfg.lr),
-                       weight_decay=float(cfg.weight_decay or 0.0),
-                       factor=float(cfg.plateau_factor),
-                       patience=int(cfg.plateau_patience),
-                       clamp=bool(cfg.clamp_weights))
-    keypoints = tuple(cfg.keypoints)
-    fn = train_run_reference if plain else train_run
+    return make_run(p, spec, cfg, n_epochs,
+                    train_run_reference if plain else train_run)
 
-    def run(net: KnodeMLP, trajs, controls, opt_state=None):
-        cells = precompute(p, spec, keypoints, trajs, controls)
+
+def make_fused_grid_training_run(spec: MLPSpec, cfg, n_epochs: int,
+                                 plain: bool = False):
+    """Multitrain version (K5): run(rods, params, trajs, controls,
+    opt_state=None) with every argument stacked on a leading grid axis G:
+    rods a sequence of G RodParams, params a StackedMLP of G nets, trajs
+    (G, B, T, N, 25), controls (G, B, T, 4), opt_state the G states stacked
+    (or None). Returns (params' StackedMLP, losses (G, n_epochs),
+    opt_state' stacked). plain=True runs :func:`train_grid_reference` on
+    any device (the JAX package's interpret=True)."""
+    _check_two_layer_elu(spec)
+    hyper = _hyper(cfg)
+    keypoints = tuple(cfg.keypoints)
+    fn = train_grid_reference if plain else train_grid_run
+
+    def run(rods, params: StackedMLP, trajs, controls, opt_state=None):
+        if not len(rods) == len(params) == trajs.shape[0] == controls.shape[0]:
+            raise ValueError("rods, params, trajs and controls must share "
+                             "the grid axis")
+        cells = [precompute(p, spec, keypoints, t, c)
+                 for p, t, c in zip(rods, trajs, controls)]
         W = [t.detach().to(torch.float32).contiguous()
-             for wb in net.weights() for t in wb]
+             for wb in params.weights() for t in wb]
         if opt_state is None:
-            from ..training.train import AdamPlateau
-            opt_state = fused_state_from_optimizer(AdamPlateau(W))
+            opt_state = _stack_states([fresh_state([w[g] for w in W])
+                                       for g in range(len(params))])
         W_out, losses, state = fn(cells, W, opt_state, n_epochs, hyper)
-        out = copy.deepcopy(net)
+        out = copy.deepcopy(params)
         with torch.no_grad():
             for P, w in zip(out.parameters(), W_out):
                 P.copy_(w)

@@ -17,9 +17,10 @@ Periodic evaluation rolls the hybrid model out on a validation schedule and
 scores its tip DTW against the reference rod (physics_train.py:136-167); the
 best-DTW weights are kept.
 
-Epoch chunks run on kernel K4 (ops/train.py) where the configuration and
-the device allow it (see ``TrainConfig.fused``), else on the plain epoch
-loop of :func:`make_epoch_scan`. The validation rollouts of a CUDA rod run
+Epoch chunks run on kernel K4 (ops/train.py), or on K6 (ops/train_wide.py)
+for wide nets, where the configuration and the device allow it (see
+``TrainConfig.fused``), else on the plain epoch loop of
+:func:`make_epoch_scan`. The validation rollouts of a CUDA rod run
 on K2 (``rollout_with_nn(impl="mega")``).
 """
 from __future__ import annotations
@@ -68,15 +69,19 @@ class TrainConfig:
     dtype: str = "float32"
     # mixed-precision storage of the net: not ported (ROADMAP); must be None
     nn_dtype: Optional[str] = None
-    # the epoch chunks (train_knode):
+    # the epoch chunks (train_knode, and grid_train's K5 for "auto" / "on"
+    # / "plain" / "off"):
     #   "auto"   K4 (ops/train.py) on a CUDA rod when fused_trainer_supported,
+    #            else K6 (ops/train_wide.py) on a CUDA rod from hidden 2048
+    #            up when wide_trainer_supported (the JAX package's routing),
     #            else the plain epoch loop (make_epoch_scan)
     #   "on"     K4 through its wrapper (a CPU rod runs K4's plain version);
     #            raises when the configuration is not supported
     #   "plain"  K4's plain version on any device (the JAX package's
     #            "interpret", which is accepted as the same)
+    #   "wide"   K6 through its wrapper (a CPU rod runs its plain version)
+    #   "wide_interpret"  K6's plain version on any device
     #   "off"    the plain epoch loop
-    #   "wide", "wide_interpret": K6, not ported yet (raises)
     fused: str = "auto"
     # validation DTW: "device" = exact DTW by the wavefront (ops/dtw.py) on
     # the rollout's device; "host" = the reference's fastdtw on the host
@@ -325,33 +330,48 @@ def rollout_with_nn(p: RodParams, controls, spec: MLPSpec,
 
 # ------------------------------------------------------------ train_knode
 
+# hidden width from which "auto" takes K6: the JAX package's threshold
+# (knode_cosserat_tpu/training/train.py:148-156, set on a TPU), kept for
+# parity of routing; chip_smoke.py times the crossover on the card
+WIDE_FROM_HIDDEN = 2048
+
+
 def _resolve_fused(cfg: TrainConfig, spec: MLPSpec, n_cells: int,
                    device: torch.device):
     """cfg.fused -> None (plain epoch loop), "kernel" (K4 through its
-    wrapper, which runs the plain version for a CPU rod) or "plain" (K4's
-    plain version). Decided by the configuration and the device alone."""
+    wrapper, which runs the plain version for a CPU rod), "plain" (K4's
+    plain version), "wide" (K6 through its wrapper) or "wide_plain" (K6's
+    plain version). Decided by the configuration and the device alone, as
+    the JAX package's _resolve_fused decides it by its backend."""
     from ..ops.train import fused_trainer_supported
+    from ..ops.train_wide import wide_trainer_supported
     mode = cfg.fused
-    if mode in ("wide", "wide_interpret"):
-        raise NotImplementedError(
-            f"cfg.fused={mode!r}: the wide streamed trainer K6 "
-            "(ops/pallas_train_wide.py) is not ported yet; see ROADMAP.md, "
-            "Queue 2, K6")
-    if mode not in ("auto", "on", "plain", "interpret", "off"):
+    if mode not in ("auto", "on", "plain", "interpret", "off", "wide",
+                    "wide_interpret"):
         raise ValueError(f"cfg.fused={mode!r}")
     if mode == "off":
         return None
     forced = mode != "auto"
     if cfg.dtype != "float32":
         if forced:
-            raise ValueError(f"cfg.fused={mode!r}: the fused trainer is "
+            raise ValueError(f"cfg.fused={mode!r}: the fused trainers are "
                              "float32-only")
         return None
+    if mode in ("wide", "wide_interpret"):
+        if not wide_trainer_supported(spec, n_cells, cfg.weight_decay):
+            raise ValueError(f"cfg.fused={mode!r} but the wide trainer "
+                             f"does not support this config (spec={spec}, "
+                             f"n_cells={n_cells})")
+        return "wide" if mode == "wide" else "wide_plain"
     if not fused_trainer_supported(spec, n_cells, cfg.weight_decay):
         if forced:
             raise ValueError(f"cfg.fused={mode!r} but the fused trainer "
                              f"does not support this config (spec={spec}, "
-                             f"n_cells={n_cells})")
+                             f"n_cells={n_cells}); wide hidden widths can "
+                             "force cfg.fused='wide'")
+        if (spec.dims[1] >= WIDE_FROM_HIDDEN and device.type == "cuda"
+                and wide_trainer_supported(spec, n_cells, cfg.weight_decay)):
+            return "wide"
         return None
     if mode in ("plain", "interpret"):
         return "plain"
@@ -454,7 +474,12 @@ def train_knode(
     fused_mode = _resolve_fused(cfg, spec, n_cells, device)
     chunk = cfg.eval_every if do_eval else max(cfg.log_every, 1)
     chunk = max(1, min(chunk, cfg.epochs + 1))
-    if fused_mode:
+    if fused_mode in ("wide", "wide_plain"):
+        from ..ops.train import fused_state_from_optimizer, load_fused_state
+        from ..ops.train_wide import make_wide_training_run
+        make_runner = lambda n: make_wide_training_run(
+            p_mod, spec, cfg, n, plain=fused_mode == "wide_plain")
+    elif fused_mode:
         from ..ops.train import (fused_state_from_optimizer, load_fused_state,
                                  make_fused_training_run)
         make_runner = lambda n: make_fused_training_run(

@@ -163,3 +163,124 @@ def test_train_knode_runs_on_the_kernels(dev):
     assert ktrain.LAUNCHES - k4 == 3 and kstep.LAUNCHES > k2
     assert r.loss_history.shape == (21,) and np.isfinite(r.best_dtw)
     assert r.device == torch.cuda.get_device_name(dev)
+
+
+# hidden 512 x 10 rods: the multitrain eval's launch (10 cells of a mod)
+@pytest.mark.parametrize("hidden,rods", [(64, 5), (512, 10)])
+def test_step_kernel_per_rod_nets_match_single_net_launches(dev, hidden,
+                                                            rods):
+    """K2 with one net per rod (the eval tables' stacked cells) == one
+    single-net launch per rod, bit for bit."""
+    from knode_cosserat_tpu_torch.models.mlp import StackedMLP
+    p = K.experimental_rod(N=10, device=dev).to(dtype=torch.float32)
+    G, yh, zh, tf = _inputs(p, rods, 3, dev)
+    G = torch.zeros_like(G)
+    spec = K.MLPSpec.for_knode(hidden)
+    nets = [K.init_mlp(spec, torch.Generator().manual_seed(s), torch.float32,
+                       dev) for s in range(rods)]
+    for n in nets:
+        with torch.no_grad():
+            for t in n.parameters():
+                t.mul_(1e-2)
+    k = kstep.make_step_kernel(p, spec, tol=1e-10)
+    before = kstep.LAUNCHES
+    with torch.no_grad():
+        got = k(G, yh, zh, tf, StackedMLP(nets))
+        assert kstep.LAUNCHES == before + 1
+        for b in range(rods):
+            want = k(G[b:b + 1], yh[b:b + 1], zh[b:b + 1], tf[b:b + 1],
+                     nets[b])
+            for x, w in zip(got, want):
+                assert torch.equal(x[b:b + 1], w)
+
+
+def test_grid_kernel_matches_k4_bit_for_bit_and_plain(dev):
+    """K5's cell g == a K4 launch on cell g (same rod, net, data), bit for
+    bit; and K5 against its plain version at K4's tolerances."""
+    from knode_cosserat_tpu_torch.models.mlp import StackedMLP
+    _, cfg, _, trajs, ctls = _train_case(dev)
+    mods = ["nsw", "short", "youngs", "nsw"]
+    rods = [K.apply_mod(m, dtype=torch.float32, device=dev) for m in mods]
+    nets = [K.init_mlp(cfg.spec(), torch.Generator().manual_seed(s),
+                       torch.float32, dev) for s in range(len(mods))]
+    tg, cg = torch.stack([trajs] * 4), torch.stack([ctls] * 4)
+    before = ktrain.GRID_LAUNCHES
+    pg, lg, sg = ktrain.make_fused_grid_training_run(cfg.spec(), cfg, 30)(
+        rods, StackedMLP(nets), tg, cg)
+    torch.cuda.synchronize()
+    assert ktrain.GRID_LAUNCHES == before + 1
+    for g, (rod, net) in enumerate(zip(rods, nets)):
+        p1, l1, s1 = ktrain.make_fused_training_run(rod, cfg.spec(), cfg, 30)(
+            net, trajs, ctls)
+        assert torch.equal(lg[g], l1)
+        for a, b in zip(pg.unstack()[g].parameters(), p1.parameters()):
+            assert torch.equal(a, b)
+        assert torch.equal(sg["scalars"][g], s1["scalars"])
+    pp, lp, _ = ktrain.make_fused_grid_training_run(cfg.spec(), cfg, 30,
+                                                    plain=True)(
+        rods, StackedMLP(nets), tg, cg)
+    torch.testing.assert_close(lg, lp, rtol=2e-4, atol=1e-9)
+    for a, b in zip(pg.parameters(), pp.parameters()):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-5)
+
+
+def _wide_case(dev, hidden, big):
+    """hidden 640 on the small data, or the train-real shape (1,904 cells,
+    53 inputs, AdamW 0.1) on random data made as the JAX bench makes it,
+    plus the identity quaternion (chip_smoke.py::train_real_data: random
+    quaternions put Euler angles at the loss's +-pi wrap, where two float32
+    runs part)."""
+    from knode_cosserat_tpu_torch.training.loss import DEFAULT_KEYPOINTS_REAL
+    if not big:
+        p, cfg, _, trajs, ctls = _train_case(dev)
+        cfg = K.TrainConfig(hidden=hidden)
+    else:
+        p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+        g = np.random.default_rng(0)
+        trajs = torch.tensor(g.normal(size=(4, 120, p.N, 25)) * 0.01
+                             + np.eye(1, 25, 3)[0], dtype=torch.float32,
+                             device=dev)
+        ctls = torch.tensor(g.uniform(1, 3, size=(4, 120, 4)),
+                            dtype=torch.float32, device=dev)
+        cfg = K.TrainConfig(hidden=hidden, history=True, weight_decay=0.1,
+                            keypoints=DEFAULT_KEYPOINTS_REAL)
+    net = K.init_mlp(cfg.spec(), torch.Generator().manual_seed(0),
+                     torch.float32, dev)
+    return p, cfg, net, trajs, ctls
+
+
+# params: the JAX package's rtol 3e-3 / atol 3e-5 at hidden 640; at the
+# train-real shape, chip_smoke.py's RANDOM_PARAM: Adam's step divides by the
+# gradient's own size, so a weight whose gradient sums over the 1,904 cells
+# to within a few eps of 0 carries that sum's rounding (another order in
+# each version) into its step
+@pytest.mark.parametrize("hidden,big,param_atol", [(640, False, 3e-5),
+                                                   (8192, True, 2e-4)])
+def test_wide_kernel_matches_plain(dev, hidden, big, param_atol):
+    from knode_cosserat_tpu_torch.ops import train_wide as kwide
+    p, cfg, net, trajs, ctls = _wide_case(dev, hidden, big)
+    before = kwide.LAUNCHES
+    got = kwide.make_wide_training_run(p, cfg.spec(), cfg, 20)(net, trajs,
+                                                               ctls)
+    want = kwide.make_wide_training_run(p, cfg.spec(), cfg, 20, plain=True)(
+        net, trajs, ctls)
+    torch.cuda.synchronize()
+    assert kwide.LAUNCHES == before + 1
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=1e-9)
+    for a, b in zip(got[0].parameters(), want[0].parameters()):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=param_atol)
+    torch.testing.assert_close(got[2]["scalars"], want[2]["scalars"])
+
+
+def test_wide_kernel_chunks_compose(dev):
+    from knode_cosserat_tpu_torch.ops import train_wide as kwide
+    p, cfg, net, trajs, ctls = _wide_case(dev, 640, False)
+    whole, l20, s20 = kwide.make_wide_training_run(p, cfg.spec(), cfg, 20)(
+        net, trajs, ctls)
+    run10 = kwide.make_wide_training_run(p, cfg.spec(), cfg, 10)
+    mid, la, s = run10(net, trajs, ctls)
+    end, lb, s2 = run10(mid, trajs, ctls, s)
+    assert torch.equal(torch.cat([la, lb]), l20)
+    for a, b in zip(end.parameters(), whole.parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(s2["scalars"], s20["scalars"])

@@ -122,10 +122,10 @@ def test_fused_routing(mode, dev, hidden, want):
 def test_fused_routing_refusals():
     spec = ktrain.TrainConfig(hidden=32).spec()
     cuda = torch.device("cuda")
-    for mode in ("wide", "wide_interpret"):
-        with pytest.raises(NotImplementedError, match="K6"):
-            ktrain._resolve_fused(ktrain.TrainConfig(fused=mode), spec, 8,
-                                  cuda)
+    for mode in ("wide", "wide_interpret"):     # K6 (ops/train_wide.py)
+        with pytest.raises(ValueError, match="wide trainer"):
+            ktrain._resolve_fused(ktrain.TrainConfig(fused=mode), spec,
+                                  10 ** 6, cuda)
     with pytest.raises(ValueError, match="does not support"):
         ktrain._resolve_fused(ktrain.TrainConfig(hidden=1024, fused="on"),
                               K.MLPSpec.for_knode(1024), 8, cuda)
