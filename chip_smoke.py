@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check and
-time the hand-written kernels, and drive the serving and training paths.
+time the hand-written kernels, and drive the serving, training, assembly
+and plate-pose MPC paths.
 
     python3 chip_smoke.py
 
@@ -53,11 +54,33 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      epochs against one 200-epoch run, bit for bit.
  11. the wide training path, counted: train_knode at hidden 8192 on the
      train-real shape (cfg.fused="auto" routes to K6 on the card).
- 12. timings, kernel vs plain, each with the card's name and power limit,
+ 12. K7 (one coupled-assembly Newton step) against its plain version:
+     float64, one step and 20-step rollouts at M=2 (N=6) and M=3 (N=10),
+     X / G / plate within 1e-9, y and z within 1e-9 relative, iterations
+     equal (in a rollout, at most K7_STRADDLES steps one apart, both
+     converged); float32 at the bench's assembly (ASM_CFG), 20 steps: K7 and
+     its plain version inside the float64 truth's envelope of the plain
+     coupled Newton.
+ 13. the assembly path (A), counted: simulate_assembly(fused=True) at
+     ASM_CFG, float32, T=101 and T=1001 (steps/s; K7 launches == T-1),
+     the plain coupled Newton at T=21, and the CLI's simulate-assembly
+     (20 steps, its .npz checked).
+ 14. the plate-pose MPC path (B), counted: make_assembly_planner(fused=
+     True, w_du=0), horizon 8, 40 iterations, on a 1 cm sway and 0.1 mm
+     lift (the cost must fall); the float64 gradient of its first cost
+     through K7's roots against the plain Newton's (rtol 1e-6).
+ 15. K8 (the fused next segment) against its plain version on path C's
+     cells: bench_data.npz at for_knode(512) (232 cells) and the train-real
+     shape (53 inputs, 1,904 cells), float64 and float32.
+ 16. the fused training path (C), counted: FUSED_STEPS
+     make_train_step(use_pallas=True) steps against as many plain steps
+     from the same net (losses within rtol 1e-4), and 20 of each at the
+     train-real shape.
+ 17. timings, kernel vs plain, each with the card's name and power limit,
      and each kernel's bound (the larger of its operations over the
      float32 peak and its bytes over the memory rate); K6 against the
      plain epoch loop at hidden 1024 / 2048 / 8192 (the routing's
-     crossover).
+     crossover); K7 at M = 3, 6, 9 and K8 at 232 and 1,904 cells.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -111,6 +134,36 @@ MODS = ["nsw", "short", "youngs", "lengthstiff"]
 TRAIN_EPOCHS = 1000
 MULTITRAIN_EPOCHS = 1000          # the CLI's default
 WIDE_HIDDEN = 8192                # the JAX bench's wide trainer shape
+# the JAX bench's assembly (bench.py:517-525): 3 rods on a 5 cm ring, N=10
+ASM_CFG = dict(n_rods=3, base_radius=0.05, N=10)
+ASM_AMPS = (0.7, 1.0, 1.3)        # its sine schedule's parameter per rod
+# K7 against its plain version in f64: both solve to 1e-24 (each stops at
+# its floor, not somewhere of its own inside the fused default's 1e-16);
+# X, G and the plate pose within 1e-9, y and z within 1e-9 of their largest
+K7_TOL64, K7_F64 = 1e-24, 1e-9
+# ... and the same Newton iterations, but for at most K7_STRADDLES of a
+# rollout's 20 steps where the two end one iteration apart, both
+# converged: the residual after an iteration spans 1e-30 to 1e-18 over a
+# rollout (the plain version on the CPU), and where it lands near the
+# tolerance the central differences' rounding (h = 1e-8 magnifies it
+# 1e8-fold) decides the stop test (measured on the card: 3 vs 2
+# iterations at one step, the residuals 100x apart, every value within
+# 7e-11)
+K7_STRADDLES = 2
+MPC_GRAD_RTOL = 1e-6              # IFT gradient, K7's roots vs plain (f64)
+# path B's target: sway (x) and lift (z) of the plate at the horizon's end,
+# ramped from its start. The plan runs with w_du = 0 (the JAX package's
+# planner test): with the default 1e-4 the penalty on Adam's first +-2 N
+# tension steps outweighs mm-to-cm tracking errors on these stiff rods, and
+# the cost climbs for the 40 iterations (measured on the CPU with the
+# plain solver: 4.0e-5 -> 6.4e-5; with w_du = 0, 4.0e-5 -> 4.1e-8)
+MPC_MOVE = (0.01, 0.0, 1e-4)
+# K8 against its plain version, (rtol, atol): f64 to rounding; f32, where
+# the net's 512-term sums run in another order (measured ~5e-7 on
+# y_grown ~ 2 on the first chip run)
+K8_TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}
+FUSED_STEPS = 200                 # path C: fused vs plain training steps
+FUSED_LOSS_RTOL = 1e-4            # their losses, f32 (the JAX test's bar)
 
 
 def log(*a):
@@ -1010,6 +1063,428 @@ def phase_train_timings(K, dev, name_power, small):
 
 
 
+# ------------------------------------------------ assemblies (K7) and K8
+
+def assembly_controls(asm, T, amps=ASM_AMPS):
+    """(T, M, 4) sine tensions, amplitude parameter amps[i] for rod i (the
+    JAX bench's schedule, bench.py:517-525)."""
+    from knode_cosserat_tpu_torch.controls import calc_controls
+
+    dt = float(asm.rods[0].del_t)
+    return torch.tensor(np.stack([calc_controls("sine", a, dt, T)
+                                  for a in amps[:asm.M]], axis=1),
+                        dtype=asm.dtype, device=asm.device)
+
+
+def assembly_rollout(asm, ctl, solve_fn, tol):
+    """The coupled rollout with a given root solver (K7 or its plain
+    version): G (T-1, M, 6), plate poses (T-1, 7), y (T-1, M, N, 19),
+    iterations (T-1,), final residual norms (T-1,)."""
+    from knode_cosserat_tpu_torch.core.assembly import (AssemblyCarry,
+                                                        assembly_step_carry)
+    carry, out = AssemblyCarry.initial(asm), [[] for _ in range(5)]
+    with torch.no_grad():
+        for u in ctl[:-1]:
+            carry, rec, plate7, G, stats = assembly_step_carry(
+                asm, carry, u, tol=tol, solve_fn=solve_fn)
+            for lst, v in zip(out, (G, plate7, rec[..., :19],
+                                    stats.iterations, stats.residual_norm)):
+                lst.append(v)
+    return tuple(torch.stack(v) for v in out)
+
+
+def straddles(roll_a, roll_b, tol):
+    """How many steps of two rollouts (assembly_rollout) the solvers end
+    one Newton iteration apart, both converged (r2 <= tol); -1 if any step
+    ends further apart or unconverged."""
+    n = 0
+    for a, b, ra, rb in zip(roll_a[3].tolist(), roll_b[3].tolist(),
+                            roll_a[4].tolist(), roll_b[4].tolist()):
+        if a != b:
+            if abs(a - b) > 1 or max(ra, rb) ** 2 > tol:
+                return -1
+            n += 1
+    return n
+
+
+def plain_k7(asm, tol, max_iter=50):
+    """K7's plain version as a root solver (on the card)."""
+    from knode_cosserat_tpu_torch.ops.assembly import assembly_step_reference
+    return lambda *a: assembly_step_reference(asm, *a, tol=tol,
+                                              max_iter=max_iter)
+
+
+def step_args(asm, ctl, t, tol=1e-10):
+    """K7's inputs at step t of the rollout under ``ctl``, captured from
+    assembly_step_carry (these launches are not the main path's)."""
+    from knode_cosserat_tpu_torch.ops.assembly import make_assembly_step_kernel
+    k, grab = make_assembly_step_kernel(asm, tol=tol), []
+    assembly_rollout(asm, ctl[:t + 2],
+                     lambda *a: grab.append(a) or k(*a), tol)
+    return grab[t]
+
+
+def rel_close(a, b, rel):
+    """(ok, max |a-b| / max |b|)."""
+    e = float((a.double() - b.double()).abs().max()) / max(
+        float(b.double().abs().max()), 1e-300)
+    return e <= rel and bool(torch.isfinite(a).all()), e
+
+
+def phase_k7(K, dev, errs):
+    """K7 against its plain version on the card: f64 one step and 20-step
+    rollouts at M=2 (N=6) and M=3 (N=10); f32 at the bench configuration
+    inside the f64-truth envelope of the plain coupled Newton."""
+    from knode_cosserat_tpu_torch.core.assembly import (make_ring_assembly,
+                                                        simulate_assembly)
+    from knode_cosserat_tpu_torch.ops.assembly import (
+        assembly_step_reference, make_assembly_step_kernel)
+
+    f64 = torch.float64
+    for M, N in ((2, 6), (3, 10)):
+        asm = make_ring_assembly(n_rods=M, base_radius=0.05, N=N, dtype=f64,
+                                 device=dev)
+        ctl = assembly_controls(asm, 21)
+        k = make_assembly_step_kernel(asm, tol=K7_TOL64, max_iter=30)
+        ins = step_args(asm, ctl, 3, K7_TOL64)
+        got = k(*ins)
+        want = assembly_step_reference(asm, *ins, tol=K7_TOL64, max_iter=30)
+        torch.cuda.synchronize()
+        ok_x, e_x = close(got[0], want[0], 0.0, K7_F64)
+        ok_y, e_y = rel_close(got[1], want[1], K7_F64)
+        ok_z, e_z = rel_close(got[2], want[2], K7_F64)
+        roll_k = assembly_rollout(asm, ctl, k, K7_TOL64)
+        roll_p = assembly_rollout(asm, ctl, plain_k7(asm, K7_TOL64, 30),
+                                  K7_TOL64)
+        ok_g, e_g = close(roll_k[0], roll_p[0], 0.0, K7_F64)
+        ok_p, e_p = close(roll_k[1], roll_p[1], 0.0, K7_F64)
+        ok_ry, e_ry = rel_close(roll_k[2], roll_p[2], K7_F64)
+        torch.cuda.synchronize()
+        same_it = int(got[4]) == int(want[4])
+        apart = straddles(roll_k, roll_p, K7_TOL64)
+        errs.setdefault("K7", []).extend([e_x, e_g, e_p])
+        log(f"[K7] f64 M={M} N={N:2d} one step: X {e_x:.3e} y {e_y:.3e} (rel) "
+            f"z {e_z:.3e} (rel), iterations {int(got[4])} (plain "
+            f"{int(want[4])}); 20 steps: G {e_g:.3e} plate {e_p:.3e} y "
+            f"{e_ry:.3e} (rel), iterations {roll_k[3].tolist()} (plain "
+            f"{roll_p[3].tolist()}), {apart} steps one apart")
+        if not (ok_x and ok_y and ok_z and same_it and ok_g and ok_p
+                and ok_ry and 0 <= apart <= K7_STRADDLES):
+            raise AssertionError(f"K7 f64 M={M} N={N} beyond {K7_F64} or "
+                                 f"iterations differ")
+
+    # f32 at the bench configuration: both K7 and its plain version inside
+    # the f64 truth's envelope of the plain coupled Newton in f32 (the JAX
+    # package's test, tests/test_assembly_fused.py)
+    asm32 = make_ring_assembly(**ASM_CFG, dtype=torch.float32, device=dev)
+    ctl = assembly_controls(asm32, 21)
+    asm64 = make_ring_assembly(**ASM_CFG, dtype=f64, device="cpu")
+    truth = simulate_assembly(asm64, ctl.cpu().double(), tol=1e-24)
+    plain = simulate_assembly(asm32, ctl)
+    k = make_assembly_step_kernel(asm32, tol=1e-10)
+    runs = {"K7": assembly_rollout(asm32, ctl, k, 1e-10),
+            "plain version": assembly_rollout(asm32, ctl,
+                                              plain_k7(asm32, 1e-10), 1e-10)}
+    torch.cuda.synchronize()
+    err = lambda a, b: float((a.cpu().double() - b).abs().max())
+    eG_n = err(plain.Gs[1:], truth.Gs[1:])
+    ep_n = err(plain.plate_pose[1:], truth.plate_pose[1:])
+    parts = []
+    for name, (Gs, plates, _, its, _) in runs.items():
+        eG, ep = err(Gs, truth.Gs[1:]), err(plates, truth.plate_pose[1:])
+        parts.append(f"{name} G {eG:.3e} plate {ep:.3e} iters max "
+                     f"{int(its.max())}")
+        if not (eG < 3.0 * eG_n + 1e-6 and ep < 3.0 * ep_n + 1e-7):
+            raise AssertionError(f"K7 f32 ({name}) outside the envelope: G "
+                                 f"{eG:.3e} vs {eG_n:.3e}, plate {ep:.3e} vs "
+                                 f"{ep_n:.3e}")
+    res_k = float(plain.residual_norm.max())
+    log(f"[K7] f32 M=3 N=10, 20 steps, errors against the f64 truth: plain "
+        f"coupled Newton G {eG_n:.3e} plate {ep_n:.3e} (residual max "
+        f"{res_k:.3e}); " + "; ".join(parts))
+
+
+def phase_assembly(K, dev):
+    """Path A, counted: simulate_assembly(fused=True) at the bench's
+    configuration (T=101 and T=1001), the plain coupled Newton (T=21) and
+    the CLI's simulate-assembly."""
+    from knode_cosserat_tpu_torch import cli
+    from knode_cosserat_tpu_torch.core.assembly import (make_ring_assembly,
+                                                        simulate_assembly)
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+
+    asm = make_ring_assembly(**ASM_CFG, dtype=torch.float32, device=dev)
+    simulate_assembly(asm, assembly_controls(asm, 3), fused=True)  # warm
+    launches, secs, out = 0, {}, None
+    for T in (101, 1001):
+        ctl = assembly_controls(asm, T)
+        torch.cuda.synchronize()
+        kasm.LAUNCHES = 0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = simulate_assembly(asm, ctl, fused=True)
+        end.record()
+        torch.cuda.synchronize()
+        secs[T] = start.elapsed_time(end) / 1e3
+        if kasm.LAUNCHES != T - 1:
+            raise AssertionError(f"path A, T={T}: {kasm.LAUNCHES} K7 "
+                                 f"launches, want {T - 1}")
+        if not bool(torch.isfinite(out.plate_pose).all()):
+            raise AssertionError(f"path A, T={T}: non-finite plate pose")
+        launches += kasm.LAUNCHES
+        log(f"[assembly] simulate_assembly(fused=True) M=3 N=10 f32 T={T}: "
+            f"{secs[T]:.3f} s = {(T - 1) / secs[T]:.1f} steps/s; K7 launches "
+            f"{kasm.LAUNCHES}; Newton iterations mean "
+            f"{float(out.newton_iters[1:].float().mean()):.2f} max "
+            f"{int(out.newton_iters.max())}, residual max "
+            f"{float(out.residual_norm.max()):.3e}")
+    marginal = 900 / (secs[1001] - secs[101])
+    ctl = assembly_controls(asm, 21)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = simulate_assembly(asm, ctl)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    gap = float((plain.plate_pose - out.plate_pose[:21]).abs().max())
+    log(f"[assembly] marginal rate (T=1001 - T=101): {marginal:.1f} steps/s;"
+        f" plain coupled Newton (fused=False, solver dense) T=21: "
+        f"{t_plain:.3f} s = {20 / t_plain:.1f} steps/s, plate pose vs K7 "
+        f"max {gap:.3e}")
+    path = os.path.join(HERE, "build", "assembly", "assembly.npz")
+    cli.main(["simulate-assembly", "--steps", "20", "--save", path])
+    d = np.load(path)
+    shapes = {k: d[k].shape for k in d.files}
+    want = {"traj": (20, 3, 10, 50), "plate_pose": (20, 7),
+            "controls": (20, 3, 4)}
+    log(f"[assembly] CLI simulate-assembly --steps 20: {shapes}")
+    if shapes != want or not np.isfinite(d["traj"]).all():
+        raise AssertionError(f"CLI simulate-assembly wrote {shapes}")
+    return dict(launches=launches, steps_per_sec={T: (T - 1) / s for T, s in
+                                                  secs.items()},
+                marginal=marginal, plain_steps_per_sec=20 / t_plain)
+
+
+def phase_assembly_mpc(K, dev):
+    """Path B, counted: one fused plate-pose plan at the bench's assembly
+    (horizon 8, 40 Adam iterations, the JAX defaults but w_du = 0, see
+    MPC_MOVE); then the f64 gradient of its tracking cost at the start
+    through K7's roots against the gradient through the plain Newton's."""
+    from knode_cosserat_tpu_torch.control import (make_assembly_planner,
+                                                  rollout_plate)
+    from knode_cosserat_tpu_torch.core.assembly import (AssemblyCarry,
+                                                        make_ring_assembly)
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+
+    H = 8
+    asm = make_ring_assembly(**ASM_CFG, dtype=torch.float32, device=dev)
+    carry = AssemblyCarry.initial(asm)
+    # the target: a sway of 1 cm in x and a lift of 0.1 mm, ramped over
+    # the horizon from the plate's start
+    ramp = torch.arange(1, H + 1, dtype=asm.dtype, device=dev)[:, None] / H
+    target = carry.pp + ramp * torch.tensor(MPC_MOVE, dtype=asm.dtype,
+                                            device=dev)
+    plan = make_assembly_planner(asm, H, fused=True, w_du=0.0)
+    torch.cuda.synchronize()
+    kasm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    r = plan(carry, target)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kasm.LAUNCHES
+    costs = r.cost_history.cpu().numpy()
+    log(f"[mpc] make_assembly_planner(fused=True) M=3 N=10 f32, horizon {H},"
+        f" 40 iterations, w_du 0, target plate move {MPC_MOVE} m: "
+        f"{secs:.2f} s, "
+        f"K7 launches {launches}; cost "
+        f"{costs[0]:.4e} -> {costs[-1]:.4e} (final {float(r.cost):.4e}); "
+        f"history {np.array2string(costs[::8], precision=3)}")
+    if launches == 0 or not (np.isfinite(costs).all()
+                             and costs[-1] < costs[0]):
+        raise AssertionError(f"path B: launches {launches}, cost "
+                             f"{costs[0]} -> {costs[-1]}")
+
+    asm64 = make_ring_assembly(**ASM_CFG, dtype=torch.float64, device=dev)
+    c64, tgt = AssemblyCarry.initial(asm64), target.double()
+    solve = kasm.make_assembly_step_kernel(asm64, tol=1e-20)
+    grads = []
+    for solve_fn in (solve, None):
+        logits = torch.zeros((H, 3, 4), dtype=torch.float64, device=dev,
+                             requires_grad=True)
+        u = 20.0 * torch.sigmoid(logits)
+        plates, _ = rollout_plate(asm64, c64, u, tol=1e-20, solve_fn=solve_fn)
+        cost = ((plates[:, :3] - tgt) ** 2).sum(-1).mean()
+        grads.append(torch.autograd.grad(cost, logits)[0])
+    e = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    log(f"[mpc] f64 gradient of the plan's first cost: through K7's roots vs "
+        f"through the plain Newton's, max relative error {e:.3e} (rtol "
+        f"{MPC_GRAD_RTOL})")
+    if not e <= MPC_GRAD_RTOL:
+        raise AssertionError(f"path B gradient: {e:.3e} > {MPC_GRAD_RTOL}")
+    return dict(launches=launches, seconds=secs, cost=(costs[0], costs[-1]))
+
+
+def k8_cells(K, p, spec, net, trajs, ctls, keypoints):
+    """The flat cells path C hands K8 (captured from grow_predictions)."""
+    from knode_cosserat_tpu_torch.training.loss import grow_predictions
+
+    grab = []
+    grow_predictions(p, spec, net, trajs, ctls, keypoints,
+                     fused_fn=lambda n, *xs: grab.append(xs) or xs[::2])
+    return grab[0]
+
+
+def k8_cases(K, dev, small):
+    """(label, rod, spec, net, trajs, ctls, keypoints) at path C's two
+    shapes: bench_data.npz at for_knode(512) (232 cells) and the
+    train-real shape (53 inputs, 1,904 cells, train_real_data)."""
+    from knode_cosserat_tpu_torch.training.loss import DEFAULT_KEYPOINTS_REAL
+
+    p, cfg, net = train_setup(K, dev)
+    out = [("232 cells, 28 inputs", p, cfg, net, small[0].float(),
+            small[1].float())]
+    p, cfg, net = train_setup(K, dev, history=True, weight_decay=0.1,
+                              keypoints=DEFAULT_KEYPOINTS_REAL)
+    out.append(("1904 cells, 53 inputs", p, cfg, net,
+                *train_real_data(dev)))
+    return out
+
+
+def phase_k8(K, dev, errs, small):
+    """K8 against its plain version on path C's cells, f64 and f32."""
+    from knode_cosserat_tpu_torch.ops.next_segment import (
+        make_fused_next_segment, next_segment_reference)
+
+    for label, p, cfg, net, trajs, ctls in k8_cases(K, dev, small):
+        for dtype in (torch.float64, torch.float32):
+            pd = K.apply_mod("nsw", dtype=dtype, device=dev)
+            nd = K.init_mlp(cfg.spec(), torch.Generator().manual_seed(SEED),
+                            dtype, dev)
+            cells = [c.to(dtype) for c in k8_cells(
+                K, pd, cfg.spec(), nd, trajs.to(dtype), ctls.to(dtype),
+                cfg.keypoints)]
+            W = [t for wb in nd.weights() for t in wb]
+            with torch.no_grad():
+                got = make_fused_next_segment(pd, cfg.spec())(nd, *cells)
+                want = next_segment_reference(pd, cfg.spec(), *cells, *W)
+            torch.cuda.synchronize()
+            parts, ok = [], True
+            for name, a, b in zip(("y_grown", "z"), got, want):
+                o, e = close(a, b, *K8_TOL[dtype])
+                ok = ok and o
+                parts.append(f"{name} {e:.3e}")
+                errs.setdefault(("K8", dtype), []).append(e)
+            log(f"[K8] {label} {str(dtype)[6:]}: max err vs plain "
+                + "  ".join(parts) + f" (rtol, atol {K8_TOL[dtype]})")
+            if not ok:
+                raise AssertionError(f"K8 {label} {dtype} beyond "
+                                     f"{K8_TOL[dtype]}")
+
+
+def phase_fused_train(K, dev, small):
+    """Path C, counted: make_train_step(use_pallas=True) against the plain
+    step from the same net, FUSED_STEPS steps on bench_data.npz and 20 at
+    the train-real shape (f32; losses within FUSED_LOSS_RTOL)."""
+    import copy
+
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    from knode_cosserat_tpu_torch.training.train import (make_optimizer,
+                                                         make_train_step)
+
+    launches = 0
+    for (label, p, cfg, net, trajs, ctls), n in zip(k8_cases(K, dev, small),
+                                                    (FUSED_STEPS, 20)):
+        losses, secs = {}, {}
+        for fused in (True, False):
+            nt = copy.deepcopy(net)
+            step, _ = make_train_step(p, cfg.spec(), make_optimizer(cfg, nt),
+                                      cfg.keypoints, cfg.clamp_weights,
+                                      use_pallas=fused)
+            torch.cuda.synchronize()
+            kseg.LAUNCHES = 0
+            t0 = time.perf_counter()
+            losses[fused] = torch.stack([step(nt, trajs, ctls)
+                                         for _ in range(n)])
+            torch.cuda.synchronize()
+            secs[fused] = time.perf_counter() - t0
+            if fused:
+                launches += kseg.LAUNCHES
+                n_k8 = kseg.LAUNCHES
+        ok, e = close(losses[True], losses[False], FUSED_LOSS_RTOL, 0.0)
+        lf = losses[True]
+        log(f"[fused] {label}: {n} make_train_step(use_pallas=True) steps "
+            f"{secs[True]:.2f} s ({n / secs[True]:.1f} steps/s), plain "
+            f"{secs[False]:.2f} s ({n / secs[False]:.1f} steps/s); loss "
+            f"{float(lf[0]):.4e} -> {float(lf[-1]):.4e}, max err vs plain "
+            f"{e:.3e} (rtol {FUSED_LOSS_RTOL}); K8 launches {n_k8}")
+        if not ok or n_k8 != n:
+            raise AssertionError(f"path C {label}: losses beyond "
+                                 f"{FUSED_LOSS_RTOL} ({e:.3e}) or K8 "
+                                 f"launches {n_k8} != {n}")
+    return dict(launches=launches)
+
+
+def k7_bound(asm, iters):
+    """(ms, by) for one K7 launch that took ``iters`` Newton iterations
+    (f32): per iteration (2U+1) probe lanes and 7 candidates of M rod
+    sweeps of N-1 nodes of physics and the elimination's U^3
+    multiply-adds; plus the first residual and the recording sweeps."""
+    M, N = asm.M, asm.N
+    U = 6 * M + 7
+    sweep = M * (N - 1) * PHYS_FLOPS
+    flops = iters * ((2 * U + 1 + 7) * sweep + 2 * U ** 3) + 2 * sweep
+    nbytes = (4 * (2 * U + M * N * 25 + 3 * M + 13 + M * N * 19
+                   + M * (N - 1) * 6 + 2) + 8 * (M * 76 + 14 + 7 * M))
+    return bound(flops, nbytes)
+
+
+def phase_k7_k8_timings(K, dev, name_power, small):
+    """K7 per launch at M = 3, 6, 9 (N=10, f32, the inputs of step 5 of the
+    sine rollout) and K8 at path C's two shapes, each against its plain
+    version and its bound."""
+    from knode_cosserat_tpu_torch.core.assembly import make_ring_assembly
+    from knode_cosserat_tpu_torch.ops.assembly import (
+        assembly_step_reference, make_assembly_step_kernel)
+    from knode_cosserat_tpu_torch.ops.next_segment import (
+        make_fused_next_segment, next_segment_reference)
+
+    tag = f"[{name_power}]"
+    out = {}
+    for M in (3, 6, 9):
+        asm = make_ring_assembly(n_rods=M, base_radius=0.05, N=10,
+                                 dtype=torch.float32, device=dev)
+        ins = step_args(asm, assembly_controls(asm, 8, np.linspace(
+            0.7, 1.3, M)), 5)
+        k = make_assembly_step_kernel(asm)
+        kern = timed(lambda: k(*ins), 20)
+        plain = timed(lambda: assembly_step_reference(asm, *ins), 1)
+        iters = int(k(*ins)[4])
+        b_ms, b_by = k7_bound(asm, iters)
+        out[f"K7 M={M}"] = dict(ms=kern, plain_ms=plain, bound_ms=b_ms,
+                                bound_by=b_by, iters=iters)
+        log(f"[time] K7 one coupled step M={M} N=10 f32 ({iters} Newton "
+            f"iterations): kernel {kern:.4f} ms, plain {plain:.3f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}) {tag}")
+    for label, p, cfg, net, trajs, ctls in k8_cases(K, dev, small):
+        spec = cfg.spec()
+        cells = k8_cells(K, p, spec, net, trajs, ctls, cfg.keypoints)
+        W = [t.detach() for wb in net.weights() for t in wb]
+        fn = make_fused_next_segment(p, spec)
+        with torch.no_grad():
+            kern = timed(lambda: fn(net, *cells), 50)
+            plain = timed(lambda: next_segment_reference(p, spec, *cells, *W),
+                          50)
+        B, din = cells[0].shape[0], spec.dims[0]
+        n_w = HIDDEN * (din + 25) + HIDDEN + 25
+        b_ms, b_by = bound(B * node_flops(HIDDEN, din),
+                           4 * (B * (19 + 19 + 6 + 3 + 19 + 6) + n_w))
+        out[f"K8 {B}"] = dict(ms=kern, plain_ms=plain, bound_ms=b_ms,
+                              bound_by=b_by)
+        log(f"[time] K8 next segment, {label}, hidden {HIDDEN} f32: kernel "
+            f"{kern:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}) {tag}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -1039,9 +1514,16 @@ def main() -> int:
                        "the multitrain's trained nsw nets")
     phase_k6(K, dev, errs, data[0])
     wide = phase_wide_train(K, dev)
+    phase_k7(K, dev, errs)
+    asm = phase_assembly(K, dev)
+    mpc = phase_assembly_mpc(K, dev)
+    phase_k8(K, dev, errs, data[0])
+    fused = phase_fused_train(K, dev, data[0])
     ms = phase_timings(K, dev, name_power)
     k4 = phase_k4_timings(K, dev, name_power, data)["232"]
     tt = phase_train_timings(K, dev, name_power, data[0])
+    t78 = phase_k7_k8_timings(K, dev, name_power, data[0])
+    k7_launches = asm["launches"] + mpc["launches"]
 
     # bounds at the timed shapes (float32, hidden 512, 28 inputs, N=10)
     R, f_node = 256, node_flops(HIDDEN, 28)
@@ -1056,11 +1538,12 @@ def main() -> int:
     k1_err = max(k3_err, ms["K1_err"])
     row = lambda b: {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
     kernels = [
-        {"name": "K1 rhs_rows (hybrid per-node RHS, inlined in K2/K3)",
+        {"name": "K1 rhs_rows (hybrid per-node RHS, inlined in K2/K3/K7/K8)",
          "route": "cuda", "source": src + "rhs_rows.cuh",
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:93",
          "launches": (serve["K2"] + serve["K3"] + train["K2"] + train["K3"]
-                      + multi["K2"] + multi["K3"]),
+                      + multi["K2"] + multi["K3"] + k7_launches
+                      + fused["launches"]),
          "max_abs_err": k1_err, "ms": ms["K1"][0], "plain_ms": ms["K1"][1],
          **row(k1_bound)},
         {"name": "K3 sweep", "route": "cuda", "source": src + "sweep.cu",
@@ -1094,6 +1577,20 @@ def main() -> int:
          "launches": wide["K6"], "max_abs_err": max(errs["K6"]),
          "ms": tt["K6"]["ms"], "plain_ms": tt["K6"]["plain_ms"],
          **row((tt["K6"]["bound_ms"], tt["K6"]["bound_by"]))},
+        {"name": "K7 assembly step (M=3, N=10, one coupled BDF-2 step)",
+         "route": "cuda", "source": src + "assembly.cu",
+         "replaces": "knode_cosserat_tpu/ops/pallas_assembly.py:84",
+         "launches": k7_launches, "max_abs_err": max(errs["K7"]),
+         "ms": t78["K7 M=3"]["ms"], "plain_ms": t78["K7 M=3"]["plain_ms"],
+         **row((t78["K7 M=3"]["bound_ms"], t78["K7 M=3"]["bound_by"]))},
+        {"name": "K8 next segment (232 cells, 28 inputs, hidden 512)",
+         "route": "cuda", "source": src + "next_segment.cu",
+         "replaces": "knode_cosserat_tpu/ops/pallas_rhs.py:65",
+         "launches": fused["launches"],
+         "max_abs_err": max(errs[("K8", torch.float32)]
+                            + errs[("K8", torch.float64)]),
+         "ms": t78["K8 232"]["ms"], "plain_ms": t78["K8 232"]["plain_ms"],
+         **row((t78["K8 232"]["bound_ms"], t78["K8 232"]["bound_by"]))},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

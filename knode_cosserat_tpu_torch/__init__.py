@@ -14,14 +14,19 @@ On the CPU every kernel runs as its plain PyTorch version. On a CUDA device
 the hot path runs hand-written Hopper kernels (``csrc/``), built with nvcc
 at their first launch: K1 (the per-node hybrid RHS), K3 (the spatial
 sweep, ops/sweep.py), K2 (one whole Newton shooting step, ops/step.py),
-K4 and K5 (the whole training run, and a grid of them, ops/train.py) and
-K6 (the whole training run at any hidden width, ops/train_wide.py). The
-multitrain study (parallel/grid.py, evaluation/tables.py) runs as
+K4 and K5 (the whole training run, and a grid of them, ops/train.py), K6
+(the whole training run at any hidden width, ops/train_wide.py), K7 (one
+coupled multi-rod Newton step, ops/assembly.py, under
+core/assembly.simulate_assembly(fused=True) and the plate-pose planners of
+control/) and K8 (the teacher-forced next segment, ops/next_segment.py,
+under make_train_step(use_pallas=True)). The multitrain study
+(parallel/grid.py, evaluation/tables.py) runs as
 ``python -m knode_cosserat_tpu_torch multitrain``.
 
 Importing the package builds and loads nothing: the kernel modules
 (ops/sweep.py, ops/step.py, ops/train.py, ops/train_wide.py,
-ops/_build.py) are imported at first use.
+ops/assembly.py, ops/next_segment.py, ops/_build.py) are imported at first
+use.
 """
 import torch
 

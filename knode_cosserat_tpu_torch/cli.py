@@ -1,14 +1,16 @@
-"""Command-line interface of the port, reduced to the multitrain study:
+"""Command-line interface of the port, reduced to three commands:
 
-  multitrain  (data x mod x seed) grid + eval table (physics_multitrain.py)
-  graphs      cross-seed aggregation tables         (physics_multigraphs.py)
+  multitrain         (data x mod x seed) grid + eval table
+                     (physics_multitrain.py)
+  graphs             cross-seed aggregation tables (physics_multigraphs.py)
+  simulate-assembly  coupled multi-rod (parallel continuum robot) rollout
 
 Run as ``python -m knode_cosserat_tpu_torch <cmd> ...``. Arguments,
-defaults and printed phases are those of the JAX package's
-``knode multitrain`` / ``knode graphs`` (knode_cosserat_tpu/cli.py). The
-run takes the CUDA card; ``--device cpu`` runs it on the CPU (the JAX
-package's ``KNODE_PLATFORM=cpu``). The other commands (train, simulate,
-...) are not ported yet (ROADMAP.md, Queue 1, item 10).
+defaults, files and printouts are those of the JAX package's commands of
+the same names (knode_cosserat_tpu/cli.py). The run takes the CUDA card;
+``--device cpu`` runs it on the CPU (the JAX package's
+``KNODE_PLATFORM=cpu``). The other commands (train, simulate, ...) are not
+ported yet (ROADMAP.md, Queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -109,6 +111,40 @@ def cmd_graphs(args):
     return table
 
 
+def cmd_simulate_assembly(args):
+    """Coupled multi-rod rollout (core/assembly.py) in float32 (the JAX
+    CLI's default dtype) with the plain coupled Newton, as the JAX CLI
+    runs it. Writes traj, plate_pose and controls to ``--save``. Returns
+    the AssemblySimOutput."""
+    import torch
+
+    from .controls import calc_controls
+    from .core.assembly import (make_ring_assembly, simulate_assembly,
+                                with_contact_plane)
+
+    asm = make_ring_assembly(n_rods=args.rods, base_radius=args.base_radius,
+                             plate_mass=args.plate_mass, N=args.nodes,
+                             dtype=torch.float32, device=args.device)
+    if args.contact_plane is not None:
+        nx, ny, nz, off = args.contact_plane
+        asm = with_contact_plane(asm, [nx, ny, nz], off)
+    ctl1 = calc_controls(args.type, args.arg, float(asm.rods[0].del_t),
+                         args.steps)
+    controls = np.tile(np.asarray(ctl1)[:, None, :], (1, args.rods, 1))
+    if args.pull_rod >= 0:
+        controls[:, args.pull_rod, 0] += args.pull_extra
+    out = simulate_assembly(asm, controls)
+    traj = out.traj.cpu().numpy()
+    plate = out.plate_pose.cpu().numpy()
+    os.makedirs(os.path.dirname(args.save) or ".", exist_ok=True)
+    np.savez_compressed(args.save, traj=traj, plate_pose=plate,
+                        controls=controls)
+    print(f"saved {args.save}: traj {traj.shape}, plate_pose {plate.shape}")
+    print(f"plate tip: start {plate[0, :3]}, end {plate[-1, :3]}; "
+          f"max Newton iters {int(out.newton_iters.max())}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="knode-cosserat-tpu-torch",
                                  description=__doc__)
@@ -138,6 +174,28 @@ def main(argv=None):
                     help="tip-X figures: not ported (raises)")
     sp.add_argument("--figs_dir", type=str, default="figures")
     sp.set_defaults(fn=cmd_graphs)
+
+    sp = sub.add_parser("simulate-assembly",
+                        help="coupled multi-rod (parallel continuum) rollout")
+    sp.add_argument("--rods", type=int, default=3)
+    sp.add_argument("--base_radius", type=float, default=0.05)
+    sp.add_argument("--plate_mass", type=float, default=0.0)
+    sp.add_argument("--nodes", type=int, default=10)
+    sp.add_argument("--type", type=str, default="sine")
+    sp.add_argument("--arg", type=float, default=1.0)
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--pull_rod", type=int, default=-1,
+                    help="index of a rod to overpull (tendon 0)")
+    sp.add_argument("--pull_extra", type=float, default=3.0)
+    sp.add_argument("--contact_plane", type=float, nargs=4, default=None,
+                    metavar=("NX", "NY", "NZ", "OFFSET"),
+                    help="rigid plane n.x = offset the plate can touch "
+                         "(smoothed penalty contact)")
+    sp.add_argument("--save", type=str, default="data/assembly.npz")
+    sp.add_argument("--device", type=str, default=None,
+                    help="torch device of the run (default: the CUDA card; "
+                         "'cpu' runs on the CPU)")
+    sp.set_defaults(fn=cmd_simulate_assembly)
 
     args = ap.parse_args(argv)
     return args.fn(args)

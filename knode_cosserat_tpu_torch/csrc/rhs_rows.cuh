@@ -52,8 +52,9 @@ struct RodConsts {
   T p0[3], h0[4], q0[3], w0[3], F_tip[3], M_tip[3];
 };
 
+// (host and device: K7 casts its per-rod constants on the card)
 template <typename T>
-inline RodConsts<T> cast_consts(const RodConstsHost& h) {
+__host__ __device__ inline RodConsts<T> cast_consts(const RodConstsHost& h) {
   RodConsts<T> c;
   for (int i = 0; i < 9; ++i) {
     c.Kse_inv[i] = T(h.Kse_inv[i]);

@@ -10,8 +10,8 @@ unchanged one is loaded as it is. Nothing is built or loaded when this
 module is imported: the first kernel launch calls ``library()``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
-wrappers (ops/sweep.py, ops/step.py, ops/train.py, ops/train_wide.py)
-raise when it is not 0.
+wrappers (ops/sweep.py, ops/step.py, ops/train.py, ops/train_wide.py,
+ops/assembly.py, ops/next_segment.py) raise when it is not 0.
 """
 from __future__ import annotations
 
@@ -24,12 +24,19 @@ import time
 from pathlib import Path
 
 __all__ = ["library", "RodConstsHost", "TrainArgs", "WideArgs", "build_info",
-           "NVCC_FLAGS"]
+           "NVCC_FLAGS", "SOURCE_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags for one source only. K7 (assembly.cu) rounds every multiply and add
+# on its own, as its plain version and the TPU kernel do: in float32 the
+# coupled system's near-null axial direction turns rounding into where the
+# FD-Newton stops inside its tolerance, and with contracted multiply-adds
+# K7 stopped 3-9x farther from the float64 truth than the plain coupled
+# Newton (PERF.md), without them 1.0-1.3x
+SOURCE_FLAGS = {"assembly": ("-fmad=false",)}
 
 _LIB = None
 _INFO: dict = {}
@@ -140,7 +147,7 @@ def library() -> _Kernels:
     for f in all_src:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(repr(NVCC_FLAGS).encode())
+    h.update(repr((NVCC_FLAGS, sorted(SOURCE_FLAGS.items()))).encode())
     h.update(version.encode())
     out_dir = BUILD_DIR / h.hexdigest()[:16]
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -152,8 +159,9 @@ def library() -> _Kernels:
         if not out.exists():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             jobs[src.stem] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.stem, ()), "-I",
+                 str(CSRC), "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
     logs, failed = [], []
     for stem, (tmp, proc) in jobs.items():
@@ -208,3 +216,15 @@ def _declare(k: _Kernels):
     k.knode_train_wide = k.train_wide.knode_train_wide
     k.knode_train_wide.argtypes = [ctypes.POINTER(WideArgs), P]
     k.knode_train_wide.restype = I
+    # knode_assembly(is_f64, M, N, consts, plate, tol, eps0, max_iter,
+    #                X0, yh, zh, tf, ph, X, y, z, r2, iters, stream)
+    k.knode_assembly = k.assembly.knode_assembly
+    k.knode_assembly.argtypes = [I, I, I, P, P, D, D, I,
+                                 P, P, P, P, P, P, P, P, P, P, P]
+    k.knode_assembly.restype = I
+    # knode_next_segment(is_f64, nn_in, act, B, consts, W1, b1, W2, b2,
+    #                    hidden, y, yh, zh, tf, yg, z, block, stream)
+    k.knode_next_segment = k.next_segment.knode_next_segment
+    k.knode_next_segment.argtypes = [I, I, I, I, consts, P, P, P, P,
+                                     I, P, P, P, P, P, P, I, P]
+    k.knode_next_segment.restype = I

@@ -1,0 +1,189 @@
+"""One whole coupled-assembly BDF-2 step per launch: kernel K7 and its
+plain PyTorch version.
+
+Counterpart of ``knode_cosserat_tpu/ops/pallas_assembly.py``
+(``make_assembly_step_kernel``). The CUDA kernel is ``csrc/assembly.cu``;
+its design note is there. Over X = [G_1..G_M, p_plate, h_plate]
+(U = 6M+7), while r2 > tol, fails <= 4 and it < max_iter:
+
+  one pass of 2U+1 lanes: lane 0 the base residual r(X), lanes 1..U the
+    +h_k probes, lanes U+1..2U the -h_k probes (h_k = eps0 (1 + |X_k|));
+  A[:, k] = r(X + h_k e_k) - r(X - h_k e_k)   (= J[:, k] 2 h_k)
+  A_kk += lam max(|A_kk|, 2 h_k)              (LM, Marquardt scaling)
+  t = A^-1 (-r) by pivoted Gauss-Jordan; dX = 2 h t; a non-finite dX
+    falls back to -r
+  the first alpha = 0.5^l (l < 7) with r2(X + alpha dX) < r2 is taken;
+    success: lam = 0, fails = 0; stall: hold X, lam = max(30 lam, 1e-4),
+    fails += 1
+then a recording sweep gives y and z. No KNODE net and no contact plane.
+
+``make_assembly_step_kernel(asm, tol, max_iter)`` returns fn(X0 (U,),
+yh (M,N,19), zh (M,N,6), tf (M,3), pph (3,), vph (3,), hph (4,),
+wbh (3,)) -> (X (U,), y (M,N,19), z (M,N-1,6), r2 (), iters () int32):
+the plain version for CPU tensors, the kernel for CUDA tensors (or it
+raises). The assembly's constants go to the card once per wrapper.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.assembly import (MAX_FUSED_RODS, RodAssembly, _assembly_residual,
+                             _sweep_all)
+from .step import _LM_GROWTH, _LM_LAMBDA0, _MAX_ESCALATIONS, fd1_eps
+from .sweep import raise_on, rod_consts, stream_of
+
+__all__ = ["make_assembly_step_kernel", "assembly_step_reference",
+           "gauss_jordan", "LAUNCHES"]
+
+#: K7 launches made by this module's wrapper since the count was last reset
+LAUNCHES = 0
+
+_N_ALPHAS = 7           # alphas 0.5^0 .. 0.5^6
+
+
+def gauss_jordan(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A t = b (U x U) as the TPU kernel's ``solve_tile`` does: for
+    each pivot k the row of the largest |A_ik| over i >= k (ties to the
+    lowest i) is swapped up, column k is eliminated from every other row,
+    and t = b / diag(A) at the end. No host synchronisation."""
+    U = A.shape[0]
+    rows = torch.arange(U, device=A.device)
+    for k in range(U):
+        p = k + torch.argmax(A[k:, k].abs())       # the first maximum
+        perm = rows.clone()
+        perm[k] = p
+        perm[p] = k
+        A, b = A[perm], b[perm]
+        fac = A[:, k] / A[k, k]
+        fac[k] = 0.0
+        A = A - fac[:, None] * A[k]
+        b = b - fac * b[k]
+    return b / torch.diagonal(A)
+
+
+@torch.no_grad()
+def assembly_step_reference(asm: RodAssembly, X0, yh, zh, tf, pph, vph, hph,
+                            wbh, tol: float = 1e-10, max_iter: int = 50):
+    """Plain PyTorch version of K7, any device: the same algorithm on the
+    same lanes (module docstring), each pass one batched residual call."""
+    M, U = asm.M, 6 * asm.M + 7
+    kw = dict(dtype=X0.dtype, device=X0.device)
+    eps0 = fd1_eps(X0.dtype)
+    res = lambda X: _assembly_residual(asm, X, yh, zh, tf, pph, vph, hph, wbh)
+    eye = torch.eye(U, **kw)
+    probes = torch.cat([torch.zeros((1, U), **kw), eye, -eye])  # (2U+1, U)
+    alphas = (0.5 ** torch.arange(_N_ALPHAS, dtype=torch.float64)).to(**kw)
+    lam0 = torch.tensor(_LM_LAMBDA0, **kw)
+    X = X0
+    r0 = res(X)
+    r2 = (r0 * r0).sum()
+    lam = torch.zeros((), **kw)
+    fails = it = 0
+    while bool(r2 > tol) and fails <= _MAX_ESCALATIONS and it < max_iter:
+        h = eps0 * (1.0 + X.abs())
+        Rt = res(X + h * probes)                    # lane l: row l
+        r = Rt[0]
+        A = (Rt[1:U + 1] - Rt[U + 1:]).T            # A[:, k] = R+_k - R-_k
+        d = torch.diagonal(A).abs()
+        A = A + torch.diag(lam * torch.maximum(d, 2.0 * h))
+        dX = 2.0 * h * gauss_jordan(A, -r)
+        if not bool(torch.isfinite(dX).all()):
+            dX = -r
+        Xc = X + alphas[:, None] * dX
+        Rc = res(Xc)
+        r2c = (Rc * Rc).sum(-1)
+        improves = r2c < r2
+        if bool(improves.any()):
+            k = int(improves.int().argmax())
+            X, r2 = Xc[k], r2c[k]
+            lam = torch.zeros((), **kw)
+            fails = 0
+        else:
+            lam = torch.maximum(lam * _LM_GROWTH, lam0)
+            fails += 1
+        it += 1
+    y, z = _sweep_all(asm, X[:6 * M].reshape(M, 6), yh, zh, tf, None, False)
+    return X, y, z, r2, torch.tensor(it, dtype=torch.int32, device=X.device)
+
+
+def _plate_consts(asm: RodAssembly) -> np.ndarray:
+    """[mass, inertia (9), g (3), c0, offsets (3M), attach quats (4M)] in
+    float64, as csrc/assembly.cu reads them."""
+    host = lambda t: t.detach().to("cpu", torch.float64).numpy().ravel()
+    pl = asm.plate
+    return np.concatenate([host(pl.mass), host(pl.inertia), host(pl.g),
+                           host(asm.rods[0].c0), host(pl.attach_offsets),
+                           host(pl.attach_quats)])
+
+
+def make_assembly_step_kernel(asm: RodAssembly, tol: float = 1e-10,
+                              max_iter: int = 50):
+    """The coupled-step solver for a concrete assembly (module docstring).
+    Refuses contact planes and more than MAX_FUSED_RODS rods, as the JAX
+    kernel does; a net is refused by its callers (core/assembly.py)."""
+    if asm.plate.has_contact:
+        raise NotImplementedError(
+            "fused assembly step does not support contact planes yet; "
+            "use the plain path (fused=False)")
+    M = asm.M
+    U = 6 * M + 7
+    if M > MAX_FUSED_RODS:
+        raise ValueError(f"2(6M+7)+1 = {2 * U + 1} probe lanes exceed the "
+                         f"128-lane tile; the fused step supports M <= "
+                         f"{MAX_FUSED_RODS}")
+    cache = {}
+
+    def step(X0, yh, zh, tf, pph, vph, hph, wbh):
+        if X0.device.type == "cpu":
+            return assembly_step_reference(asm, X0, yh, zh, tf, pph, vph, hph,
+                                           wbh, tol, max_iter)
+        if X0.device.type != "cuda":
+            raise ValueError(f"no assembly step kernel for device {X0.device}")
+        if "consts" not in cache:
+            rods = np.concatenate([np.frombuffer(bytes(rod_consts(p)),
+                                                 np.float64)
+                                   for p in asm.rods])
+            cache["consts"] = torch.from_numpy(rods).to(X0.device)
+            cache["plate"] = torch.from_numpy(_plate_consts(asm)).to(
+                X0.device)
+        return _launch(asm, cache, tol, max_iter, X0, yh, zh, tf,
+                       torch.cat([pph, vph, hph, wbh]))
+
+    return step
+
+
+def _launch(asm, cache, tol, max_iter, X0, yh, zh, tf, ph):
+    global LAUNCHES
+    from ._build import library
+
+    M, N = asm.M, asm.N
+    U = 6 * M + 7
+    want = {"X0": (X0, (U,)), "yh": (yh, (M, N, 19)), "zh": (zh, (M, N, 6)),
+            "tf": (tf, (M, 3)), "plate histories": (ph, (13,))}
+    if X0.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"K7 takes float32/float64, got {X0.dtype}")
+    for name, (t, shape) in want.items():
+        if t.device != X0.device or t.dtype != X0.dtype:
+            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                             f"{X0.dtype} on {X0.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    X0, yh, zh, tf, ph = (t.contiguous() for t in (X0, yh, zh, tf, ph))
+    kw = dict(dtype=X0.dtype, device=X0.device)
+    X = torch.empty((U,), **kw)
+    y = torch.empty((M, N, 19), **kw)
+    z = torch.empty((M, N - 1, 6), **kw)
+    r2 = torch.empty((), **kw)
+    iters = torch.empty((), dtype=torch.int32, device=X0.device)
+    with torch.cuda.device(X0.device):
+        code = library().knode_assembly(
+            int(X0.dtype == torch.float64), M, N, cache["consts"].data_ptr(),
+            cache["plate"].data_ptr(), float(tol), fd1_eps(X0.dtype),
+            int(max_iter), X0.data_ptr(), yh.data_ptr(), zh.data_ptr(),
+            tf.data_ptr(), ph.data_ptr(), X.data_ptr(), y.data_ptr(),
+            z.data_ptr(), r2.data_ptr(), iters.data_ptr(), stream_of(X0))
+    raise_on(code, "K7 assembly step")
+    LAUNCHES += 1
+    return X, y, z, r2, iters

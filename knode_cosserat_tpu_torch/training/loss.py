@@ -56,14 +56,13 @@ def grow_predictions(
     Args:
       traj: (..., T, N, 25) state-last ground truth ([y(19), z(6)]).
       controls: (..., T, 4) tendon tensions.
+      fused_fn: the fused next-segment op
+        (ops/next_segment.make_fused_next_segment), called once on the
+        flattened cells of every trajectory.
     Returns:
       (y_grown, z_new): (..., T-1, K, 19), (..., T-1, K, 6) predictions for
       steps 1..T-1 evaluated at nodes keypoints-1.
     """
-    if fused_fn is not None:
-        raise NotImplementedError(
-            "the fused next-segment kernel (K8, ops/pallas_rhs.py) is not "
-            "ported yet; see ROADMAP.md, Queue 2, K8")
     kp1 = [k - 1 for k in keypoints]
     ys = traj[..., :-1, :, :19]
     zs = traj[..., :-1, :, 19:]
@@ -78,6 +77,15 @@ def grow_predictions(
     yh_in = _nodes(yh, kp1)
     zh_in = _nodes(zh, kp1)
     tf = tendon_forces(p, controls[..., :-1, :])  # (..., T-1, 3)
+
+    if fused_fn is not None:
+        # the fused op (K8, ops/next_segment.py) over every trajectory's
+        # (T-1) x K cells at once: one launch
+        lead = y_in.shape[:-1]
+        flat = lambda a: a.reshape(-1, a.shape[-1])
+        yg, zn = fused_fn(nn_params, flat(y_in), flat(yh_in), flat(zh_in),
+                          flat(tf.unsqueeze(-2).expand(lead + (3,))))
+        return yg.reshape(lead + (19,)), zn.reshape(lead + (6,))
 
     nn_fn = None
     if nn_params is not None:

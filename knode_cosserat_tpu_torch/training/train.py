@@ -248,16 +248,19 @@ def make_train_step(p: RodParams, spec: MLPSpec, optimizer: AdamPlateau,
 
     trajs: (n_traj, T, N, 25); controls: (n_traj, T, 4). skip_first drops
     each trajectory's first transition (teacher_forced_loss). use_pallas
-    (the fused next-segment kernel K8) is not ported yet."""
-    if use_pallas:
-        raise NotImplementedError(
-            "use_pallas: the fused next-segment kernel K8 "
-            "(ops/pallas_rhs.py) is not ported yet; see ROADMAP.md, "
-            "Queue 2, K8")
+    routes the teacher-forced RHS through the fused next-segment op
+    (kernel K8, ops/next_segment.py): one launch per step over every
+    trajectory's cells (the JAX package unrolls one call per trajectory);
+    its backward pass is autograd of the plain version."""
     kp = tuple(keypoints)
+    fused_fn = None
+    if use_pallas:
+        from ..ops.next_segment import make_fused_next_segment
+        fused_fn = make_fused_next_segment(p, spec)
 
     def total_loss(net, trajs, controls):
         return teacher_forced_loss(p, spec, net, trajs, controls, kp,
+                                   fused_fn=fused_fn,
                                    skip_first=skip_first).sum()
 
     def step(net, trajs, controls):

@@ -1,7 +1,8 @@
 """The port's reduced CLI on the CPU, at a tiny size: ``multitrain`` trains
 the grid, writes one checkpoint per cell and the eval records, and prints
 the table and its phases; ``graphs`` reads the records back into the same
-table."""
+table; ``simulate-assembly`` writes the coupled rollout the JAX CLI
+writes."""
 import os
 
 import numpy as np
@@ -55,3 +56,33 @@ def test_unported_options_raise(tiny, tmp_path):
         cli.main(["multitrain", "--mesh", "1,1,1", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="viz"):
         cli.main(["graphs", "--tipx", "--evals_dir", str(tmp_path)])
+
+
+def test_simulate_assembly(tmp_path, capsys):
+    """2 rods, 6 nodes, 5 steps, an overpulled rod and a contact plane: the
+    .npz keys and shapes and the printout of the JAX CLI, and the rollout
+    of simulate_assembly at the same configuration."""
+    from knode_cosserat_tpu_torch.controls import calc_controls
+    from knode_cosserat_tpu_torch.core.assembly import (make_ring_assembly,
+                                                        simulate_assembly,
+                                                        with_contact_plane)
+    path = tmp_path / "a" / "assembly.npz"
+    out = cli.main(["simulate-assembly", "--rods", "2", "--nodes", "6",
+                    "--steps", "5", "--pull_rod", "1", "--contact_plane",
+                    "0", "0", "1", "0.3", "--device", "cpu", "--save",
+                    str(path)])
+    printed = capsys.readouterr().out
+    d = np.load(path)
+    assert sorted(d.files) == ["controls", "plate_pose", "traj"]
+    assert d["traj"].shape == (5, 2, 6, 50) and d["plate_pose"].shape == (5, 7)
+    assert d["controls"].shape == (5, 2, 4) and d["traj"].dtype == np.float32
+    np.testing.assert_allclose(d["controls"][:, 1, 0] - d["controls"][:, 0, 0],
+                               3.0, rtol=1e-12)
+    assert f"saved {path}: traj (5, 2, 6, 50), plate_pose (5, 7)" in printed
+    assert "max Newton iters" in printed
+    asm = with_contact_plane(make_ring_assembly(
+        n_rods=2, N=6, dtype=torch.float32, device="cpu"), [0, 0, 1], 0.3)
+    want = simulate_assembly(asm, d["controls"])
+    assert torch.equal(out.traj, want.traj)
+    ctl = calc_controls("sine", 1.0, float(asm.rods[0].del_t), 5)
+    np.testing.assert_array_equal(d["controls"][:, 0], ctl)

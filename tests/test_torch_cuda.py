@@ -284,3 +284,111 @@ def test_wide_kernel_chunks_compose(dev):
     for a, b in zip(end.parameters(), whole.parameters()):
         assert torch.equal(a, b)
     assert torch.equal(s2["scalars"], s20["scalars"])
+
+
+def _assembly_step_inputs(asm, seed):
+    """One coupled step from a perturbed history around the straight
+    assembly: X0, yh, zh, tf, pph, vph, hph, wbh on the assembly's device."""
+    from knode_cosserat_tpu_torch.core.assembly import AssemblyCarry
+    g = np.random.RandomState(seed)
+    kw = dict(dtype=asm.dtype, device=asm.device)
+    rnd = lambda shape, s: s * torch.tensor(g.randn(*shape), **kw)
+    carry = AssemblyCarry.initial(asm)
+    p0 = asm.rods[0]
+    c1, c2 = float(p0.c1), float(p0.c2)
+    yh = c1 * (carry.y + rnd(carry.y.shape, 1e-3)) + c2 * carry.y
+    zh = c1 * (carry.z + rnd(carry.z.shape, 1e-3)) + c2 * carry.z
+    tf = torch.tensor((5 + 2 * g.rand(asm.M, 4))
+                      @ p0.tendon_dirs.cpu().double().numpy(), **kw)
+    X0 = torch.cat([torch.zeros(6 * asm.M, **kw), carry.pp, carry.hp])
+    return (X0, yh, zh, tf, (c1 + c2) * carry.pp + rnd((3,), 1e-4),
+            rnd((3,), 1e-3), (c1 + c2) * carry.hp + rnd((4,), 1e-4),
+            rnd((3,), 1e-3))
+
+
+@pytest.mark.parametrize("M,N", [(2, 6), (3, 10)])
+def test_assembly_kernel_matches_plain(dev, M, N):
+    """K7 against its plain version, f64, both solved to 1e-24: X within
+    1e-9, y within 1e-9 of its largest, the same iterations."""
+    from knode_cosserat_tpu_torch.core.assembly import make_ring_assembly
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    asm = make_ring_assembly(n_rods=M, base_radius=0.05, N=N, device=dev)
+    ins = _assembly_step_inputs(asm, M)
+    kasm.LAUNCHES = 0
+    got = kasm.make_assembly_step_kernel(asm, tol=1e-24, max_iter=30)(*ins)
+    want = kasm.assembly_step_reference(asm, *ins, tol=1e-24, max_iter=30)
+    torch.cuda.synchronize()
+    assert kasm.LAUNCHES == 1
+    assert float((got[0] - want[0]).abs().max()) < 1e-9
+    assert float((got[1] - want[1]).abs().max()) < 1e-9 * float(
+        want[1].abs().max())
+    assert int(got[4]) == int(want[4])
+
+
+def test_fused_assembly_rollout_runs_on_the_kernel(dev):
+    """simulate_assembly(fused=True) at the JAX bench's assembly, f32: one
+    K7 launch per step, finite plate poses, the plain rollout's plate
+    within 1e-4."""
+    from knode_cosserat_tpu_torch.controls import calc_controls
+    from knode_cosserat_tpu_torch.core.assembly import (make_ring_assembly,
+                                                        simulate_assembly)
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    asm = make_ring_assembly(n_rods=3, base_radius=0.05, N=10,
+                             dtype=torch.float32, device=dev)
+    ctl = torch.tensor(np.stack([calc_controls("sine", a, 0.005, 6)
+                                 for a in (0.7, 1.0, 1.3)], axis=1),
+                       dtype=torch.float32, device=dev)
+    kasm.LAUNCHES = 0
+    out = simulate_assembly(asm, ctl, fused=True)
+    assert kasm.LAUNCHES == 5 and bool(torch.isfinite(out.plate_pose).all())
+    plain = simulate_assembly(asm, ctl)
+    assert float((out.plate_pose - plain.plate_pose).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("history", [False, True])
+def test_next_segment_kernel_matches_plain(dev, dtype, history):
+    """K8 against its plain version on 300 cells."""
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    p = K.apply_mod("nsw", dtype=dtype, device=dev)
+    spec, net = _net(history, dtype, dev)
+    g = np.random.RandomState(1)
+    cells = [torch.tensor(a, dtype=dtype, device=dev) for a in (
+        np.eye(1, 19, 3)[0] + 1e-2 * g.randn(300, 19),
+        1e-2 * g.randn(300, 19), 1e-2 * g.randn(300, 6), g.randn(300, 3))]
+    kseg.LAUNCHES = 0
+    with torch.no_grad():
+        got = kseg.make_fused_next_segment(p, spec)(net, *cells)
+        want = kseg.next_segment_reference(p, spec, *cells, *[
+            t for wb in net.weights() for t in wb])
+    torch.cuda.synchronize()
+    assert kseg.LAUNCHES == 1
+    rtol, atol = TOL[dtype]
+    for a, b in zip(got, want):
+        assert torch.allclose(a, b, rtol=rtol, atol=atol)
+
+
+def test_fused_train_step_runs_on_the_kernel(dev):
+    """make_train_step(use_pallas=True) launches K8 once per step and
+    tracks the plain step (f32, 5 steps, losses within rtol 1e-4)."""
+    import copy
+
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    from knode_cosserat_tpu_torch.training.train import (make_optimizer,
+                                                         make_train_step)
+    cfg = K.TrainConfig(hidden=64)
+    p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+    trajs, ctls = K.make_training_data(K.apply_mod(None, device=dev),
+                                       [("sine", 0.5)], train_len=8)
+    trajs, ctls = trajs.float(), ctls.float()
+    net = K.init_mlp(cfg.spec(), torch.Generator().manual_seed(0),
+                     torch.float32, dev)
+    losses = []
+    for fused in (True, False):
+        n = copy.deepcopy(net)
+        step, _ = make_train_step(p, cfg.spec(), make_optimizer(cfg, n),
+                                  cfg.keypoints, True, use_pallas=fused)
+        kseg.LAUNCHES = 0
+        losses.append(torch.stack([step(n, trajs, ctls) for _ in range(5)]))
+        assert kseg.LAUNCHES == (5 if fused else 0)
+    assert torch.allclose(losses[0], losses[1], rtol=1e-4, atol=0)

@@ -41,6 +41,24 @@ SCRIPT = textwrap.dedent("""
     assert calls == [], calls
     from knode_cosserat_tpu_torch.ops import _build, step
     assert _build._LIB is None and step.LAUNCHES == 0
+
+    # this slice's modules import, and run their plain versions, without jax
+    from knode_cosserat_tpu_torch.control import make_assembly_planner
+    from knode_cosserat_tpu_torch.core import assembly, multiple_shooting
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    asm = assembly.make_ring_assembly(n_rods=2, N=4, device="cpu")
+    out = assembly.simulate_assembly(asm, torch.full((3, 2, 4), 5.0),
+                                     fused=True)
+    assert bool(torch.isfinite(out.plate_pose).all())
+    net = K.init_mlp(K.MLPSpec.for_knode(8), torch.Generator().manual_seed(0),
+                     torch.float64, "cpu")
+    cells = [torch.zeros(5, n, dtype=torch.float64) for n in (19, 19, 6, 3)]
+    cells[0][:, 3] = 1.0
+    yg, z = kseg.make_fused_next_segment(p, K.MLPSpec.for_knode(8))(net, *cells)
+    assert yg.shape == (5, 19) and z.shape == (5, 6)
+    assert calls == [], calls
+    assert _build._LIB is None and kasm.LAUNCHES == 0 and kseg.LAUNCHES == 0
     print("STANDALONE_OK")
 """)
 
@@ -62,5 +80,6 @@ def test_port_sources_never_import_jax():
             if f.endswith(".py"):
                 text = open(os.path.join(dirpath, f)).read()
                 assert not bad.search(text), f"{f}: {bad.search(text)}"
-    assert {"rhs_rows.cuh", "sweep.cu", "step.cu", "train.cu"} <= set(
+    assert {"rhs_rows.cuh", "sweep.cu", "step.cu", "train.cu",
+            "train_wide.cu", "assembly.cu", "next_segment.cu"} <= set(
         os.listdir(os.path.join(pkg, "csrc")))

@@ -2,6 +2,8 @@
 JAX package (float64 on the CPU): AdamPlateau against make_optimizer's
 optax chain, make_epoch_scan against JAX make_epoch_scan, a run resumed
 from the JAX package's optimizer state, and make_training_data."""
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,9 +125,20 @@ def test_make_epoch_scan_refuses_a_foreign_net():
         kcfg, other), kcfg.keypoints, True, 1)
     with pytest.raises(ValueError, match="optimizer"):
         run(net, torch.tensor(trajs), torch.tensor(ctls))
-    with pytest.raises(NotImplementedError, match="K8"):
-        ktrain.make_train_step(pk, kcfg.spec(), None, kcfg.keypoints, True,
-                               use_pallas=True)
+    # use_pallas routes the step through the fused next-segment op (K8's
+    # plain version on the CPU): the same loss and weights as the plain
+    # step, to rounding (f64; the cells are flattened for the op)
+    fused_net = copy.deepcopy(net)
+    steps = [ktrain.make_train_step(pk, kcfg.spec(), ktrain.make_optimizer(
+        kcfg, n), kcfg.keypoints, True, use_pallas=u)[0]
+        for n, u in ((fused_net, True), (net, False))]
+    for _ in range(2):
+        lf, lp = (step(n, torch.tensor(trajs), torch.tensor(ctls))
+                  for step, n in zip(steps, (fused_net, net)))
+        np.testing.assert_allclose(float(lf), float(lp), rtol=1e-12)
+    for a, b in zip(fused_net.parameters(), net.parameters()):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=1e-10, atol=1e-15)
 
 
 def test_training_data_matches_jax():

@@ -110,9 +110,21 @@ def test_teacher_forced_loss_batches_and_checks():
     with pytest.raises(ValueError, match=">= 3 frames"):
         kloss.teacher_forced_loss(pk, kspec, net, torch.tensor(trajs[0, :2]),
                                   torch.tensor(ctls[0, :2]), skip_first=True)
-    with pytest.raises(NotImplementedError, match="K8"):
-        kloss.grow_predictions(pk, kspec, net, torch.tensor(trajs[0]),
-                               torch.tensor(ctls[0]), (3, 5), fused_fn=abs)
+    # a fused op (K8's, ops/next_segment.py) gets every trajectory's
+    # (T-1) x K cells flattened in one call, and its result is reshaped
+    # back: the same predictions as the plain path, to rounding (f64)
+    from knode_cosserat_tpu_torch.ops.next_segment import \
+        make_fused_next_segment
+    calls = []
+    op = make_fused_next_segment(pk, kspec)
+    fused_fn = lambda *a: calls.append(a[1].shape) or op(*a)
+    args = (pk, kspec, net, torch.tensor(trajs), torch.tensor(ctls), (3, 5))
+    got = kloss.grow_predictions(*args, fused_fn=fused_fn)
+    want = kloss.grow_predictions(*args)
+    assert calls == [(2 * 4 * 2, 19)]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=1e-12, atol=1e-15)
 
 
 @pytest.mark.parametrize("dist_ord", [1, 2])
