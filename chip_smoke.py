@@ -78,8 +78,11 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      train-real shape.
  17. timings, kernel vs plain, each with the card's name and power limit,
      and each kernel's bound (the larger of its operations over the
-     float32 peak and its bytes over the memory rate); K6 against the
-     plain epoch loop at hidden 1024 / 2048 / 8192 (the routing's
+     float32 peak and its bytes over the memory rate); K2 at batch 1, 40
+     and 256, and K2's share of a mega rollout's wall time per step (CUDA
+     events around its launches against the host clock) at 256 rods and
+     at 1; K6 against
+     the plain epoch loop at hidden 1024 / 2048 / 8192 (the routing's
      crossover); K7 at M = 3, 6, 9 and K8 at 232 and 1,904 cells.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
@@ -470,9 +473,54 @@ def timed(fn, n):
     return start.elapsed_time(end) / n
 
 
+def k2_device_share(K, roll, ctl, net):
+    """A mega rollout's K2 share: each K2 launch between CUDA events (its
+    device time) against the rollout's host-clock wall time, synchronised.
+    Returns (K2 ms per step, wall ms per step)."""
+    from knode_cosserat_tpu_torch.ops import step as kstep
+
+    pairs, orig = [], kstep._launch
+
+    def launch(*a):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = orig(*a)
+        e.record()
+        pairs.append((s, e))
+        return out
+
+    roll(ctl[:, :3], net)
+    torch.cuda.synchronize()
+    kstep._launch = launch
+    try:
+        t0 = time.perf_counter()
+        roll(ctl, net)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        kstep._launch = orig
+    steps = ctl.shape[1] - 1
+    return sum(s.elapsed_time(e) for s, e in pairs) / steps, wall / steps
+
+
+def k2_bound(iters, N, hidden, din, dtype_bytes=4):
+    """K2's bound from this run's iterations: per rod the first residual
+    sweep, 6 probes and one line-search candidate per iteration and the
+    recording sweep (a floor: failed candidates are not counted), each
+    N-1 nodes; bytes: the net once, each rod's inputs and outputs once."""
+    B = iters.numel()
+    sweeps = int((2 + 7 * iters.long()).sum())
+    w_bytes = dtype_bytes * (hidden * (din + 25) + hidden + 25)
+    return sweeps, bound(sweeps * (N - 1) * node_flops(hidden, din),
+                         w_bytes + dtype_bytes * B * (
+                             6 + N * 25 + 3 + 6 + N * 19
+                             + (N - 1) * 6 + 2))
+
+
 def phase_timings(K, dev, name_power):
     """Kernel vs plain version at the main path's shapes (f32)."""
     from knode_cosserat_tpu_torch.core.fast_rollout import make_fast_rollout
+    from knode_cosserat_tpu_torch.ops import step as kstep
     from knode_cosserat_tpu_torch.ops.step import (make_step_kernel,
                                                    step_reference)
     from knode_cosserat_tpu_torch.ops.sweep import (make_sweep_kernel,
@@ -498,7 +546,7 @@ def phase_timings(K, dev, name_power):
         raise AssertionError(f"K1 one-node check: max err {e1:.3e}")
     ms["K1_err"] = e1
     log(f"[time] K1 one node, {R * 7} lanes, hybrid 512 f32: kernel "
-        f"{ms['K1'][0]:.3f} ms, plain {ms['K1'][1]:.3f} ms (max err {e1:.3e}) {tag}")
+        f"{ms['K1'][0]:.4f} ms, plain {ms['K1'][1]:.3f} ms (max err {e1:.3e}) {tag}")
 
     # K3: the line-search sweep of the FD driver, 256 rods x 7 candidates
     p = K.experimental_rod(N=10, device=dev).to(dtype=dt)
@@ -509,25 +557,28 @@ def phase_timings(K, dev, name_power):
                     timed(lambda: sweep_reference(p, G, yh, zh, tf, net,
                                                   want_rod=False), 20))
     log(f"[time] K3 sweep N=10, {R * 7} lanes, hybrid 512 f32: kernel "
-        f"{ms['K3'][0]:.3f} ms, plain {ms['K3'][1]:.3f} ms {tag}")
+        f"{ms['K3'][0]:.4f} ms, plain {ms['K3'][1]:.3f} ms {tag}")
 
-    # K2: one serving step, 256 rods, hybrid (weights x1e-3)
+    # K2: one serving step, hybrid (weights x1e-3), at batch 1, 40 (one
+    # mod's stacked eval cells) and 256
     _, net3 = make_net(K, False, dt, dev, scale=1e-3)
-    G, yh, zh, tf = on(dev, dt, *history_inputs(p, R, SEED))
-    G = torch.zeros_like(G)
     k2 = make_step_kernel(p, spec, tol=1e-10, max_iter=20)
-    with torch.no_grad():
-        ms["K2"] = (timed(lambda: k2(G, yh, zh, tf, net3), 5),
-                    timed(lambda: step_reference(p, G, yh, zh, tf, net3,
-                                                 tol=1e-10, max_iter=20), 3))
-        iters = k2(G, yh, zh, tf, net3)[4]
-    # K2's work depends on the data: per rod the first residual sweep, 6
-    # probes and >= 1 line-search candidate per iteration, and the final
-    # recording sweep (a floor: failed candidates are not counted)
-    ms["K2_sweeps"] = int((2 + 7 * iters.long()).sum())
-    log(f"[time] K2 step N=10, {R} rods, hybrid 512 f32: kernel "
-        f"{ms['K2'][0]:.3f} ms, plain {ms['K2'][1]:.3f} ms "
-        f"({ms['K2_sweeps']} sweeps, iters max {int(iters.max())}) {tag}")
+    for B in (1, 40, R):
+        G, yh, zh, tf = on(dev, dt, *history_inputs(p, B, SEED))
+        G = torch.zeros_like(G)
+        with torch.no_grad():
+            k2_ms = timed(lambda: k2(G, yh, zh, tf, net3), 20)
+            plain = timed(lambda: step_reference(p, G, yh, zh, tf, net3,
+                                                 tol=1e-10, max_iter=20), 3)
+            iters = k2(G, yh, zh, tf, net3)[4]
+        sweeps, (b_ms, b_by) = k2_bound(iters, p.N, HIDDEN, 28)
+        ms[f"K2 B={B}"] = dict(ms=k2_ms, plain_ms=plain, bound_ms=b_ms,
+                               bound_by=b_by, sweeps=sweeps)
+        log(f"[time] K2 step N=10, {B} rods, hybrid 512 f32: kernel "
+            f"{k2_ms:.4f} ms, plain {plain:.3f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}; {sweeps} sweeps, iters max {int(iters.max())}) {tag}")
+    ms["K2"] = (ms[f"K2 B={R}"]["ms"], ms[f"K2 B={R}"]["plain_ms"])
+    ms["K2_bound"] = (ms[f"K2 B={R}"]["bound_ms"], ms[f"K2 B={R}"]["bound_by"])
 
     # rod-steps/s of 256-rod rollouts (the plain driver over T=11 steps)
     for N, hybrid in ((10, False), (40, False), (10, True)):
@@ -547,6 +598,17 @@ def phase_timings(K, dev, name_power):
         log(f"[time] rollout {R} rods N={N} {'hybrid 512' if hybrid else 'physics'}"
             f" f32: mega {rates[0]:.1f} rod-steps/s (T=50), plain "
             f"{rates[1]:.1f} rod-steps/s (T=11) {tag}")
+
+    # K2's share of a mega rollout's wall time per step (the rest is the
+    # host's glue: history terms, tendon forces, records, the launch)
+    for B in (R, 1):
+        roll = make_fast_rollout(p, spec, tol=1e-10, max_iter=30, impl="mega")
+        ctl = torch.tensor(sine_tensions(p, B, 50), device=dev)
+        k2_step, wall = k2_device_share(K, roll, ctl, net3)
+        ms[f"share B={B}"] = (k2_step, wall)
+        log(f"[time] mega rollout {B} rods N=10 hybrid 512 f32: K2 "
+            f"{k2_step:.4f} ms of {wall:.4f} ms wall per step "
+            f"({100 * k2_step / wall:.1f}% on K2) {tag}")
 
     # serving step latency, batch 1
     lat = []
@@ -1531,14 +1593,14 @@ def main() -> int:
     k1_bound = bound(R * 7 * f_node, w_bytes + 4 * R * 7 * (6 + 38 + 12 + 3 + 6))
     k3_bound = bound(R * 7 * 9 * f_node,
                      w_bytes + 4 * R * 7 * (6 + 190 + 60 + 3 + 6))
-    k2_bound = bound(ms["K2_sweeps"] * 9 * f_node,
-                     w_bytes + 4 * R * (6 + 190 + 60 + 3 + 6 + 190 + 54 + 2))
+    k2_bound = ms["K2_bound"]
     src = "knode_cosserat_tpu_torch/csrc/"
     k3_err = max(errs[("K3", torch.float32)] + errs[("K3", torch.float64)])
     k1_err = max(k3_err, ms["K1_err"])
     row = lambda b: {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
     kernels = [
-        {"name": "K1 rhs_rows (hybrid per-node RHS, inlined in K2/K3/K7/K8)",
+        {"name": "K1 rhs_rows (hybrid per-node RHS, inlined in K2/K3/K7/K8; "
+                 "rhs_node_coop redesigned)",
          "route": "cuda", "source": src + "rhs_rows.cuh",
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:93",
          "launches": (serve["K2"] + serve["K3"] + train["K2"] + train["K3"]
@@ -1546,12 +1608,14 @@ def main() -> int:
                       + fused["launches"]),
          "max_abs_err": k1_err, "ms": ms["K1"][0], "plain_ms": ms["K1"][1],
          **row(k1_bound)},
-        {"name": "K3 sweep", "route": "cuda", "source": src + "sweep.cu",
+        {"name": "K3 sweep (hybrid: one warp per lane, redesigned)",
+         "route": "cuda", "source": src + "sweep.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:201",
          "launches": serve["K3"] + train["K3"] + multi["K3"],
          "max_abs_err": k3_err,
          "ms": ms["K3"][0], "plain_ms": ms["K3"][1], **row(k3_bound)},
-        {"name": "K2 step", "route": "cuda", "source": src + "step.cu",
+        {"name": "K2 step (256 rods; one block per rod, redesigned)",
+         "route": "cuda", "source": src + "step.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_step.py:57",
          "launches": serve["K2"] + train["K2"] + multi["K2"],
          "max_abs_err": max(errs[("K2", torch.float32)]

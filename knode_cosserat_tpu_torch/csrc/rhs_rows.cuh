@@ -1,4 +1,6 @@
-// K1: the per-node hybrid Cosserat right-hand side, one thread per lane.
+// K1: the per-node hybrid Cosserat right-hand side, in two forms: one
+// thread per lane (rhs_node), and one warp per lane with the MLP's hidden
+// units spread over its 32 threads (rhs_node_coop).
 //
 // Replaces the per-node body of the TPU kernels,
 // knode_cosserat_tpu/ops/pallas_sweep.py::make_rhs_rows, which K3
@@ -11,23 +13,34 @@
 //   [y, z, tf] (28 inputs) or [y, yh, z, zh, tf] (53), added to dy (19)
 //   and z (6).
 //
-// Where the H100 bounds it: the physics is ~300 flops on 19 states held
-// in registers; the MLP is the cost, 2*(28*H + 25*H) ~ 54 kflop per node
-// at H = 512, all of it dependent scalar FMAs of one thread, each with a
-// load of one weight. So one call is bound by the thread's instruction
-// issue and the latency of its weight loads, not by bandwidth: every lane
-// of a warp reads the same weight address (a broadcast through the
-// read-only path, served from L1 after the first warp; 110.7 KB of f32
-// weights at H = 512), and the hidden layer is streamed one unit at a time
-// so no H-wide array lives per thread. Shared memory would not hold the
-// f64 weights (221 KB at H = 512, 324 KB for the 53-input net), and the
-// broadcast already costs one transaction per load.
+// Where the H100 bounds it: the physics is ~400 flops on 19 states held
+// in registers; the MLP is the cost, 2*(NNIN*H + 25*H) ~ 54 kflop per
+// node at H = 512. In one thread (rhs_node, kept for K7, which has no
+// net, and K8, one thread per cell) that is a chain of ~27k dependent
+// FMAs, each with a weight load: bound by one thread's issue rate.
 //
-// What the design leaves for later (the first perf target): one thread
-// per lane uses 32 lanes of an SM for a whole warp's worth of MLP work.
-// A warp per rod with the hidden dimension spread across its lanes (and a
-// shuffle reduction for the 25 outputs) would issue 32x fewer dependent
-// FMAs per thread.
+// rhs_node_coop, the body of K2 and of K3's hybrid instances: a group of
+// threads evaluates one lane (rod x probe or candidate), a warp when the
+// block holds a tile of lanes, one per warp, or the whole block when the
+// phase has a single lane (K2's first, alpha = 1 and recording sweeps).
+// Each thread holds the lane's state and runs the physics itself (a warp
+// issues it once, as one thread would, and no broadcast is needed);
+// thread s of the group computes the hidden units s, s+S, s+2S, ... and
+// accumulates its partial sums of the 25 outputs; a butterfly of
+// shuffles, and over a block a pass through shared memory, reduces them
+// in an order fixed by H and the group's size alone, so a lane's bits do
+// not depend on the batch, and every thread ends with the same sums.
+// The weights are staged once per block into shared memory (stage_net:
+// W1 transposed to (NNIN, H+1), so the threads of a warp read
+// neighbouring words, b1, W2 (25, H), b2) when they fit in the 227 KB a
+// block can have; otherwise (float64 with 53 inputs at H = 512, or wide
+// nets) each thread walks its unit's row of W1 and column of W2 straight
+// from global memory through the read-only path. What bounds it then:
+// every lane reads every weight from shared memory once per node, one
+// load per FMA (110.7 KB per node at H = 512, f32), so a node costs
+// ~860 cycles of the SM's shared-memory bandwidth per lane; a thread that
+// reused each loaded weight over several lanes (25 partial sums per lane
+// in registers) would cut that, at a register cost float64 cannot pay.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -129,6 +142,29 @@ __device__ __forceinline__ void cross3(const T* a, const T* b, T* out) {
   out[0] = a[1] * b[2] - a[2] * b[1];
   out[1] = a[2] * b[0] - a[0] * b[2];
   out[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+// The net's input (cosserat_ode.py:171-175): [y, z, tf] or
+// [y, yh, z, zh, tf], z the physics strains.
+template <typename T, int NNIN>
+__device__ __forceinline__ void net_inputs(const T* y, const T* yh,
+                                          const T* z, const T* zh,
+                                          const T* tf, T* x) {
+  int o = 0;
+#pragma unroll
+  for (int i = 0; i < 19; ++i) x[o++] = y[i];
+  if constexpr (NNIN == 53) {
+#pragma unroll
+    for (int i = 0; i < 19; ++i) x[o++] = yh[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) x[o++] = z[i];
+  if constexpr (NNIN == 53) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) x[o++] = zh[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) x[o++] = tf[i];
 }
 
 // One node: y, yh (19), zh (6), tf (3) -> dy (19), z (6). yh, zh may point
@@ -243,24 +279,8 @@ __device__ __forceinline__ void rhs_node(const RodConsts<T>& rc,
   dy[6] = T(0.5) * (u3 * h1 + u2 * h2 - u1 * h3);
 
   if constexpr (NNIN > 0) {
-    // input layout (cosserat_ode.py:171-175): [y, z, tf] or
-    // [y, yh, z, zh, tf]
     T x[NNIN];
-    int o = 0;
-#pragma unroll
-    for (int i = 0; i < 19; ++i) x[o++] = y[i];
-    if constexpr (NNIN == 53) {
-#pragma unroll
-      for (int i = 0; i < 19; ++i) x[o++] = yh[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 6; ++i) x[o++] = z[i];
-    if constexpr (NNIN == 53) {
-#pragma unroll
-      for (int i = 0; i < 6; ++i) x[o++] = zh[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) x[o++] = tf[i];
+    net_inputs<T, NNIN>(y, yh, z, zh, tf, x);
 
     // hidden layer streamed one unit at a time
     T out[25];
@@ -283,17 +303,171 @@ __device__ __forceinline__ void rhs_node(const RodConsts<T>& rc,
   }
 }
 
-// One spatial step at node j: y (19) advanced in place to node j+1, z (6)
-// the strains at node j. Euler, or RK4 with the linear history midpoints
-// 0.5*(yh_j + yh_j+1) formed here (knode.py:80-81).
-template <typename T, int NNIN, bool RK4>
-__device__ __forceinline__ void node_update(const RodConsts<T>& rc,
-                                            const Mlp<T>& mlp, T* y,
-                                            const T* yh_j, const T* zh_j,
-                                            const T* tf, T* z) {
-  const T ds = rc.ds;
+// The cooperative form: the net as rhs_node_coop reads it. SMEM: staged
+// by stage_net in shared memory (W1 transposed to (NNIN, H+1), b1, W2
+// (25, H), b2, one after the other); otherwise the Mlp's own global
+// arrays in nn.Linear's layout (W1 (H, NNIN) row-major).
+constexpr int WARP = 32;
+
+template <typename T, bool SMEM>
+struct NetView {
+  const T* W1;
+  const T* b1;
+  const T* W2;
+  const T* b2;
+  int H, act;
+};
+
+// Shared memory a staged net takes (the layout above), rounded up to 8
+// bytes so that what follows is aligned; the launch plans
+// (ops/sweep.py::net_smem_bytes) count the same.
+template <typename T>
+__host__ __device__ inline size_t net_smem_bytes(int nn_in, int H) {
+  const size_t elems = (size_t)nn_in * (H + 1) + 26 * (size_t)H + 25;
+  return (elems * sizeof(T) + 7) & ~(size_t)7;
+}
+
+template <bool SMEM, typename T>
+__device__ __forceinline__ T ldw(const T* p) {
+  if constexpr (SMEM) return *p;
+  else return __ldg(p);
+}
+
+// W1[k][i]: unit k, input i
+template <typename T, int NNIN, bool SMEM>
+__device__ __forceinline__ T w1_at(const NetView<T, SMEM>& net, int k,
+                                   int i) {
+  if constexpr (SMEM) return net.W1[(size_t)i * (net.H + 1) + k];
+  else return __ldg(net.W1 + (size_t)k * NNIN + i);
+}
+
+// Copies the net into shared memory s, all threads of the block, and
+// waits for the copy: neighbouring threads read neighbouring global words;
+// W1's transposed rows are H+1 long, so a warp's writes spread over banks.
+template <typename T, int NNIN>
+__device__ __forceinline__ NetView<T, true> stage_net(const Mlp<T>& m,
+                                                      T* s) {
+  const int H = m.hidden, ld = H + 1;
+  T* W1t = s;
+  T* b1 = W1t + (size_t)NNIN * ld;
+  T* W2 = b1 + H;
+  T* b2 = W2 + (size_t)25 * H;
+  for (int e = threadIdx.x; e < H * NNIN; e += blockDim.x) {
+    const int k = e / NNIN, i = e - k * NNIN;
+    W1t[(size_t)i * ld + k] = __ldg(m.W1 + e);
+  }
+  for (int e = threadIdx.x; e < H; e += blockDim.x) b1[e] = __ldg(m.b1 + e);
+  for (int e = threadIdx.x; e < 25 * H; e += blockDim.x)
+    W2[e] = __ldg(m.W2 + e);
+  for (int e = threadIdx.x; e < 25; e += blockDim.x) b2[e] = __ldg(m.b2 + e);
+  __syncthreads();
+  return NetView<T, true>{W1t, b1, W2, b2, H, m.act};
+}
+
+// The block's view of its net: staged into s (SMEM; every thread of the
+// block must call it) or read in place.
+template <typename T, int NNIN, bool SMEM>
+__device__ __forceinline__ NetView<T, SMEM> net_view(const Mlp<T>& m, T* s) {
+  if constexpr (SMEM) return stage_net<T, NNIN>(m, s);
+  else return NetView<T, false>{m.W1, m.b1, m.W2, m.b2, m.hidden, m.act};
+}
+
+// out (25) = W2 act(W1 x + b1), over the calling warp or, with `red`,
+// the whole block: thread u of the group takes the units u, u+2S, ... and
+// u+S, u+3S, ... (S the group's size, two at a time for two independent
+// FMA chains) and sums its share of each output in unit order; a
+// butterfly of xor shuffles adds a warp's 32 partial sums; with `red` (a
+// shared scratch of (warps + 1) x 25) each warp's sums then go to shared
+// memory and are added warp by warp. The order is fixed by H and the
+// group's size alone, and every thread of the group ends with the same
+// bits. Units past H (a ragged last tile) are masked. Every thread of the
+// group must call it.
+template <typename T, int NNIN, bool SMEM>
+__device__ __forceinline__ void mlp_coop(const NetView<T, SMEM>& net,
+                                         const T* x, T* out, T* red) {
+  const int S = red ? (int)blockDim.x : WARP;
+  const int s = red ? (int)threadIdx.x : (int)(threadIdx.x & (WARP - 1));
+  const int H = net.H;
+  T acc[25];
+#pragma unroll
+  for (int j = 0; j < 25; ++j) acc[j] = T(0);
+  for (int k = s; k < H; k += 2 * S) {
+    const int k2 = k + S;
+    const bool two = k2 < H;
+    const int kb = two ? k2 : k;
+    T a = T(0), a2 = T(0);
+#pragma unroll
+    for (int i = 0; i < NNIN; ++i) {
+      a += w1_at<T, NNIN, SMEM>(net, k, i) * x[i];
+      a2 += w1_at<T, NNIN, SMEM>(net, kb, i) * x[i];
+    }
+    a = activate(a + ldw<SMEM>(net.b1 + k), net.act);
+#pragma unroll
+    for (int j = 0; j < 25; ++j)
+      acc[j] += ldw<SMEM>(net.W2 + (size_t)j * H + k) * a;
+    if (two) {
+      a2 = activate(a2 + ldw<SMEM>(net.b1 + k2), net.act);
+#pragma unroll
+      for (int j = 0; j < 25; ++j)
+        acc[j] += ldw<SMEM>(net.W2 + (size_t)j * H + k2) * a2;
+    }
+  }
+#pragma unroll
+  for (int m = WARP / 2; m > 0; m >>= 1) {
+#pragma unroll
+    for (int j = 0; j < 25; ++j)
+      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
+  }
+  if (red) {
+    const int nw = blockDim.x / WARP;
+    T* fin = red + 25 * nw;
+    if ((threadIdx.x & (WARP - 1)) == 0) {
+#pragma unroll
+      for (int j = 0; j < 25; ++j) red[25 * (threadIdx.x / WARP) + j] = acc[j];
+    }
+    __syncthreads();
+    if (threadIdx.x < 25) {
+      T v = red[threadIdx.x];
+      for (int w = 1; w < nw; ++w) v += red[25 * w + threadIdx.x];
+      fin[threadIdx.x] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 25; ++j) acc[j] = fin[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 25; ++j) out[j] = acc[j];
+}
+
+// rhs_node's function, evaluated by a warp (red null) or by the whole
+// block (red: mlp_coop's scratch) for one lane: every thread passes the
+// same y, yh, zh, tf and gets the same dy, z.
+template <typename T, int NNIN, bool SMEM>
+__device__ __forceinline__ void rhs_node_coop(const RodConsts<T>& rc,
+                                              const NetView<T, SMEM>& net,
+                                              const T* y, const T* yh,
+                                              const T* zh, const T* tf, T* dy,
+                                              T* z, T* red) {
+  rhs_node<T, 0>(rc, Mlp<T>{}, y, yh, zh, tf, dy, z);
+  T x[NNIN], out[25];
+  net_inputs<T, NNIN>(y, yh, z, zh, tf, x);
+  mlp_coop<T, NNIN, SMEM>(net, x, out, red);
+#pragma unroll
+  for (int i = 0; i < 19; ++i) dy[i] += out[i] + ldw<SMEM>(net.b2 + i);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) z[i] += out[19 + i] + ldw<SMEM>(net.b2 + 19 + i);
+}
+
+// One spatial step at node j with the right-hand side rhs(y, yh, zh, tf,
+// dy, z): y (19) advanced in place to node j+1, z (6) the strains at node
+// j. Euler, or RK4 with the linear history midpoints 0.5*(yh_j + yh_j+1)
+// formed here (knode.py:80-81).
+template <typename T, bool RK4, typename Rhs>
+__device__ __forceinline__ void node_step(const T ds, const Rhs& rhs, T* y,
+                                          const T* yh_j, const T* zh_j,
+                                          const T* tf, T* z) {
   T k1[19];
-  rhs_node<T, NNIN>(rc, mlp, y, yh_j, zh_j, tf, k1, z);
+  rhs(y, yh_j, zh_j, tf, k1, z);
   if constexpr (!RK4) {
 #pragma unroll
     for (int i = 0; i < 19; ++i) y[i] += ds * k1[i];
@@ -307,23 +481,36 @@ __device__ __forceinline__ void node_update(const RodConsts<T>& rc,
     for (int i = 0; i < 6; ++i) zhm[i] = T(0.5) * (zh_j[i] + zh_j1[i]);
 #pragma unroll
     for (int i = 0; i < 19; ++i) yt[i] = y[i] + k1[i] * (ds / T(2));
-    rhs_node<T, NNIN>(rc, mlp, yt, yhm, zhm, tf, k, zd);          // k2
+    rhs(yt, yhm, zhm, tf, k, zd);                                 // k2
 #pragma unroll
     for (int i = 0; i < 19; ++i) {
       acc[i] = k[i];
       yt[i] = y[i] + k[i] * (ds / T(2));
     }
-    rhs_node<T, NNIN>(rc, mlp, yt, yhm, zhm, tf, k, zd);          // k3
+    rhs(yt, yhm, zhm, tf, k, zd);                                 // k3
 #pragma unroll
     for (int i = 0; i < 19; ++i) {
       acc[i] += k[i];
       yt[i] = y[i] + k[i] * ds;
     }
-    rhs_node<T, NNIN>(rc, mlp, yt, yh_j1, zh_j1, tf, k, zd);      // k4
+    rhs(yt, yh_j1, zh_j1, tf, k, zd);                             // k4
 #pragma unroll
     for (int i = 0; i < 19; ++i)
       y[i] += ds * (k1[i] + T(2) * acc[i] + k[i]) / T(6);
   }
+}
+
+// node_step over the one-thread body.
+template <typename T, int NNIN, bool RK4>
+__device__ __forceinline__ void node_update(const RodConsts<T>& rc,
+                                            const Mlp<T>& mlp, T* y,
+                                            const T* yh_j, const T* zh_j,
+                                            const T* tf, T* z) {
+  node_step<T, RK4>(
+      rc.ds,
+      [&](const T* a, const T* ah, const T* azh, const T* atf, T* dy,
+          T* az) { rhs_node<T, NNIN>(rc, mlp, a, ah, azh, atf, dy, az); },
+      y, yh_j, zh_j, tf, z);
 }
 
 // Base node y0 = [p0, h0, G, q0, w0] (cosserat_ode.py:194).
@@ -351,4 +538,48 @@ __device__ __forceinline__ void tip_residual(const RodConsts<T>& rc,
     r[i] = rc.F_tip[i] - y[7 + i];
     r[3 + i] = rc.M_tip[i] - y[10 + i];
   }
+}
+
+// One lane's base-to-tip sweep from base reaction G (6): the tip residual
+// r and, where yo is not null, the rod, y (N, 19) to yo and z (N-1, 6) to
+// zo, written by the thread with `writer` set. NNIN > 0: the calling
+// warp's 32 threads (red null) or the whole block (red: mlp_coop's
+// scratch) run it together (rhs_node_coop), each with the same arguments;
+// NNIN == 0: one thread (rhs_node).
+template <typename T, int NNIN, bool RK4, bool SMEM>
+__device__ __forceinline__ void sweep_lane(const RodConsts<T>& rc,
+                                           const NetView<T, SMEM>& net,
+                                           int N, const T* G, const T* yhb,
+                                           const T* zhb, const T* tf, T* r,
+                                           T* yo, T* zo, bool writer,
+                                           T* red) {
+  T y[19], z[6];
+  base_node(rc, G, y);
+  if (yo && writer) {
+#pragma unroll
+    for (int i = 0; i < 19; ++i) yo[i] = y[i];
+  }
+  for (int j = 0; j < N - 1; ++j) {
+    const T* yh_j = yhb + 19 * j;
+    const T* zh_j = zhb + 6 * j;
+    if constexpr (NNIN > 0) {
+      node_step<T, RK4>(
+          rc.ds,
+          [&](const T* a, const T* ah, const T* azh, const T* atf, T* dy,
+              T* az) {
+            rhs_node_coop<T, NNIN, SMEM>(rc, net, a, ah, azh, atf, dy, az,
+                                         red);
+          },
+          y, yh_j, zh_j, tf, z);
+    } else {
+      node_update<T, 0, RK4>(rc, Mlp<T>{}, y, yh_j, zh_j, tf, z);
+    }
+    if (yo && writer) {
+#pragma unroll
+      for (int i = 0; i < 19; ++i) yo[19 * (j + 1) + i] = y[i];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) zo[6 * j + i] = z[i];
+    }
+  }
+  tip_residual(rc, y, r);
 }

@@ -1,5 +1,5 @@
 // K2: one BDF-2 step's whole damped-Newton shooting solve per launch, one
-// thread per rod.
+// block per rod (hybrid net) or per STEP_PHYS_RODS rods (physics only).
 //
 // Replaces knode_cosserat_tpu/ops/pallas_step.py::make_step_kernel. Plain
 // version: knode_cosserat_tpu_torch/ops/step.py::step_reference (the
@@ -22,36 +22,56 @@
 //
 // What the TPU kernel needed and this one drops: pre-stalled pad lanes,
 // the f32-carried fails/found masks, 8-row padding of the node slabs, and
-// running every line-search candidate (stopping at the first improving
-// alpha gives the same G). Each rod loops on its own, so `iters` is each
-// rod's own iteration count (the TPU wrote one count per block of rods).
+// running every line-search candidate. Each rod loops on its own, so
+// `iters` is each rod's own iteration count (the TPU wrote one count per
+// block of rods).
 //
-// Where the H100 bounds it: a Newton iteration is 6 probe sweeps plus up
-// to n_alphas candidate sweeps, each (N-1) K1 calls; with the hybrid net
-// at hidden 512 that is ~54 kflop per K1 call, ~9 nodes x (6 + <=7) sweeps
-// per iteration, all a serial dependent chain in one thread (see
-// rhs_rows.cuh). 256 rods are 256 threads, ~0.1% of the card's 132 x 2048
-// resident-thread slots, so the step's latency is one thread's chain and
-// the card is almost entirely idle. This mapping is the first target for
-// later performance work: a warp per rod with the hidden dimension across
-// its lanes, and the 6 probes and the candidates of an iteration in
-// parallel (the probes are independent sweeps).
+// Mapping. A rod has STEP_LANES lanes; a lane is a warp over
+// rhs_node_coop with the net (the block, 7 warps, stages the rod's net
+// into shared memory once when it fits: ops/step.py::launch_plan), or a
+// thread without it. The solve runs as phases, each one sweep per busy
+// lane: the first residual; the 6 probes of an iteration together (lanes
+// 0-5, so the Jacobian's columns arrive at once); alpha = 1 alone, and
+// only if it does not improve the remaining candidates as one tile of up
+// to 7 (the smallest improving k is taken, which is the sequential rule's
+// pick; running every candidate at once was slower at batch 1, 40 and
+// 256, PERF.md); the recording sweep. With the net, a phase of one lane
+// runs it on the whole block (rhs_node_coop over 224 threads; 30% off a
+// step at batch 1 against one warp, PERF.md), a tile on one warp per
+// lane. Between phases a barrier, and one thread per rod (its leader) reads the lanes' residuals
+// from shared memory, solves the 6x6 (solve6), and moves the rod's state
+// machine (RodState: G, r, r2, lam, fails, it, the phase). Every thread
+// reads the phase after the barrier, so a rod's block takes one branch
+// and no barrier sits in divergent code.
+//
+// Where the H100 bounds it: with the net at hidden 512, a lane-node is
+// ~54 kflop whose every weight comes from shared memory (see
+// rhs_rows.cuh: ~860 cycles of the SM's shared-memory bandwidth per
+// lane-node, f32); a step is ~2 + 2-3 phases per iteration of N-1 nodes
+// each. At batch 1 the phases' latency sets the time, most of it the
+// probe phases (one warp per lane, 16 units per thread in a dependent
+// chain); at batch 256 the 256 blocks share the 132 SMs and the
+// shared-memory bandwidth bounds it. Physics only, a step is a few
+// hundred flops per lane-node: launch- and latency-bound.
 #include "rhs_rows.cuh"
 
-// Residual of the sweep from base reaction G (6), no recording. PER_ROD
-// gives the per-rod kernel its own copy: the shared-net kernel's copy then
-// only ever sees its net in the kernel's parameters, as before per-rod nets.
-template <typename T, int NNIN, bool RK4, bool PER_ROD>
-__device__ __noinline__ void sweep_res(const RodConsts<T>& rc,
-                                       const Mlp<T>& mlp, int N, const T* G,
-                                       const T* yhb, const T* zhb,
-                                       const T* tf, T* r) {
-  T y[19], z[6];
-  base_node(rc, G, y);
-  for (int j = 0; j < N - 1; ++j)
-    node_update<T, NNIN, RK4>(rc, mlp, y, yhb + 19 * j, zhb + 6 * j, tf, z);
-  tip_residual(rc, y, r);
-}
+constexpr int STEP_LANES = 7;      // lanes per rod
+constexpr int STEP_PHYS_RODS = 4;  // rods per block without the net
+
+enum Phase { PH_FIRST = 0, PH_PROBE, PH_ALPHA, PH_RECORD, PH_DONE };
+
+// One rod's solver in shared memory. Its size enters the launch plan
+// (ops/step.py::_STATE_BYTES).
+template <typename T>
+struct RodState {
+  T G[6], r[6], dG[6], h[6];
+  T cG[STEP_LANES][6], cr[STEP_LANES][6];   // the lanes' G and residual
+  T red[STEP_LANES + 1][25];                // mlp_coop's block scratch
+  T r2, lam;
+  int phase, it, fails, k0, count, pad_;    // count lanes run alpha k0+l
+};
+static_assert(sizeof(RodState<float>) == 1264, "ops/step.py::_STATE_BYTES");
+static_assert(sizeof(RodState<double>) == 2504, "ops/step.py::_STATE_BYTES");
 
 template <typename T>
 __device__ __forceinline__ T sumsq6(const T* r) {
@@ -109,167 +129,258 @@ struct NewtonArgs {
   int max_iter, n_alphas, max_escalations;
 };
 
-// PER_ROD: rod b runs the b-th net of the stack (a copy of the net's
-// pointers advanced to it); otherwise every rod reads the one net straight
-// from the kernel's parameter.
-template <typename T, int NNIN, bool RK4, bool PER_ROD>
-__global__ void step_kernel(const RodConsts<T> rc, const Mlp<T> mlp_arg,
-                            const NewtonArgs na, int B, int N,
-                            const T* __restrict__ G_in,
-                            const T* __restrict__ yh,
-                            const T* __restrict__ zh,
-                            const T* __restrict__ tf, T* __restrict__ G_out,
-                            T* __restrict__ y_out, T* __restrict__ z_out,
-                            T* __restrict__ r2_out, int* __restrict__ iters) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  Mlp<T> own;
-  if constexpr (PER_ROD) {
-    const size_t h = (size_t)mlp_arg.hidden;
-    own = mlp_arg;
-    own.W1 += b * h * NNIN;
-    own.b1 += b * h;
-    own.W2 += b * h * 25;
-    own.b2 += (size_t)b * 25;
-  }
-  const Mlp<T>& mlp = PER_ROD ? own : mlp_arg;
-  const T* yhb = yh + (size_t)b * N * 19;
-  const T* zhb = zh + (size_t)b * N * 6;
-  const T tfb[3] = {tf[3 * b], tf[3 * b + 1], tf[3 * b + 2]};
-  const T tol = T(na.tol), eps0 = T(na.eps0);
-  const T lam0 = T(na.lm_lambda0), growth = T(na.lm_growth);
+// The next iteration, or the recording sweep when the rod has stopped.
+template <typename T>
+__device__ __forceinline__ void next_iteration(RodState<T>& S,
+                                               const NewtonArgs& na) {
+  S.phase = (S.it < na.max_iter && S.r2 > T(na.tol) &&
+             S.fails <= na.max_escalations)
+                ? PH_PROBE
+                : PH_RECORD;
+}
 
-  T G[6], r[6];
+// The rod's leader, after a phase's sweeps: read the lanes' residuals and
+// move the solver on.
+template <typename T>
+__device__ void advance(RodState<T>& S, const NewtonArgs& na, int b,
+                        T* __restrict__ G_out, T* __restrict__ r2_out,
+                        int* __restrict__ iters) {
+  switch (S.phase) {
+    case PH_FIRST: {
 #pragma unroll
-  for (int i = 0; i < 6; ++i) G[i] = G_in[6 * (size_t)b + i];
-  sweep_res<T, NNIN, RK4, PER_ROD>(rc, mlp, N, G, yhb, zhb, tfb, r);
-  T r2 = sumsq6(r);
-  T lam = T(0);
-  int fails = 0, it = 0;
-
-  while (it < na.max_iter && r2 > tol && fails <= na.max_escalations) {
-    // forward-difference Jacobian: 6 probe sweeps (unrolled: six calls of
-    // the out-of-line sweep, and J's indices stay compile-time constants)
-    T J[36];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      T Gp[6], rp[6];
-#pragma unroll
-      for (int i = 0; i < 6; ++i) Gp[i] = G[i];
-      const T h = eps0 * (T(1) + m_abs(G[k]));
-      Gp[k] = G[k] + h;
-      sweep_res<T, NNIN, RK4, PER_ROD>(rc, mlp, N, Gp, yhb, zhb, tfb, rp);
-#pragma unroll
-      for (int i = 0; i < 6; ++i) J[6 * i + k] = (rp[i] - r[i]) / h;
+      for (int i = 0; i < 6; ++i) S.r[i] = S.cr[0][i];
+      S.r2 = sumsq6(S.r);
+      next_iteration(S, na);
+      break;
     }
+    case PH_PROBE: {
+      T J[36], rhs[6], dG[6];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      const T d = m_abs(J[7 * i]);
-      J[7 * i] += lam * (d > T(1) ? d : T(1));
+      for (int k = 0; k < 6; ++k) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+          J[6 * i + k] = (S.cr[k][i] - S.r[i]) / S.h[k];
+      }
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const T d = m_abs(J[7 * i]);
+        J[7 * i] += S.lam * (d > T(1) ? d : T(1));
+        rhs[i] = -S.r[i];
+      }
+      solve6(J, rhs, dG);
+      bool fin = true;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) fin = fin && finite_val(dG[i]);
+#pragma unroll
+      for (int i = 0; i < 6; ++i) S.dG[i] = fin ? dG[i] : T(0);
+      S.k0 = 0;
+      S.count = 1;     // alpha = 1 alone, then the rest as one tile
+      S.phase = PH_ALPHA;
+      if (na.n_alphas > 0) break;
+      S.count = 0;     // no candidate at all: a stall
     }
-    T rhs[6], dG[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) rhs[i] = -r[i];
-    solve6(J, rhs, dG);
-    bool fin = true;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) fin = fin && finite_val(dG[i]);
-    if (!fin) {
-#pragma unroll
-      for (int i = 0; i < 6; ++i) dG[i] = T(0);
-    }
-
-    // backtracking line search: the first improving alpha = 0.5**k
-    bool found = false;
-#pragma unroll 1
-    for (int k = 0; k < na.n_alphas && !found; ++k) {
-      const T a = T(1) / T(1ll << k);
-      T Gc[6], rc_[6];
-#pragma unroll
-      for (int i = 0; i < 6; ++i) Gc[i] = G[i] + a * dG[i];
-      sweep_res<T, NNIN, RK4, PER_ROD>(rc, mlp, N, Gc, yhb, zhb, tfb, rc_);
-      const T r2c = sumsq6(rc_);
-      if (r2c < r2) {
-        found = true;
-        r2 = r2c;
+    // fall through
+    case PH_ALPHA: {
+      int pick = -1;
+      T r2c = T(0);
+      for (int l = 0; l < S.count && pick < 0; ++l) {
+        r2c = sumsq6(S.cr[l]);
+        if (r2c < S.r2) pick = l;
+      }
+      if (pick >= 0) {
 #pragma unroll
         for (int i = 0; i < 6; ++i) {
-          G[i] = Gc[i];
-          r[i] = rc_[i];
+          S.G[i] = S.cG[pick][i];
+          S.r[i] = S.cr[pick][i];
+        }
+        S.r2 = r2c;
+        S.lam = T(0);
+        S.fails = 0;
+      } else if (S.k0 + S.count < na.n_alphas) {
+        S.k0 += S.count;       // the next tile of candidates
+        S.count = min(STEP_LANES, na.n_alphas - S.k0);
+        break;
+      } else {                 // no improving alpha: hold G, escalate
+        const T l = S.lam * T(na.lm_growth);
+        S.lam = l > T(na.lm_lambda0) ? l : T(na.lm_lambda0);
+        ++S.fails;
+      }
+      ++S.it;
+      next_iteration(S, na);
+      break;
+    }
+    case PH_RECORD: {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) G_out[6 * (size_t)b + i] = S.G[i];
+      r2_out[b] = S.r2;
+      iters[b] = S.it;
+      S.phase = PH_DONE;
+      break;
+    }
+    default:
+      break;
+  }
+}
+
+template <int NNIN>
+constexpr int step_threads() {
+  return NNIN ? STEP_LANES * WARP : STEP_LANES * STEP_PHYS_RODS;
+}
+
+// Thread t: rod (t / (STEP_LANES * GS)) of the block, lane (t / GS) %
+// STEP_LANES, GS threads per lane. The lane's first thread writes its
+// results; lane 0's first thread is the rod's leader.
+template <typename T, int NNIN, bool RK4, bool SMEM>
+__global__ void __launch_bounds__(step_threads<NNIN>())
+    step_kernel(const RodConsts<T> rc, const Mlp<T> mlp_arg,
+                const NewtonArgs na, int B, int N, int per_rod,
+                size_t w_bytes, const T* __restrict__ G_in,
+                const T* __restrict__ yh, const T* __restrict__ zh,
+                const T* __restrict__ tf, T* __restrict__ G_out,
+                T* __restrict__ y_out, T* __restrict__ z_out,
+                T* __restrict__ r2_out, int* __restrict__ iters) {
+  constexpr int GS = NNIN ? WARP : 1;
+  constexpr int RPB = NNIN ? 1 : STEP_PHYS_RODS;
+  extern __shared__ double smem_d[];
+  NetView<T, SMEM> net{};
+  if constexpr (NNIN > 0) {
+    Mlp<T> m = mlp_arg;
+    if (per_rod) {           // block b runs net b of the stack
+      const size_t h = (size_t)m.hidden, b = blockIdx.x;
+      m.W1 += b * h * NNIN;
+      m.b1 += b * h;
+      m.W2 += b * h * 25;
+      m.b2 += b * 25;
+    }
+    net = net_view<T, NNIN, SMEM>(m, (T*)smem_d);
+  }
+  RodState<T>* states =
+      reinterpret_cast<RodState<T>*>((unsigned char*)smem_d + w_bytes);
+
+  const int t = threadIdx.x;
+  const int lane = (t / GS) % STEP_LANES;
+  const bool writer = t % GS == 0;
+  const bool leader = writer && lane == 0;
+  const int b = blockIdx.x * RPB + t / (STEP_LANES * GS);
+  const bool live = b < B;
+  RodState<T>& S = states[t / (STEP_LANES * GS)];
+  const size_t bb = live ? b : 0;
+  const T* yhb = yh + bb * N * 19;
+  const T* zhb = zh + bb * N * 6;
+  const T tfb[3] = {tf[3 * bb], tf[3 * bb + 1], tf[3 * bb + 2]};
+  if (leader && live) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) S.G[i] = G_in[6 * bb + i];
+    S.lam = T(0);
+    S.phase = PH_FIRST;
+    S.it = S.fails = S.k0 = 0;
+    S.count = 1;
+  }
+  __syncthreads();
+  const T eps0 = T(na.eps0);
+
+  for (;;) {
+    // the lanes' sweeps of this phase (each rod's lanes read its phase).
+    // With the net, a phase of one busy lane runs it on the whole block.
+    if (live) {
+      const int ph = S.phase;
+      const bool wide = NNIN > 0 && (ph == PH_FIRST || ph == PH_RECORD ||
+                                     (ph == PH_ALPHA && S.count == 1));
+      const int l = wide ? 0 : lane;
+      const bool put = wide ? t == 0 : writer;
+      bool go = false;
+      T Gc[6];
+      if (ph == PH_FIRST || ph == PH_RECORD) {
+        go = l == 0;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) Gc[i] = S.G[i];
+      } else if (ph == PH_PROBE) {
+        go = l < 6;
+        if (go) {
+          const T h = eps0 * (T(1) + m_abs(S.G[l]));
+#pragma unroll
+          for (int i = 0; i < 6; ++i) Gc[i] = i == l ? S.G[i] + h : S.G[i];
+          if (put) S.h[l] = h;
+        }
+      } else if (ph == PH_ALPHA) {
+        go = l < S.count;
+        if (go) {
+          const T a = T(1) / T(1ll << (S.k0 + l));
+#pragma unroll
+          for (int i = 0; i < 6; ++i) Gc[i] = S.G[i] + a * S.dG[i];
+        }
+      }
+      if (go) {
+        const bool rec = ph == PH_RECORD;
+        T r[6];
+        sweep_lane<T, NNIN, RK4, SMEM>(
+            rc, net, N, Gc, yhb, zhb, tfb, r,
+            rec ? y_out + bb * N * 19 : nullptr,
+            rec ? z_out + bb * (N - 1) * 6 : nullptr, put,
+            wide ? &S.red[0][0] : nullptr);
+        if (put) {
+#pragma unroll
+          for (int i = 0; i < 6; ++i) {
+            S.cG[l][i] = Gc[i];
+            S.cr[l][i] = r[i];
+          }
         }
       }
     }
-    // no improving alpha: hold G and escalate lambda; success resets it
-    if (found) {
-      lam = T(0);
-      fails = 0;
-    } else {
-      const T l = lam * growth;
-      lam = l > lam0 ? l : lam0;
-      ++fails;
-    }
-    ++it;
+    __syncthreads();
+    if (leader && live) advance(S, na, b, G_out, r2_out, iters);
+    // the leaders' own word on whether their rods go on (another
+    // thread could still see the phase before this advance)
+    if (!__syncthreads_or(leader && live && S.phase != PH_DONE)) break;
   }
-
-  // final recording sweep at the solved G
-  T y[19], z[6];
-  base_node(rc, G, y);
-  T* yo = y_out + (size_t)b * N * 19;
-  T* zo = z_out + (size_t)b * (N - 1) * 6;
-#pragma unroll
-  for (int i = 0; i < 19; ++i) yo[i] = y[i];
-  for (int j = 0; j < N - 1; ++j) {
-    node_update<T, NNIN, RK4>(rc, mlp, y, yhb + 19 * j, zhb + 6 * j, tfb, z);
-#pragma unroll
-    for (int i = 0; i < 19; ++i) yo[19 * (j + 1) + i] = y[i];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) zo[6 * j + i] = z[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) G_out[6 * (size_t)b + i] = G[i];
-  r2_out[b] = r2;
-  iters[b] = it;
 }
 
 template <typename T, int NNIN, bool RK4>
-static void launch(const RodConstsHost* h, const NewtonArgs& na,
-                   const void* W1, const void* b1, const void* W2,
-                   const void* b2, int hidden, int act, int per_rod, int B,
-                   int N, const void* G, const void* yh, const void* zh,
-                   const void* tf, void* G_out, void* y, void* z, void* r2,
-                   void* iters, int block, cudaStream_t stream) {
-  const Mlp<T> mlp{(const T*)W1, (const T*)b1, (const T*)W2, (const T*)b2,
-                   hidden, act};
-  const int grid = (B + block - 1) / block;
-  const RodConsts<T> rc = cast_consts<T>(*h);
-  if constexpr (NNIN != 0) {
-    if (per_rod) {
-      step_kernel<T, NNIN, RK4, true><<<grid, block, 0, stream>>>(
-          rc, mlp, na, B, N, (const T*)G, (const T*)yh, (const T*)zh,
-          (const T*)tf, (T*)G_out, (T*)y, (T*)z, (T*)r2, (int*)iters);
-      return;
+static int launch(const RodConstsHost* h, const NewtonArgs& na,
+                  const Mlp<T>& mlp, int per_rod, int B, int N, const void* G,
+                  const void* yh, const void* zh, const void* tf,
+                  void* G_out, void* y, void* z, void* r2, void* iters,
+                  int threads, int smem, int staged, cudaStream_t stream) {
+  constexpr int RPB = NNIN ? 1 : STEP_PHYS_RODS;
+  const size_t w_bytes = staged ? net_smem_bytes<T>(NNIN, mlp.hidden) : 0;
+  if (threads != step_threads<NNIN>() || (staged && !NNIN) ||
+      (size_t)smem != w_bytes + RPB * sizeof(RodState<T>))
+    return (int)cudaErrorInvalidValue;
+  void (*kern)(const RodConsts<T>, const Mlp<T>, const NewtonArgs, int, int,
+               int, size_t, const T*, const T*, const T*, const T*, T*, T*,
+               T*, T*, int*) = step_kernel<T, NNIN, RK4, false>;
+  if constexpr (NNIN > 0) {
+    if (staged) kern = step_kernel<T, NNIN, RK4, true>;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();   // the error is returned, not left behind
+      return (int)e;
     }
   }
-  step_kernel<T, NNIN, RK4, false><<<grid, block, 0, stream>>>(
-      rc, mlp, na, B, N, (const T*)G, (const T*)yh, (const T*)zh,
-      (const T*)tf, (T*)G_out, (T*)y, (T*)z, (T*)r2, (int*)iters);
+  const int grid = (B + RPB - 1) / RPB;
+  kern<<<grid, threads, smem, stream>>>(
+      cast_consts<T>(*h), mlp, na, B, N, per_rod, w_bytes, (const T*)G,
+      (const T*)yh, (const T*)zh, (const T*)tf, (T*)G_out, (T*)y, (T*)z,
+      (T*)r2, (int*)iters);
+  return 0;
 }
 
 template <typename T, int NNIN>
-static void launch_m(int rk4, const RodConstsHost* h, const NewtonArgs& na,
-                     const void* W1, const void* b1, const void* W2,
-                     const void* b2, int hidden, int act, int per_rod, int B,
-                     int N, const void* G, const void* yh, const void* zh,
-                     const void* tf, void* G_out, void* y, void* z, void* r2,
-                     void* iters, int block, cudaStream_t stream) {
-  if (rk4)
-    launch<T, NNIN, true>(h, na, W1, b1, W2, b2, hidden, act, per_rod, B, N,
-                          G, yh, zh, tf, G_out, y, z, r2, iters, block,
-                          stream);
-  else
-    launch<T, NNIN, false>(h, na, W1, b1, W2, b2, hidden, act, per_rod, B, N,
-                           G, yh, zh, tf, G_out, y, z, r2, iters, block,
-                           stream);
+static int launch_m(int rk4, const RodConstsHost* h, const NewtonArgs& na,
+                    const Mlp<T>& mlp, int per_rod, int B, int N,
+                    const void* G, const void* yh, const void* zh,
+                    const void* tf, void* G_out, void* y, void* z, void* r2,
+                    void* iters, int threads, int smem, int staged,
+                    cudaStream_t stream) {
+  return rk4 ? launch<T, NNIN, true>(h, na, mlp, per_rod, B, N, G, yh, zh,
+                                     tf, G_out, y, z, r2, iters, threads,
+                                     smem, staged, stream)
+             : launch<T, NNIN, false>(h, na, mlp, per_rod, B, N, G, yh, zh,
+                                      tf, G_out, y, z, r2, iters, threads,
+                                      smem, staged, stream);
 }
 
 template <typename T>
@@ -278,29 +389,31 @@ static int launch_t(int nn_in, int rk4, const RodConstsHost* h,
                     const void* W2, const void* b2, int hidden, int act,
                     int per_rod, int B, int N, const void* G, const void* yh,
                     const void* zh, const void* tf, void* G_out, void* y,
-                    void* z, void* r2, void* iters, int block,
-                    cudaStream_t stream) {
+                    void* z, void* r2, void* iters, int threads, int smem,
+                    int staged, cudaStream_t stream) {
+  const Mlp<T> mlp{(const T*)W1, (const T*)b1, (const T*)W2, (const T*)b2,
+                   hidden, act};
   switch (nn_in) {
     case 0:
-      launch_m<T, 0>(rk4, h, na, W1, b1, W2, b2, hidden, act, per_rod, B, N, G,
-                     yh, zh, tf, G_out, y, z, r2, iters, block, stream);
-      return 0;
+      return launch_m<T, 0>(rk4, h, na, mlp, 0, B, N, G, yh, zh, tf, G_out,
+                            y, z, r2, iters, threads, smem, staged, stream);
     case 28:
-      launch_m<T, 28>(rk4, h, na, W1, b1, W2, b2, hidden, act, per_rod, B, N,
-                      G, yh, zh, tf, G_out, y, z, r2, iters, block, stream);
-      return 0;
+      return launch_m<T, 28>(rk4, h, na, mlp, per_rod, B, N, G, yh, zh, tf,
+                             G_out, y, z, r2, iters, threads, smem, staged,
+                             stream);
     case 53:
-      launch_m<T, 53>(rk4, h, na, W1, b1, W2, b2, hidden, act, per_rod, B, N,
-                      G, yh, zh, tf, G_out, y, z, r2, iters, block, stream);
-      return 0;
+      return launch_m<T, 53>(rk4, h, na, mlp, per_rod, B, N, G, yh, zh, tf,
+                             G_out, y, z, r2, iters, threads, smem, staged,
+                             stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // C entry point (bound with ctypes in ops/_build.py). Pointers are device
-// pointers of contiguous tensors. Returns cudaGetLastError() after the
-// launch.
+// pointers of contiguous tensors. threads, smem and staged come from
+// ops/step.py::launch_plan and are checked against the kernel's own shape. Returns the first CUDA error of the shared-memory attribute
+// or the launch, 0 on success.
 extern "C" int knode_step(int is_f64, int nn_in, int act, int rk4, int B,
                           int N, const RodConstsHost* consts, double tol,
                           double eps0, int max_iter, int n_alphas,
@@ -309,9 +422,9 @@ extern "C" int knode_step(int is_f64, int nn_in, int act, int rk4, int B,
                           const void* zh, const void* tf, const void* W1,
                           const void* b1, const void* W2, const void* b2,
                           int hidden, int nn_per_rod, void* G_out, void* y,
-                          void* z, void* r2, void* iters, int block,
-                          void* stream) {
-  if (B <= 0 || N < 2 || block <= 0 || (nn_in && !W1) || n_alphas > 62 ||
+                          void* z, void* r2, void* iters, int threads,
+                          int smem, int staged, void* stream) {
+  if (B <= 0 || N < 2 || (nn_in && (!W1 || hidden <= 0)) || n_alphas > 62 ||
       (nn_per_rod && !nn_in))
     return (int)cudaErrorInvalidValue;
   const NewtonArgs na{tol, eps0, lm_lambda0, lm_growth, max_iter, n_alphas,
@@ -319,11 +432,12 @@ extern "C" int knode_step(int is_f64, int nn_in, int act, int rk4, int B,
   const int bad =
       is_f64 ? launch_t<double>(nn_in, rk4, consts, na, W1, b1, W2, b2,
                                 hidden, act, nn_per_rod, B, N, G, yh, zh, tf,
-                                G_out, y, z, r2, iters, block,
+                                G_out, y, z, r2, iters, threads, smem, staged,
                                 (cudaStream_t)stream)
              : launch_t<float>(nn_in, rk4, consts, na, W1, b1, W2, b2, hidden,
                                act, nn_per_rod, B, N, G, yh, zh, tf, G_out, y,
-                               z, r2, iters, block, (cudaStream_t)stream);
+                               z, r2, iters, threads, smem, staged,
+                               (cudaStream_t)stream);
   if (bad) return bad;
   return (int)cudaGetLastError();
 }

@@ -6,85 +6,97 @@
 // over nodes, which existed for Mosaic compile time). Plain version:
 // knode_cosserat_tpu_torch/ops/sweep.py::sweep_reference.
 //
-// Design: one thread per lane, the 19-state in registers, a runtime loop
-// over the N-1 nodes calling K1 (rhs_rows.cuh). The rod is written
-// straight into y (B, N, 19) and z (B, N-1, 6): no padding rows.
+// Design: a runtime loop over the N-1 nodes of K1 (rhs_rows.cuh), the rod
+// written straight into y (B, N, 19) and z (B, N-1, 6), no padding rows.
+// With the hybrid net, one block per tile of SWEEP_WARPS lanes, one warp
+// per lane over rhs_node_coop: the block stages the net into shared
+// memory once (or reads it from global memory where it does not fit, as
+// ops/sweep.py::launch_plan decides), then each warp sweeps its lane with
+// no further barrier. Physics-only, one thread per lane.
 //
-// Where the H100 bounds it: per lane a sweep is (N-1) x (1 or 4) K1 calls;
-// physics-only that is ~300 flops per call on data that stays in
-// registers, reading 25 history values per node from device memory (a
-// strided, uncoalesced read per thread: neighbouring lanes are N*19 values
-// apart). With the MLP it is ~54 kflop per call at hidden 512, issue- and
-// load-latency bound in one thread (see rhs_rows.cuh). At the Newton
-// loop's sizes (256 rods x 6 probes or 7 candidates = 1,536-1,792 lanes) the
-// launch fills 48-56 warps of the card's 132 x 64: the card is mostly
-// idle, and the sweep's time is one thread's serial chain of K1 calls.
-// Later mappings: a warp per lane with the MLP's hidden units across its
-// threads, and a node-major history layout for coalesced reads.
+// Where the H100 bounds it: with the net, each lane-node reads the whole
+// net from shared memory once (one load per FMA: ~860 cycles of an SM's
+// shared-memory bandwidth per lane-node at hidden 512, f32), so the sweep
+// is bound by shared-memory bandwidth over the SMs the tiles fill, plus
+// one staging of the net per block. Physics-only, ~400 flops per node in
+// registers against 25 history values read per node (a strided read:
+// neighbouring lanes are N*19 values apart), latency-bound at the Newton
+// loop's sizes. Left for later: a node-major history layout for coalesced
+// reads, and more lanes per block to stage the net fewer times.
 #include "rhs_rows.cuh"
 
-template <typename T, int NNIN, bool RK4>
-__global__ void sweep_kernel(const RodConsts<T> rc, const Mlp<T> mlp, int B,
-                             int N, const T* __restrict__ G,
-                             const T* __restrict__ yh,
-                             const T* __restrict__ zh,
-                             const T* __restrict__ tf, T* __restrict__ res,
-                             T* __restrict__ y_out, T* __restrict__ z_out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+constexpr int SWEEP_WARPS = 8;   // lanes (warps) per block with the net
+
+// Lane b = blockIdx.x * lanes-per-block + (threadIdx.x / threads-per-lane).
+template <typename T, int NNIN, bool RK4, bool SMEM>
+__global__ void __launch_bounds__(NNIN ? SWEEP_WARPS * WARP : 32)
+    sweep_kernel(const RodConsts<T> rc, const Mlp<T> mlp, int B, int N,
+                 const T* __restrict__ G, const T* __restrict__ yh,
+                 const T* __restrict__ zh, const T* __restrict__ tf,
+                 T* __restrict__ res, T* __restrict__ y_out,
+                 T* __restrict__ z_out) {
+  constexpr int GS = NNIN ? WARP : 1;          // threads per lane
+  extern __shared__ double smem_d[];
+  NetView<T, SMEM> net{};
+  if constexpr (NNIN > 0) net = net_view<T, NNIN, SMEM>(mlp, (T*)smem_d);
+  const int b = blockIdx.x * (blockDim.x / GS) + threadIdx.x / GS;
   if (b >= B) return;
-  const T* yhb = yh + (size_t)b * N * 19;
-  const T* zhb = zh + (size_t)b * N * 6;
-  T tfb[3] = {tf[3 * b], tf[3 * b + 1], tf[3 * b + 2]};
-  T y[19], z[6];
-  base_node(rc, G + 6 * (size_t)b, y);
-  if (y_out) {
+  const bool writer = threadIdx.x % GS == 0;
+  const T tfb[3] = {tf[3 * b], tf[3 * b + 1], tf[3 * b + 2]};
+  T Gb[6], r[6];
 #pragma unroll
-    for (int i = 0; i < 19; ++i) y_out[(size_t)b * N * 19 + i] = y[i];
+  for (int i = 0; i < 6; ++i) Gb[i] = G[6 * (size_t)b + i];
+  sweep_lane<T, NNIN, RK4, SMEM>(
+      rc, net, N, Gb, yh + (size_t)b * N * 19, zh + (size_t)b * N * 6, tfb,
+      r, y_out ? y_out + (size_t)b * N * 19 : nullptr,
+      z_out ? z_out + (size_t)b * (N - 1) * 6 : nullptr, writer, nullptr);
+  if (writer) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) res[6 * (size_t)b + i] = r[i];
   }
-  for (int j = 0; j < N - 1; ++j) {
-    node_update<T, NNIN, RK4>(rc, mlp, y, yhb + 19 * j, zhb + 6 * j, tfb, z);
-    if (y_out) {
-      T* yo = y_out + ((size_t)b * N + j + 1) * 19;
-      T* zo = z_out + ((size_t)b * (N - 1) + j) * 6;
-#pragma unroll
-      for (int i = 0; i < 19; ++i) yo[i] = y[i];
-#pragma unroll
-      for (int i = 0; i < 6; ++i) zo[i] = z[i];
-    }
-  }
-  T r[6];
-  tip_residual(rc, y, r);
-#pragma unroll
-  for (int i = 0; i < 6; ++i) res[6 * (size_t)b + i] = r[i];
 }
 
 template <typename T, int NNIN, bool RK4>
-static void launch(const RodConstsHost* h, const void* W1, const void* b1,
-                   const void* W2, const void* b2, int hidden, int act, int B,
-                   int N, const void* G, const void* yh, const void* zh,
-                   const void* tf, void* res, void* y, void* z, int block,
-                   cudaStream_t stream) {
-  const Mlp<T> mlp{(const T*)W1, (const T*)b1, (const T*)W2, (const T*)b2,
-                   hidden, act};
-  const int grid = (B + block - 1) / block;
-  sweep_kernel<T, NNIN, RK4><<<grid, block, 0, stream>>>(
+static int launch(const RodConstsHost* h, const Mlp<T>& mlp, int B, int N,
+                  const void* G, const void* yh, const void* zh,
+                  const void* tf, void* res, void* y, void* z, int threads,
+                  int smem, int staged, cudaStream_t stream) {
+  constexpr int want = NNIN ? SWEEP_WARPS * WARP : 32;
+  const int lanes = NNIN ? SWEEP_WARPS : threads;
+  const size_t need = staged ? net_smem_bytes<T>(NNIN, mlp.hidden) : 0;
+  if (threads != want || (size_t)smem != need || (staged && !NNIN))
+    return (int)cudaErrorInvalidValue;
+  void (*kern)(const RodConsts<T>, const Mlp<T>, int, int, const T*,
+               const T*, const T*, const T*, T*, T*, T*) =
+      sweep_kernel<T, NNIN, RK4, false>;
+  if constexpr (NNIN > 0) {
+    if (staged) kern = sweep_kernel<T, NNIN, RK4, true>;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();   // the error is returned, not left behind
+      return (int)e;
+    }
+  }
+  const int grid = (B + lanes - 1) / lanes;
+  kern<<<grid, threads, smem, stream>>>(
       cast_consts<T>(*h), mlp, B, N, (const T*)G, (const T*)yh,
       (const T*)zh, (const T*)tf, (T*)res, (T*)y, (T*)z);
+  return 0;
 }
 
 template <typename T, int NNIN>
-static void launch_m(int rk4, const RodConstsHost* h, const void* W1,
-                     const void* b1, const void* W2, const void* b2,
-                     int hidden, int act, int B, int N, const void* G,
-                     const void* yh, const void* zh, const void* tf,
-                     void* res, void* y, void* z, int block,
-                     cudaStream_t stream) {
-  if (rk4)
-    launch<T, NNIN, true>(h, W1, b1, W2, b2, hidden, act, B, N, G, yh, zh,
-                          tf, res, y, z, block, stream);
-  else
-    launch<T, NNIN, false>(h, W1, b1, W2, b2, hidden, act, B, N, G, yh, zh,
-                           tf, res, y, z, block, stream);
+static int launch_m(int rk4, const RodConstsHost* h, const Mlp<T>& mlp,
+                    int B, int N, const void* G, const void* yh,
+                    const void* zh, const void* tf, void* res, void* y,
+                    void* z, int threads, int smem, int staged,
+                    cudaStream_t stream) {
+  return rk4 ? launch<T, NNIN, true>(h, mlp, B, N, G, yh, zh, tf, res, y, z,
+                                     threads, smem, staged, stream)
+             : launch<T, NNIN, false>(h, mlp, B, N, G, yh, zh, tf, res, y, z,
+                                      threads, smem, staged, stream);
 }
 
 template <typename T>
@@ -92,21 +104,20 @@ static int launch_t(int nn_in, int rk4, const RodConstsHost* h,
                     const void* W1, const void* b1, const void* W2,
                     const void* b2, int hidden, int act, int B, int N,
                     const void* G, const void* yh, const void* zh,
-                    const void* tf, void* res, void* y, void* z, int block,
-                    cudaStream_t stream) {
+                    const void* tf, void* res, void* y, void* z, int threads,
+                    int smem, int staged, cudaStream_t stream) {
+  const Mlp<T> mlp{(const T*)W1, (const T*)b1, (const T*)W2, (const T*)b2,
+                   hidden, act};
   switch (nn_in) {
     case 0:
-      launch_m<T, 0>(rk4, h, W1, b1, W2, b2, hidden, act, B, N, G, yh, zh,
-                     tf, res, y, z, block, stream);
-      return 0;
+      return launch_m<T, 0>(rk4, h, mlp, B, N, G, yh, zh, tf, res, y, z,
+                            threads, smem, staged, stream);
     case 28:
-      launch_m<T, 28>(rk4, h, W1, b1, W2, b2, hidden, act, B, N, G, yh, zh,
-                      tf, res, y, z, block, stream);
-      return 0;
+      return launch_m<T, 28>(rk4, h, mlp, B, N, G, yh, zh, tf, res, y, z,
+                             threads, smem, staged, stream);
     case 53:
-      launch_m<T, 53>(rk4, h, W1, b1, W2, b2, hidden, act, B, N, G, yh, zh,
-                      tf, res, y, z, block, stream);
-      return 0;
+      return launch_m<T, 53>(rk4, h, mlp, B, N, G, yh, zh, tf, res, y, z,
+                             threads, smem, staged, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -114,22 +125,26 @@ static int launch_t(int nn_in, int rk4, const RodConstsHost* h,
 
 // C entry point (bound with ctypes in ops/_build.py). Pointers are device
 // pointers of contiguous tensors; y and z may be null (residual only).
-// Returns cudaGetLastError() after the launch.
+// threads, smem and staged come from ops/sweep.py::launch_plan and are
+// checked against the kernel's own shape. Returns the first CUDA error of
+// the shared-memory attribute or the launch, 0 on success.
 extern "C" int knode_sweep(int is_f64, int nn_in, int act, int rk4, int B,
                            int N, const RodConstsHost* consts, const void* G,
                            const void* yh, const void* zh, const void* tf,
                            const void* W1, const void* b1, const void* W2,
                            const void* b2, int hidden, void* res, void* y,
-                           void* z, int block, void* stream) {
-  if (B <= 0 || N < 2 || block <= 0 || (nn_in && !W1) || (y != nullptr) != (z != nullptr))
+                           void* z, int threads, int smem, int staged,
+                           void* stream) {
+  if (B <= 0 || N < 2 || (nn_in && (!W1 || hidden <= 0)) ||
+      (y != nullptr) != (z != nullptr))
     return (int)cudaErrorInvalidValue;
   const int bad =
       is_f64 ? launch_t<double>(nn_in, rk4, consts, W1, b1, W2, b2, hidden,
-                                act, B, N, G, yh, zh, tf, res, y, z, block,
-                                (cudaStream_t)stream)
+                                act, B, N, G, yh, zh, tf, res, y, z, threads,
+                                smem, staged, (cudaStream_t)stream)
              : launch_t<float>(nn_in, rk4, consts, W1, b1, W2, b2, hidden,
-                               act, B, N, G, yh, zh, tf, res, y, z, block,
-                               (cudaStream_t)stream);
+                               act, B, N, G, yh, zh, tf, res, y, z, threads,
+                               smem, staged, (cudaStream_t)stream);
   if (bad) return bad;
   return (int)cudaGetLastError();
 }

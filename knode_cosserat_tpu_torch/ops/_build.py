@@ -192,18 +192,19 @@ def _declare(k: _Kernels):
     k.knode_step = k.step.knode_step
     k.knode_train = k.train.knode_train
     # knode_sweep(is_f64, nn_in, act, rk4, B, N, consts, G, yh, zh, tf,
-    #             W1, b1, W2, b2, hidden, res, y, z, block, stream)
+    #             W1, b1, W2, b2, hidden, res, y, z, threads, smem, staged,
+    #             stream)
     k.knode_sweep.argtypes = [I, I, I, I, I, I, consts, P, P, P, P,
-                                P, P, P, P, I, P, P, P, I, P]
+                                P, P, P, P, I, P, P, P, I, I, I, P]
     k.knode_sweep.restype = I
     # knode_step(is_f64, nn_in, act, rk4, B, N, consts, tol, eps0, max_iter,
     #            n_alphas, lm_lambda0, lm_growth, max_escalations,
     #            G, yh, zh, tf, W1, b1, W2, b2, hidden, nn_per_rod,
-    #            G_out, y, z, r2, iters, block, stream)
+    #            G_out, y, z, r2, iters, threads, smem, staged, stream)
     k.knode_step.argtypes = [I, I, I, I, I, I, consts, D, D, I,
                                I, D, D, I,
                                P, P, P, P, P, P, P, P, I, I,
-                               P, P, P, P, P, I, P]
+                               P, P, P, P, P, I, I, I, P]
     k.knode_step.restype = I
     # knode_train(args, threads, stream)
     k.knode_train.argtypes = [ctypes.POINTER(TrainArgs), I, P]

@@ -20,15 +20,19 @@ count per block of rods); compare it only through its maximum.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ..core.params import RodParams
 from ..models.mlp import MLPSpec
-from .sweep import (check_inputs, check_spec, raise_on, rod_consts,
-                    stream_of, sweep_reference, weight_args)
+from . import sweep as _sweep
+from .sweep import (WARP, check_inputs, check_spec, net_smem_bytes,
+                    raise_on, rod_consts, stream_of, sweep_reference,
+                    weight_args)
 
-__all__ = ["make_step_kernel", "step_reference", "LAUNCHES"]
+__all__ = ["make_step_kernel", "step_reference", "launch_plan", "StepPlan",
+           "LAUNCHES"]
 
 # Levenberg-Marquardt stall escalation: lambda starts at 1e-4, grows x30
 # per consecutive failed line search, and a rod stops after 4 failures.
@@ -41,7 +45,40 @@ _MAX_ESCALATIONS = 4
 #: K2 launches made by this module's wrapper since the count was last reset
 LAUNCHES = 0
 
-_BLOCK = 32     # threads per block: one rod per thread
+_LANES = 7          # lanes per rod: the 6 probes, or a tile of candidates
+_PHYS_RODS = 4      # rods per block without the net (one thread per lane)
+# sizeof(RodState<T>) in csrc/step.cu: one rod's solver in shared memory
+_STATE_BYTES = {torch.float32: 1264, torch.float64: 2504}
+
+
+class StepPlan(NamedTuple):
+    """K2's launch shape: threads per block, rods per block, dynamic shared
+    memory in bytes, and whether the net is staged there."""
+    threads: int
+    rods_per_block: int
+    smem_bytes: int
+    staged: bool
+
+
+def launch_plan(dtype: torch.dtype, nn_in: int, hidden: int,
+                method: str) -> StepPlan:
+    """K2's launch shape for a net of ``nn_in`` inputs (0: no net) and
+    ``hidden`` units. With the net: one block per rod, one warp per lane
+    (7 lanes; a phase of one lane runs on the whole block), the rod's net
+    staged in shared memory beside its solver state where both fit in
+    ops/sweep.py's SMEM_BUDGET, else the net read from global memory.
+    Without it: ``_PHYS_RODS`` rods per block, one thread per lane. It
+    depends on nothing else (not on the batch, nor on one net or one per
+    rod)."""
+    if method not in ("euler", "rk4"):
+        raise ValueError(method)
+    state = _STATE_BYTES[dtype]
+    if nn_in == 0:
+        return StepPlan(_LANES * _PHYS_RODS, _PHYS_RODS, _PHYS_RODS * state,
+                        False)
+    w = net_smem_bytes(dtype, nn_in, hidden)
+    staged = w + state <= _sweep.SMEM_BUDGET
+    return StepPlan(_LANES * WARP, 1, state + (w if staged else 0), staged)
 
 
 def fd1_eps(dtype: torch.dtype) -> float:
@@ -113,6 +150,7 @@ def _launch(p, consts, spec, tol, max_iter, n_alphas, method, G, yh, zh, tf,
         return G_out, y, z, r2, iters
     nn_in, act, W1, b1, W2, b2, hidden, per_rod = weight_args(spec, nn_params,
                                                               G)
+    plan = launch_plan(G.dtype, nn_in, hidden, method)
     with torch.cuda.device(G.device):
         code = library().knode_step(
             int(G.dtype == torch.float64), nn_in, act, int(method == "rk4"),
@@ -121,7 +159,7 @@ def _launch(p, consts, spec, tol, max_iter, n_alphas, method, G, yh, zh, tf,
             _MAX_ESCALATIONS, G.data_ptr(), yh.data_ptr(), zh.data_ptr(),
             tf.data_ptr(), W1, b1, W2, b2, hidden, per_rod, G_out.data_ptr(),
             y.data_ptr(), z.data_ptr(), r2.data_ptr(), iters.data_ptr(),
-            _BLOCK, stream_of(G))
+            plan.threads, plan.smem_bytes, int(plan.staged), stream_of(G))
     raise_on(code, "K2 step")
     LAUNCHES += 1
     return G_out, y, z, r2, iters

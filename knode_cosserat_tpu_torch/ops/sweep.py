@@ -15,6 +15,7 @@ kernel (or raises); nothing falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -23,13 +24,53 @@ from ..core.params import RodParams
 from ..core.spatial import integrate_euler, integrate_rk4, tip_residual
 from ..models.mlp import KnodeMLP, MLPSpec, StackedMLP
 
-__all__ = ["make_sweep_kernel", "sweep_reference", "LAUNCHES"]
+__all__ = ["make_sweep_kernel", "sweep_reference", "launch_plan",
+           "net_smem_bytes", "SweepPlan", "LAUNCHES", "SMEM_BUDGET"]
 
 #: K3 launches made by this module's wrapper since the count was last reset
 LAUNCHES = 0
 
 _ACT_CODES = {"elu": 0, "tanh": 1, "relu": 2, "softplus": 3}
-_BLOCK = 32     # threads per block: one lane (rod x probe) per thread
+#: dynamic shared memory one block may have on the H100 (227 KB)
+SMEM_BUDGET = 232_448
+WARP = 32
+_SWEEP_WARPS = 8      # K3 with the net: lanes (one warp each) per block
+_PHYS_THREADS = 32    # K3 without it: one thread per lane
+
+
+class SweepPlan(NamedTuple):
+    """K3's launch shape: threads per block, lanes per block, dynamic
+    shared memory in bytes, and whether the net is staged there."""
+    threads: int
+    lanes: int
+    smem_bytes: int
+    staged: bool
+
+
+def net_smem_bytes(dtype: torch.dtype, nn_in: int, hidden: int) -> int:
+    """Shared memory a staged net takes (csrc/rhs_rows.cuh::net_smem_bytes):
+    W1 transposed to (nn_in, hidden + 1), b1, W2 (25, hidden), b2, in
+    ``dtype``, rounded up to 8 bytes."""
+    size = 8 if dtype == torch.float64 else 4
+    elems = nn_in * (hidden + 1) + 26 * hidden + 25
+    return -(-size * elems // 8) * 8
+
+
+def launch_plan(dtype: torch.dtype, nn_in: int, hidden: int,
+                method: str) -> SweepPlan:
+    """K3's launch shape for a net of ``nn_in`` inputs (0: no net) and
+    ``hidden`` units: with the net one warp per lane, 8 lanes per block, the
+    net staged in shared memory where it fits in SMEM_BUDGET, else read
+    from global memory; without it one thread per lane. It depends on
+    nothing else (not on the batch)."""
+    if method not in ("euler", "rk4"):
+        raise ValueError(method)
+    if nn_in == 0:
+        return SweepPlan(_PHYS_THREADS, _PHYS_THREADS, 0, False)
+    w = net_smem_bytes(dtype, nn_in, hidden)
+    staged = w <= SMEM_BUDGET
+    return SweepPlan(_SWEEP_WARPS * WARP, _SWEEP_WARPS, w if staged else 0,
+                     staged)
 
 
 def sweep_reference(p: RodParams, G, yh, zh, tf, nn_params: KnodeMLP | None = None,
@@ -178,13 +219,15 @@ def _launch(p, consts, spec, method, want_rod, G, yh, zh, tf, nn_params):
     if B == 0:
         return (res, y, z) if want_rod else res
     nn_in, act, W1, b1, W2, b2, hidden, _ = weight_args(spec, nn_params, G)
+    plan = launch_plan(G.dtype, nn_in, hidden, method)
     with torch.cuda.device(G.device):
         code = library().knode_sweep(
             int(G.dtype == torch.float64), nn_in, act, int(method == "rk4"),
             B, N, ctypes.byref(consts), G.data_ptr(), yh.data_ptr(),
             zh.data_ptr(), tf.data_ptr(), W1, b1, W2, b2, hidden,
             res.data_ptr(), y.data_ptr() if want_rod else None,
-            z.data_ptr() if want_rod else None, _BLOCK, stream_of(G))
+            z.data_ptr() if want_rod else None, plan.threads,
+            plan.smem_bytes, int(plan.staged), stream_of(G))
     raise_on(code, "K3 sweep")
     LAUNCHES += 1
     return (res, y, z) if want_rod else res

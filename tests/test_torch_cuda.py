@@ -87,6 +87,120 @@ def test_step_kernel_matches_plain(dev, dtype, history):
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
 
 
+# a rod's result does not depend on the batch: K2 runs one block per rod
+# and K3 one warp per lane, and the net's sums run in an order fixed by
+# the hidden width alone, so rod b alone == rod b of 256, bit for bit
+@pytest.mark.parametrize("history", [None, False])
+def test_step_kernel_rod_alone_equals_rod_in_batch(dev, history):
+    p = K.experimental_rod(N=10, device=dev).to(dtype=torch.float32)
+    G, yh, zh, tf = _inputs(p, 256, 4, dev)
+    G = torch.zeros_like(G)
+    spec, net = (None, None) if history is None else _net(
+        history, torch.float32, dev, 1e-2)
+    k = kstep.make_step_kernel(p, spec, tol=1e-10)
+    with torch.no_grad():
+        got = k(G, yh, zh, tf, net)
+        for b in (0, 101, 255):
+            alone = k(G[b:b + 1], yh[b:b + 1], zh[b:b + 1], tf[b:b + 1], net)
+            for x, w in zip(got, alone):
+                assert torch.equal(x[b:b + 1], w)
+
+
+@pytest.mark.parametrize("history", [None, True])
+def test_sweep_kernel_lane_alone_equals_lane_in_batch(dev, history):
+    p = K.experimental_rod(N=10, device=dev).to(dtype=torch.float32)
+    G, yh, zh, tf = _inputs(p, 256, 5, dev)
+    spec, net = (None, None) if history is None else _net(
+        history, torch.float32, dev)
+    k = ksweep.make_sweep_kernel(p, spec, method="rk4")
+    with torch.no_grad():
+        got = k(G, yh, zh, tf, net)
+        for b in (0, 130, 255):
+            alone = k(G[b:b + 1], yh[b:b + 1], zh[b:b + 1], tf[b:b + 1], net)
+            for x, w in zip(got, alone):
+                assert torch.equal(x[b:b + 1], w)
+
+
+# ragged hidden widths (the last tile of units masked), 53 inputs in
+# float64, the net staged in shared memory or, with a budget of 0, read
+# from global memory (the route float64 with 53 inputs takes at hidden 512)
+@pytest.mark.parametrize("budget", [None, 0])
+@pytest.mark.parametrize("hidden", [48, 100])
+def test_step_kernel_ragged_hidden_matches_plain(dev, monkeypatch, hidden,
+                                                 budget):
+    if budget is not None:
+        monkeypatch.setattr(ksweep, "SMEM_BUDGET", budget)
+    dtype = torch.float64
+    p = K.experimental_rod(N=10, device=dev).to(dtype=dtype)
+    G, yh, zh, tf = _inputs(p, 45, 6, dev)
+    G = torch.zeros_like(G)
+    spec = K.MLPSpec.for_knode(hidden, history=True)
+    net = K.init_mlp(spec, torch.Generator().manual_seed(1), dtype, dev)
+    with torch.no_grad():
+        for t in net.parameters():
+            t.mul_(1e-2)
+    assert kstep.launch_plan(dtype, 53, hidden, "euler").staged == (
+        budget is None)
+    with torch.no_grad():
+        got = kstep.make_step_kernel(p, spec, tol=1e-18)(G, yh, zh, tf, net)
+        want = kstep.step_reference(p, G, yh, zh, tf, net, tol=1e-18)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:4], want[:4]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-10)
+
+
+def test_step_kernel_physics_rk4_matches_plain(dev):
+    p = K.experimental_rod(N=10, device=dev).to(dtype=torch.float64)
+    G, yh, zh, tf = _inputs(p, 45, 7, dev)
+    G = torch.zeros_like(G)
+    with torch.no_grad():
+        got = kstep.make_step_kernel(p, None, tol=1e-18, method="rk4")(
+            G, yh, zh, tf)
+        want = kstep.step_reference(p, G, yh, zh, tf, tol=1e-18,
+                                    method="rk4")
+    torch.cuda.synchronize()
+    for a, b in zip(got[:4], want[:4]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-10)
+
+
+def test_step_kernel_far_start_matches_plain(dev):
+    """From a far start alpha = 1 often fails, so the line search runs its
+    second tile (the other candidates at once): each rod the plain version
+    solves, the kernel solves to the same root, to the f64 step
+    tolerances. A rod that stalls (its escalations spent) stops where
+    rounding led it, so for it the test asks only that the kernel stall
+    too."""
+    p = K.experimental_rod(N=10, device=dev).to(dtype=torch.float64)
+    G, yh, zh, tf = _inputs(p, 20, 8, dev)
+    G = 30 * G                                # far: alpha = 1 often fails
+    spec, net = _net(False, torch.float64, dev, 1e-2)
+    with torch.no_grad():
+        got = kstep.make_step_kernel(p, spec, tol=1e-18)(G, yh, zh, tf, net)
+        want = kstep.step_reference(p, G, yh, zh, tf, net, tol=1e-18)
+    solved = want[3] <= 1e-18
+    assert bool((got[3][~solved] > 1e-18).all())
+    for a, b in zip(got[:4], want[:4]):
+        torch.testing.assert_close(a[solved], b[solved], rtol=1e-9,
+                                   atol=1e-10)
+
+
+def test_step_kernel_raises_when_the_card_refuses(dev, monkeypatch):
+    """A plan the card cannot take (a 324 KB staged net: float64, 53
+    inputs, hidden 512) raises; nothing falls back."""
+    monkeypatch.setattr(ksweep, "SMEM_BUDGET", 1 << 20)
+    p = K.experimental_rod(N=10, device=dev).to(dtype=torch.float64)
+    spec = K.MLPSpec.for_knode(512, history=True)
+    net = K.init_mlp(spec, torch.Generator().manual_seed(0), torch.float64,
+                     dev)
+    G, yh, zh, tf = _inputs(p, 2, 9, dev)
+    before = kstep.LAUNCHES
+    with torch.no_grad(), pytest.raises(RuntimeError):
+        kstep.make_step_kernel(p, spec)(G, yh, zh, tf, net)
+    with torch.no_grad(), pytest.raises(RuntimeError):
+        ksweep.make_sweep_kernel(p, spec)(G, yh, zh, tf, net)
+    assert kstep.LAUNCHES == before
+
+
 def test_deeper_net_raises_on_cuda(dev):
     p = K.experimental_rod(device=dev).to(dtype=torch.float32)
     spec = K.MLPSpec(dims=(28, 16, 16, 25))
