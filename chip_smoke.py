@@ -47,8 +47,8 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      the 10 trained nets of the nsw cells stacked (the eval's launch
      shape) against its plain version and against 10 single-net launches,
      bit for bit.
- 10. K6 (the wide trainer) against its plain version: hidden 640 (two
-     256-unit chunks and a ragged one) on bench_data.npz and hidden 8192
+ 10. K6 (the wide trainer) against its plain version: hidden 640 (five
+     forward unit tiles of 128) on bench_data.npz and hidden 8192
      at the train-real shape (1,904 cells, 53 inputs, AdamW 0.1, random
      data, train_real_data, two seeds), after 1 and 20 epochs; 100 + 100
      epochs against one 200-epoch run, bit for bit.
@@ -81,9 +81,13 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      float32 peak and its bytes over the memory rate); K2 at batch 1, 40
      and 256, and K2's share of a mega rollout's wall time per step (CUDA
      events around its launches against the host clock) at 256 rods and
-     at 1; K6 against
-     the plain epoch loop at hidden 1024 / 2048 / 8192 (the routing's
-     crossover); K7 at M = 3, 6, 9 and K8 at 232 and 1,904 cells.
+     at 1; K4 at 232 and 1,904 cells and K5 at 40 runs, with their
+     launch plan (cluster size, units per block, tile, clusters resident
+     at once); K6 against the plain epoch loop at hidden 1024 / 2048 /
+     8192 (the routing's crossover), with its plan and, at 8192, one
+     epoch's products as torch.matmul x 200 (a yardstick, not gated);
+     each training kernel's share of its bound; K7 at M = 3, 6, 9 and K8
+     at 232 and 1,904 cells.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -821,6 +825,17 @@ def phase_train(K, dev):
     return launches, r
 
 
+def k4_plan_line(ktrain, din, hidden, dev):
+    """K4's launch plan at (din, hidden) and how many of its clusters the
+    card holds at once."""
+    plan = ktrain.launch_plan(din, hidden)
+    return (f"cluster {plan.cluster} x {plan.threads} threads, "
+            f"{plan.units} units per block ({plan.slots} slots), tile "
+            f"{plan.tile} cells, {plan.smem_bytes} B shared, "
+            f"{ktrain.max_active_clusters(din, hidden, dev)} clusters "
+            f"resident")
+
+
 def phase_k4_timings(K, dev, name_power, data):
     """K4 per 200-epoch chunk against its plain version and its bound."""
     from knode_cosserat_tpu_torch.ops import train as ktrain
@@ -828,6 +843,8 @@ def phase_k4_timings(K, dev, name_power, data):
     tag = f"[{name_power}]"
     E = 200
     out = {}
+    log(f"[time] K4 plan, hidden {HIDDEN}, 28 inputs: "
+        f"{k4_plan_line(ktrain, 28, HIDDEN, dev)}")
     for label, (trajs, ctls) in zip(("232", "1904"), data):
         p, cfg, net = train_setup(K, dev)
         spec = cfg.spec()
@@ -850,7 +867,8 @@ def phase_k4_timings(K, dev, name_power, data):
             f"kernel {kern:.3f} ms ({E / kern * 1e3:.1f} epochs/s), plain "
             f"{plain:.3f} ms ({E / plain * 1e3:.1f} epochs/s), bound "
             f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.2f} MB) {tag}")
+            f"{nbytes / 1e6:.2f} MB), {100 * b_ms / kern:.2f}% of the bound "
+            f"{tag}")
     return out
 
 
@@ -1084,10 +1102,12 @@ def phase_train_timings(K, dev, name_power, small):
     nbytes = G * 4 * (C * (din + 56) + 6 * n_params + E + 8)
     b_ms, b_by = bound(flops, nbytes)
     out["K5"] = dict(ms=kern, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-    log(f"[time] K5 {E} epochs, {G} cells x {C} cells, hidden {HIDDEN} f32: "
+    log(f"[time] K5 {E} epochs, {G} runs x {C} cells, hidden {HIDDEN} f32: "
         f"kernel {kern:.3f} ms ({G * E / kern * 1e3:.1f} models x epochs/s), "
         f"plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) {tag}")
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+        f"{100 * b_ms / kern:.2f}% of the bound; plan: "
+        f"{k4_plan_line(ktrain, din, HIDDEN, dev)} {tag}")
 
     # K6 at the train-real shape, and the plain epoch loop beside it
     for hidden in (1024, 2048, WIDE_HIDDEN):
@@ -1117,11 +1137,33 @@ def phase_train_timings(K, dev, name_power, small):
             b_ms, b_by = bound(flops, nbytes)
             out["K6"] = dict(ms=kern, plain_ms=plain, bound_ms=b_ms,
                              bound_by=b_by)
+            mm = timed(lambda: epoch_products(cw, Ww), 20) * E
+            plan = kwide.launch_plan(din, hidden, C)
             line += (f", plain version {plain:.3f} ms, bound {b_ms:.4f} ms "
                      f"({b_by}; {flops / 1e9:.2f} GFLOP, "
-                     f"{nbytes / 1e6:.2f} MB)")
+                     f"{nbytes / 1e6:.2f} MB), {100 * b_ms / kern:.2f}% of "
+                     f"the bound; one epoch's products as torch.matmul "
+                     f"(f32) x {E}: {mm:.3f} ms (reported, not gated); plan: "
+                     f"forward {plan.fwd_units} units x {plan.fwd_cells} "
+                     f"cells, backward {plan.bwd_units} units x "
+                     f"{plan.slices} slices of {plan.chunks} x "
+                     f"{plan.bwd_cells} cells")
         log(line + f" {tag}")
     return out
+
+
+def epoch_products(cells, W):
+    """One epoch's matrix products of the wide trainer in plain float32
+    torch.matmul (the caller disables TF32): A = X W1^T, NN = H W2^T,
+    dH = G W2, dW1 = dA^T X, dW2 = G^T H. A yardstick for K6's product
+    work alone (no loss, ELU or update), not a version of K6."""
+    W1, _, W2, _ = W
+    X = cells.x
+    A = X @ W1.t()
+    NN = A @ W2.t()
+    G = NN                      # stands in for the cotangent's shape
+    dH = G @ W2
+    return dH.t() @ X, G.t() @ A
 
 
 
@@ -1621,21 +1663,23 @@ def main() -> int:
          "max_abs_err": max(errs[("K2", torch.float32)]
                             + errs[("K2", torch.float64)]),
          "ms": ms["K2"][0], "plain_ms": ms["K2"][1], **row(k2_bound)},
-        {"name": "K4 train (whole training run, 200-epoch chunk, 232 cells)",
+        {"name": "K4 train (whole training run, 200-epoch chunk, 232 cells; "
+                 "a cluster of 8 blocks per run, redesigned)",
          "route": "cuda", "source": src + "train.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_train.py:345",
          "launches": train["K4"] + multi["K4"] + wide["K4"],
          "max_abs_err": max(errs["K4"]),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          **row((k4["bound_ms"], k4["bound_by"]))},
-        {"name": "K5 train grid (40 runs x 232 cells, 200 epochs)",
+        {"name": "K5 train grid (40 runs x 232 cells, 200 epochs; K4's "
+                 "redesigned kernel, a cluster per run)",
          "route": "cuda", "source": src + "train.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_train.py:692",
          "launches": multi["K5"], "max_abs_err": max(errs["K5"]),
          "ms": tt["K5"]["ms"], "plain_ms": tt["K5"]["plain_ms"],
          **row((tt["K5"]["bound_ms"], tt["K5"]["bound_by"]))},
         {"name": f"K6 train wide (hidden {WIDE_HIDDEN}, 1904 cells, 200 "
-                 f"epochs)",
+                 f"epochs; register-tiled products, redesigned)",
          "route": "cuda", "source": src + "train_wide.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_train_wide.py:158",
          "launches": wide["K6"], "max_abs_err": max(errs["K6"]),

@@ -1,7 +1,8 @@
 // Device code shared by the training kernels: K4 / K5 (train.cu) and K6
 // (train_wide.cu). The loss of one cell and its cotangent through the
 // reference's quaternion->Euler map, the Adam(W) update of one parameter
-// (training/train.py:AdamPlateau's order of operations), and a warp sum.
+// (training/train.py:AdamPlateau's order of operations), the ELU and its
+// derivative, a float4's i-th lane and a warp sum.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -28,6 +29,19 @@ __device__ __forceinline__ float adam_update(float P, float g, float* mu_p,
   u = u * s.scale;
   P = P + u;
   return (is_weight && s.clamp) ? fmaxf(P, 0.f) : P;
+}
+
+__device__ __forceinline__ float elu(float a) {
+  return a > 0.f ? a : expm1f(a);
+}
+
+// d elu / d a from the activation h = elu(a): 1 above 0, else h + 1
+__device__ __forceinline__ float elu_grad(float h) {
+  return h > 0.f ? 1.f : h + 1.f;
+}
+
+__device__ __forceinline__ float lane(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -99,15 +113,25 @@ __device__ float cell_loss(const float* nn, const float* yb, const float* zp,
   return sp * inv[0] + ss * inv[1] + se * inv[2] + sz * inv[3];
 }
 
-// Adam's step constants for step t (the Adam count after this step) at
-// plateau scale ``scale``, as AdamPlateau computes them.
-__device__ __forceinline__ AdamStep adam_step(double t, double scale,
+// Adam's bias corrections 1 - beta^t for step t (the Adam count after the
+// step), as AdamPlateau computes them: two double-precision powers, a long
+// dependent chain, which the kernels take off their epoch's critical path.
+__device__ __forceinline__ float bias_correction(double beta, double t) {
+  return (float)(1.0 - pow(beta, t));
+}
+
+__device__ __forceinline__ float2 bias_corrections(double t) {
+  return make_float2(bias_correction(0.9, t), bias_correction(0.999, t));
+}
+
+// Adam's step constants for bias corrections ``bc`` at plateau scale
+// ``scale``.
+__device__ __forceinline__ AdamStep adam_step(float2 bc, double scale,
                                               double lr, double wd,
                                               int clamp) {
   return AdamStep{0.9f, (float)(1.0 - 0.9), 0.999f, (float)(1.0 - 0.999),
-                  1e-8f, (float)(1.0 - pow(0.9, t)),
-                  (float)(1.0 - pow(0.999, t)), (float)(-lr), (float)scale,
-                  (float)wd, clamp != 0};
+                  1e-8f, bc.x, bc.y, (float)(-lr), (float)scale, (float)wd,
+                  clamp != 0};
 }
 
 // reduce_on_plateau on this epoch's loss L (rtol, atol = 0, cooldown = 0);

@@ -23,8 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["library", "RodConstsHost", "TrainArgs", "WideArgs", "build_info",
-           "NVCC_FLAGS", "SOURCE_FLAGS"]
+__all__ = ["library", "RodConstsHost", "TrainArgs", "TrainPlanC", "WideArgs",
+           "WidePlanC", "build_info", "NVCC_FLAGS", "SOURCE_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -86,10 +86,17 @@ class TrainArgs(ctypes.Structure):
                 ("ds_grid", ctypes.c_void_p)]     # K5: (G,) float64; K4: 0
 
 
+class TrainPlanC(ctypes.Structure):
+    """Mirror of ``TrainPlan`` in csrc/train.cu (ops/train.py::launch_plan):
+    threads, cluster, units, slots, tile, dynamic shared memory bytes."""
+    _fields_ = [(f, ctypes.c_int) for f in
+                ("threads", "cluster", "units", "slots", "tile", "smem")]
+
+
 class WideArgs(ctypes.Structure):
     """Mirror of ``WideArgs`` in csrc/train_wide.cu: the cell slabs, the
-    weights and moments (updated in place), the scalars, the scratch
-    buffers and the run's constants."""
+    weights and moments (updated in place), the scalars, the run's
+    constants and the scratch buffers."""
     _fields_ = [("cells", ctypes.c_void_p * 6),
                 ("w", ctypes.c_void_p * 4),        # W1, b1, W2, b2
                 ("m", ctypes.c_void_p * 8),        # mu, nu of each
@@ -97,7 +104,7 @@ class WideArgs(ctypes.Structure):
                 ("s_out", ctypes.c_void_p),
                 ("losses", ctypes.c_void_p),
                 ("g", ctypes.c_void_p),            # (C, 25) scratch
-                ("cell_loss", ctypes.c_void_p),    # (C,) scratch
+                ("sums", ctypes.c_void_p),         # (loss blocks, 26)
                 ("run", ctypes.c_void_p),          # (3,) float64
                 ("C", ctypes.c_int), ("din", ctypes.c_int),
                 ("hidden", ctypes.c_int), ("n_epochs", ctypes.c_int),
@@ -105,7 +112,21 @@ class WideArgs(ctypes.Structure):
                 ("lr", ctypes.c_double), ("weight_decay", ctypes.c_double),
                 ("factor", ctypes.c_double), ("rtol", ctypes.c_double),
                 ("ds", ctypes.c_double),
-                ("inv", ctypes.c_double * 4)]
+                ("inv", ctypes.c_double * 4),
+                ("part", ctypes.c_void_p),         # forward partial NN
+                ("grad", ctypes.c_void_p),         # backward partials
+                ("count", ctypes.c_void_p),        # int32 ticket
+                ("step", ctypes.c_void_p)]         # the epoch's Adam step
+
+
+class WidePlanC(ctypes.Structure):
+    """Mirror of ``WidePlan`` in csrc/train_wide.cu
+    (ops/train_wide.py::launch_plan)."""
+    _fields_ = [(f, ctypes.c_int) for f in
+                ("threads", "fwd_units", "fwd_cells", "fwd_tiles",
+                 "loss_cells", "bwd_units", "bwd_cells", "slices", "chunks",
+                 "fwd_smem", "bwd_smem", "part_floats", "sums_floats",
+                 "grad_floats", "counters")]
 
 
 class _Kernels:
@@ -206,16 +227,26 @@ def _declare(k: _Kernels):
                                P, P, P, P, P, P, P, P, I, I,
                                P, P, P, P, P, I, I, I, P]
     k.knode_step.restype = I
-    # knode_train(args, threads, stream)
-    k.knode_train.argtypes = [ctypes.POINTER(TrainArgs), I, P]
+    plan = ctypes.POINTER(TrainPlanC)
+    # knode_train(args, plan, stream)
+    k.knode_train.argtypes = [ctypes.POINTER(TrainArgs), plan, P]
     k.knode_train.restype = I
-    # knode_train_grid(args, G, threads, stream)
+    # knode_train_grid(args, G, plan, stream)
     k.knode_train_grid = k.train.knode_train_grid
-    k.knode_train_grid.argtypes = [ctypes.POINTER(TrainArgs), I, I, P]
+    k.knode_train_grid.argtypes = [ctypes.POINTER(TrainArgs), I, plan, P]
     k.knode_train_grid.restype = I
-    # knode_train_wide(args, stream)
+    # knode_train_clusters(din, hidden, plan, clusters)
+    k.knode_train_clusters = k.train.knode_train_clusters
+    k.knode_train_clusters.argtypes = [I, I, plan, ctypes.POINTER(I)]
+    k.knode_train_clusters.restype = I
+    # knode_error_name(code)
+    k.knode_error_name = k.train.knode_error_name
+    k.knode_error_name.argtypes = [I]
+    k.knode_error_name.restype = ctypes.c_char_p
+    # knode_train_wide(args, plan, stream)
     k.knode_train_wide = k.train_wide.knode_train_wide
-    k.knode_train_wide.argtypes = [ctypes.POINTER(WideArgs), P]
+    k.knode_train_wide.argtypes = [ctypes.POINTER(WideArgs),
+                                   ctypes.POINTER(WidePlanC), P]
     k.knode_train_wide.restype = I
     # knode_assembly(is_f64, M, N, consts, plate, tol, eps0, max_iter,
     #                X0, yh, zh, tf, ph, X, y, z, r2, iters, stream)

@@ -28,9 +28,13 @@ runs compose exactly; :func:`fused_state_from_optimizer` and
 ``train_run`` dispatches by device: cells on the CPU run
 :func:`train_run_reference`, cells on a CUDA device launch K4 (or raise).
 
+The kernel runs one thread-block cluster per run; its shape is
+:func:`launch_plan` (pure Python, a function of din and hidden alone),
+which the wrapper hands to the C entry and the C entry checks.
+
 K5, the grid trainer (the JAX package's ``make_fused_grid_training_run``,
 ``jax.vmap`` of the run over experiment cells), is the same kernel with one
-block per cell: :func:`train_grid_run` takes G cells' constants, nets and
+cluster per cell: :func:`train_grid_run` takes G cells' constants, nets and
 states stacked on a leading axis; its plain version
 :func:`train_grid_reference` runs :func:`train_run_reference` per cell.
 :func:`fused_state_from_jax` / :func:`fused_state_to_jax` convert the state
@@ -43,7 +47,7 @@ import copy
 import ctypes
 import dataclasses
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -60,16 +64,53 @@ __all__ = ["make_fused_training_run", "make_fused_grid_training_run",
            "train_run_reference", "train_grid_run", "train_grid_reference",
            "fresh_state", "fused_state_from_optimizer", "load_fused_state",
            "fused_state_from_jax", "fused_state_to_jax", "Cells",
-           "TrainHyper", "MAX_CELLS", "LAUNCHES", "GRID_LAUNCHES"]
+           "TrainHyper", "launch_plan", "TrainPlan",
+           "max_active_clusters", "MAX_CELLS", "MAX_HIDDEN", "LAUNCHES",
+           "GRID_LAUNCHES"]
 
 MAX_CELLS = 8192
+MAX_HIDDEN = 512
 
 #: K4 launches made by this module's wrapper since the count was last reset
 LAUNCHES = 0
 #: K5 launches made by this module's grid wrapper since the last reset
 GRID_LAUNCHES = 0
 
-_THREADS = 512      # one block; thread j owns hidden unit j (hidden <= 512)
+# the launch shape (csrc/train.cu checks it): a cluster of _CLUSTER blocks
+# of _THREADS threads per run, cells in tiles of _TILE
+_THREADS = 512
+_CLUSTER = 8        # the portable maximum
+_TILE = 256
+_OUT = 25
+
+
+class TrainPlan(NamedTuple):
+    """K4's launch shape (mirrored by ``TrainPlan`` in csrc/train.cu):
+    threads per block, blocks per cluster (one cluster per run), hidden
+    units owned by each block, unit slots per block (units rounded up to
+    a power of two, at least 8; thread t is slot t % slots of cell slice
+    t // slots), cells per tile, and dynamic shared memory in bytes."""
+    threads: int
+    cluster: int
+    units: int
+    slots: int
+    tile: int
+    smem_bytes: int
+
+
+def launch_plan(din: int, hidden: int) -> TrainPlan:
+    """K4's (and K5's) launch shape for ``din`` inputs and ``hidden``
+    units. It depends on nothing else (not on the cell count, nor on the
+    number of runs), so a K5 run equals a K4 launch on it bit for bit."""
+    if din not in (28, 53) or not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"K4 takes 28/53 inputs and hidden 1..{MAX_HIDDEN}; "
+                         f"got din={din}, hidden={hidden}")
+    units = -(-hidden // _CLUSTER)
+    slots = max(8, 1 << (units - 1).bit_length())
+    row = _TILE + 4                     # row stride of the cell-wide buffers
+    floats = ((din + 1) * row + slots * row + 2 * _OUT * row
+              + (din + 1) * slots + _OUT * slots + 4 * 32)
+    return TrainPlan(_THREADS, _CLUSTER, units, slots, _TILE, 4 * floats)
 
 
 def fused_trainer_supported(spec: MLPSpec, n_cells: int,
@@ -80,7 +121,7 @@ def fused_trainer_supported(spec: MLPSpec, n_cells: int,
     checked."""
     return (len(spec.dims) == 3 and spec.activation == "elu"
             and spec.compute_dtype is None and spec.dims[0] in (28, 53)
-            and spec.dims[2] == 25 and spec.dims[1] <= 512
+            and spec.dims[2] == 25 and spec.dims[1] <= MAX_HIDDEN
             and 1 <= n_cells <= MAX_CELLS)
 
 
@@ -312,7 +353,7 @@ def _launch(cells: Cells, W, state, n_epochs, hyper, ds_grid=None):
     dev = cells.x.device
     lead = () if ds_grid is None else (ds_grid.shape[0],)
     what = "K4 train" if ds_grid is None else "K5 grid train"
-    C, din, h = check_run_args(cells, W, state, n_epochs, lead, _THREADS,
+    C, din, h = check_run_args(cells, W, state, n_epochs, lead, MAX_HIDDEN,
                                MAX_CELLS, what)
 
     W_out = [torch.empty_like(t) for t in W]
@@ -336,21 +377,50 @@ def _launch(cells: Cells, W, state, n_epochs, hyper, ds_grid=None):
                                               hyper.factor, PLATEAU_RTOL)
     a.ds = cells.ds
     a.inv[:] = list(cells.inv)
+    plan = ctypes.byref(_c_plan(launch_plan(din, h)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if ds_grid is None:
-            code = library().knode_train(ctypes.byref(a), _THREADS, stream)
+            code = library().knode_train(ctypes.byref(a), plan, stream)
         else:
             a.ds_grid = ds_grid.data_ptr()
-            code = library().knode_train_grid(ctypes.byref(a), lead[0],
-                                              _THREADS, stream)
-    if code != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {code}")
+            code = library().knode_train_grid(ctypes.byref(a), lead[0], plan,
+                                              stream)
+    raise_on(code, what)
     if ds_grid is None:
         LAUNCHES += 1
     else:
         GRID_LAUNCHES += 1
     return W_out, losses, {"moments": tuple(m_out), "scalars": s_out}
+
+
+def raise_on(code: int, what: str):
+    """Raise a RuntimeError naming the CUDA error of a training kernel's
+    launch, if there was one."""
+    if code != 0:
+        from ._build import library
+        name = library().knode_error_name(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} "
+                           f"({name})")
+
+
+def _c_plan(plan: TrainPlan):
+    from ._build import TrainPlanC
+    return TrainPlanC(*plan)
+
+
+def max_active_clusters(din: int, hidden: int, device=None) -> int:
+    """How many K4 / K5 clusters of :func:`launch_plan` the card holds at
+    once (``cudaOccupancyMaxActiveClusters``): K5 runs that many runs side
+    by side."""
+    from ._build import library
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        code = library().knode_train_clusters(
+            din, hidden, ctypes.byref(_c_plan(launch_plan(din, hidden))),
+            ctypes.byref(n))
+    raise_on(code, "K4 occupancy query")
+    return n.value
 
 
 # ------------------------------------------------------------- K5 (grid)
@@ -382,7 +452,7 @@ def train_grid_reference(cells: Sequence[Cells], W: Sequence[torch.Tensor],
 
 def train_grid_run(cells: Sequence[Cells], W: Sequence[torch.Tensor],
                    state: dict, n_epochs: int, hyper: TrainHyper):
-    """K5: the G cells' runs in one launch, one block each. Same arguments
+    """K5: the G cells' runs in one launch, one cluster each. Same arguments
     and returns as :func:`train_grid_reference`, which runs instead for
     cells on the CPU. The cells must share C, din and the loss
     denominators (one trajectory count per launch)."""

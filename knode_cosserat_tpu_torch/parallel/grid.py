@@ -6,7 +6,7 @@ reference orchestrator physics_multitrain.py:85-157 fanned out one
 ``physics_train.py`` process per cell). Every cell has its own rod (the
 mods are RodParams of the same structure), its data and its seed's net.
 On a CUDA rod the whole grid trains in one launch of kernel K5 per chunk
-(ops/train.py:train_grid_run, one block per cell); ``cfg.fused="off"``
+(ops/train.py:train_grid_run, one cluster per cell); ``cfg.fused="off"``
 runs the plain epoch loop cell by cell.
 """
 from __future__ import annotations

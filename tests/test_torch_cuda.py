@@ -255,6 +255,52 @@ def test_train_kernel_matches_plain(dev, case):
     torch.testing.assert_close(got[2]["scalars"], want[2]["scalars"])
 
 
+# ragged widths: block r of the cluster owns units [r U, r U + U), U =
+# ceil(h / 8); at hidden 1 seven of the eight blocks own none
+@pytest.mark.parametrize("hidden", [1, 48, 100])
+def test_train_kernel_ragged_hidden_matches_plain(dev, hidden):
+    p, cfg, _, trajs, ctls = _train_case(dev)
+    cfg = K.TrainConfig(hidden=hidden)
+    net = K.init_mlp(cfg.spec(), torch.Generator().manual_seed(0),
+                     torch.float32, dev)
+    before = ktrain.LAUNCHES
+    got = ktrain.make_fused_training_run(p, cfg.spec(), cfg, 30)(net, trajs,
+                                                                 ctls)
+    want = ktrain.make_fused_training_run(p, cfg.spec(), cfg, 30,
+                                          plain=True)(net, trajs, ctls)
+    torch.cuda.synchronize()
+    assert ktrain.LAUNCHES == before + 1
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=1e-9)
+    for a, b in zip(got[0].parameters(), want[0].parameters()):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-5)
+    torch.testing.assert_close(got[2]["scalars"], want[2]["scalars"])
+
+
+def test_train_kernel_raises_when_the_card_refuses_the_cluster(dev,
+                                                               monkeypatch):
+    """A plan of 32-block clusters (beyond what any card takes) reaches the
+    card and is refused: K4 and K5 raise a RuntimeError naming the CUDA
+    error, count no launch and fall back to nothing."""
+    from knode_cosserat_tpu_torch.models.mlp import StackedMLP
+    monkeypatch.setattr(ktrain, "_CLUSTER", 32)
+    assert ktrain.launch_plan(28, 64).cluster == 32
+    p, cfg, net, trajs, ctls = _train_case(dev)
+    k4, k5 = ktrain.LAUNCHES, ktrain.GRID_LAUNCHES
+    with pytest.raises(RuntimeError, match=r"CUDA error \d+ \(cuda\w+\)"):
+        ktrain.make_fused_training_run(p, cfg.spec(), cfg, 5)(net, trajs,
+                                                              ctls)
+    with pytest.raises(RuntimeError, match=r"CUDA error \d+ \(cuda\w+\)"):
+        ktrain.make_fused_grid_training_run(cfg.spec(), cfg, 5)(
+            [p, p], StackedMLP([net, net]), torch.stack([trajs] * 2),
+            torch.stack([ctls] * 2))
+    assert (ktrain.LAUNCHES, ktrain.GRID_LAUNCHES) == (k4, k5)
+    # the card is left usable: the real plan launches again
+    monkeypatch.undo()
+    ktrain.make_fused_training_run(p, cfg.spec(), cfg, 5)(net, trajs, ctls)
+    torch.cuda.synchronize()
+    assert ktrain.LAUNCHES == k4 + 1
+
+
 def test_train_kernel_chunks_compose(dev):
     p, cfg, net, trajs, ctls = _train_case(dev)
     run20 = ktrain.make_fused_training_run(p, cfg.spec(), cfg, 20)
@@ -338,6 +384,32 @@ def test_grid_kernel_matches_k4_bit_for_bit_and_plain(dev):
         torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-5)
 
 
+def test_grid_kernel_beyond_resident_clusters_equals_k4(dev):
+    """K5 at 40 runs (more clusters than the card holds at once, so they
+    run in waves) == 40 K4 launches, bit for bit."""
+    from knode_cosserat_tpu_torch.models.mlp import StackedMLP
+    _, cfg, _, trajs, ctls = _train_case(dev)
+    G = 40
+    spec = cfg.spec()
+    assert G > ktrain.max_active_clusters(spec.dims[0], spec.dims[1], dev)
+    mods = ["nsw", "short", "youngs", "lengthstiff"]
+    rods = [K.apply_mod(mods[g % 4], dtype=torch.float32, device=dev)
+            for g in range(G)]
+    nets = [K.init_mlp(spec, torch.Generator().manual_seed(s), torch.float32,
+                       dev) for s in range(G)]
+    pg, lg, sg = ktrain.make_fused_grid_training_run(spec, cfg, 20)(
+        rods, StackedMLP(nets), torch.stack([trajs] * G),
+        torch.stack([ctls] * G))
+    unstacked = pg.unstack()
+    for g in range(G):
+        p1, l1, s1 = ktrain.make_fused_training_run(rods[g], spec, cfg, 20)(
+            nets[g], trajs, ctls)
+        assert torch.equal(lg[g], l1)
+        assert torch.equal(sg["scalars"][g], s1["scalars"])
+        for a, b in zip(unstacked[g].parameters(), p1.parameters()):
+            assert torch.equal(a, b)
+
+
 def _wide_case(dev, hidden, big):
     """hidden 640 on the small data, or the train-real shape (1,904 cells,
     53 inputs, AdamW 0.1) on random data made as the JAX bench makes it,
@@ -398,6 +470,28 @@ def test_wide_kernel_chunks_compose(dev):
     for a, b in zip(end.parameters(), whole.parameters()):
         assert torch.equal(a, b)
     assert torch.equal(s2["scalars"], s20["scalars"])
+
+
+# hidden 64: one forward unit tile, ragged; 640: five tiles
+@pytest.mark.parametrize("hidden", [64, 640])
+def test_wide_kernel_narrow_matches_plain_and_composes(dev, hidden):
+    from knode_cosserat_tpu_torch.ops import train_wide as kwide
+    p, cfg, net, trajs, ctls = _wide_case(dev, hidden, False)
+    run = lambda n, **kw: kwide.make_wide_training_run(p, cfg.spec(), cfg, n,
+                                                       **kw)
+    got = run(20)(net, trajs, ctls)
+    want = run(20, plain=True)(net, trajs, ctls)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=1e-9)
+    for a, b in zip(got[0].parameters(), want[0].parameters()):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-5)
+    torch.testing.assert_close(got[2]["scalars"], want[2]["scalars"])
+    mid, la, s = run(10)(net, trajs, ctls)
+    end, lb, s2 = run(10)(mid, trajs, ctls, s)
+    assert torch.equal(torch.cat([la, lb]), got[1])
+    for a, b in zip(end.parameters(), got[0].parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(s2["scalars"], got[2]["scalars"])
 
 
 def _assembly_step_inputs(asm, seed):
