@@ -56,11 +56,12 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      train-real shape (cfg.fused="auto" routes to K6 on the card).
  12. K7 (one coupled-assembly Newton step) against its plain version:
      float64, one step and 20-step rollouts at M=2 (N=6) and M=3 (N=10),
-     X / G / plate within 1e-9, y and z within 1e-9 relative, iterations
-     equal (in a rollout, at most K7_STRADDLES steps one apart, both
-     converged); float32 at the bench's assembly (ASM_CFG), 20 steps: K7 and
-     its plain version inside the float64 truth's envelope of the plain
-     coupled Newton.
+     and one step at M=6 and M=9 (N=10), X / G / plate within 1e-9 (1e-8
+     at M=6 and 9, K7_F64_WIDE), y and z within as much relative,
+     iterations equal (in a rollout, at most
+     K7_STRADDLES steps one apart, both converged); float32 at the bench's
+     assembly (ASM_CFG), 20 steps: K7 and its plain version inside the
+     float64 truth's envelope of the plain coupled Newton.
  13. the assembly path (A), counted: simulate_assembly(fused=True) at
      ASM_CFG, float32, T=101 and T=1001 (steps/s; K7 launches == T-1),
      the plain coupled Newton at T=21, and the CLI's simulate-assembly
@@ -87,7 +88,9 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      8192 (the routing's crossover), with its plan and, at 8192, one
      epoch's products as torch.matmul x 200 (a yardstick, not gated);
      each training kernel's share of its bound; K7 at M = 3, 6, 9 and K8
-     at 232 and 1,904 cells.
+     at 232 and 1,904 cells: the wrapper's call by CUDA events (``ms``, as
+     for every kernel) beside the kernel's device time by torch.profiler
+     (``device_ms``).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -157,6 +160,11 @@ K7_TOL64, K7_F64 = 1e-24, 1e-9
 # iterations at one step, the residuals 100x apart, every value within
 # 7e-11)
 K7_STRADDLES = 2
+# ... and at M = 6 and 9, one step, X, y and z within K7_F64_WIDE: the
+# coupled Jacobian's condition number grows with M (~1e7 at M = 9, 1.2e5
+# at M = 3; the plain version alone moves X by 1.6e-9 at M = 9 when the
+# tendon forces change by 1e-15 relative, float64 on the CPU)
+K7_F64_WIDE = 1e-8
 MPC_GRAD_RTOL = 1e-6              # IFT gradient, K7's roots vs plain (f64)
 # path B's target: sway (x) and lift (z) of the plate at the horizon's end,
 # ramped from its start. The plan runs with w_du = 0 (the JAX package's
@@ -1237,26 +1245,39 @@ def rel_close(a, b, rel):
 
 def phase_k7(K, dev, errs):
     """K7 against its plain version on the card: f64 one step and 20-step
-    rollouts at M=2 (N=6) and M=3 (N=10); f32 at the bench configuration
-    inside the f64-truth envelope of the plain coupled Newton."""
+    rollouts at M=2 (N=6) and M=3 (N=10), one step at M=6 and M=9 (N=10);
+    f32 at the bench configuration inside the f64-truth envelope of the
+    plain coupled Newton."""
     from knode_cosserat_tpu_torch.core.assembly import (make_ring_assembly,
                                                         simulate_assembly)
     from knode_cosserat_tpu_torch.ops.assembly import (
         assembly_step_reference, make_assembly_step_kernel)
 
     f64 = torch.float64
-    for M, N in ((2, 6), (3, 10)):
+    for M, N in ((2, 6), (3, 10), (6, 10), (9, 10)):
         asm = make_ring_assembly(n_rods=M, base_radius=0.05, N=N, dtype=f64,
                                  device=dev)
-        ctl = assembly_controls(asm, 21)
+        ctl = assembly_controls(asm, 21, ASM_AMPS if M <= 3
+                                else np.linspace(0.7, 1.3, M))
         k = make_assembly_step_kernel(asm, tol=K7_TOL64, max_iter=30)
         ins = step_args(asm, ctl, 3, K7_TOL64)
         got = k(*ins)
         want = assembly_step_reference(asm, *ins, tol=K7_TOL64, max_iter=30)
         torch.cuda.synchronize()
-        ok_x, e_x = close(got[0], want[0], 0.0, K7_F64)
-        ok_y, e_y = rel_close(got[1], want[1], K7_F64)
-        ok_z, e_z = rel_close(got[2], want[2], K7_F64)
+        bar = K7_F64 if M <= 3 else K7_F64_WIDE
+        ok_x, e_x = close(got[0], want[0], 0.0, bar)
+        ok_y, e_y = rel_close(got[1], want[1], bar)
+        ok_z, e_z = rel_close(got[2], want[2], bar)
+        same_it = int(got[4]) == int(want[4])
+        errs.setdefault("K7", []).append(e_x)
+        if M > 3:
+            log(f"[K7] f64 M={M} N={N:2d} one step: X {e_x:.3e} y {e_y:.3e} "
+                f"(rel) z {e_z:.3e} (rel), iterations {int(got[4])} (plain "
+                f"{int(want[4])})")
+            if not (ok_x and ok_y and ok_z and same_it):
+                raise AssertionError(f"K7 f64 M={M} N={N} beyond {bar} or "
+                                     f"iterations differ")
+            continue
         roll_k = assembly_rollout(asm, ctl, k, K7_TOL64)
         roll_p = assembly_rollout(asm, ctl, plain_k7(asm, K7_TOL64, 30),
                                   K7_TOL64)
@@ -1264,9 +1285,8 @@ def phase_k7(K, dev, errs):
         ok_p, e_p = close(roll_k[1], roll_p[1], 0.0, K7_F64)
         ok_ry, e_ry = rel_close(roll_k[2], roll_p[2], K7_F64)
         torch.cuda.synchronize()
-        same_it = int(got[4]) == int(want[4])
         apart = straddles(roll_k, roll_p, K7_TOL64)
-        errs.setdefault("K7", []).extend([e_x, e_g, e_p])
+        errs["K7"].extend([e_g, e_p])
         log(f"[K7] f64 M={M} N={N:2d} one step: X {e_x:.3e} y {e_y:.3e} (rel) "
             f"z {e_z:.3e} (rel), iterations {int(got[4])} (plain "
             f"{int(want[4])}); 20 steps: G {e_g:.3e} plate {e_p:.3e} y "
@@ -1527,15 +1547,55 @@ def phase_fused_train(K, dev, small):
     return dict(launches=launches)
 
 
+def device_ms(fn, n, kernel, module):
+    """(ms, seen): ms per launch of the kernel whose name contains
+    ``kernel``, device time by torch.profiler over n calls of fn after one
+    warm-up call (the wrappers of K7 and K8 cost the host as much as or
+    more than their kernels take on the card, so CUDA events around a call
+    time the host too). ``module.LAUNCHES`` counts the launches of the
+    same window and must be n. The profiler is only a clock: it drops
+    kernel records now and then (49 of 50 and 37 of 50 on the card), so
+    the mean is over the ``seen`` records it kept; a window in which it
+    kept none is run again, twice at most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        module.LAUNCHES = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        launched = module.LAUNCHES
+        if launched != n:
+            raise AssertionError(f"{kernel}: {launched} launches of {n} "
+                                 f"calls")
+        total = count = 0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                total += (getattr(e, "device_time_total", None)
+                          or e.cuda_time_total)
+                count += e.count
+        if count > launched:
+            raise AssertionError(f"{kernel}: {launched} launches, the "
+                                 f"profiler recorded {count}")
+        if count:
+            return total / count / 1e3, count
+    raise AssertionError(f"{kernel}: the profiler recorded no launch in "
+                         f"three windows of {n}")
+
+
 def k7_bound(asm, iters):
     """(ms, by) for one K7 launch that took ``iters`` Newton iterations
-    (f32): per iteration (2U+1) probe lanes and 7 candidates of M rod
-    sweeps of N-1 nodes of physics and the elimination's U^3
-    multiply-adds; plus the first residual and the recording sweeps."""
+    (f32): per iteration the 20M rod sweeps the step needs (each rod's
+    base and its 12 probes, 7 line-search candidates), each N-1 nodes of
+    physics, and the elimination's U^3 multiply-adds; plus the first
+    residual's and the recording's M sweeps each."""
     M, N = asm.M, asm.N
     U = 6 * M + 7
-    sweep = M * (N - 1) * PHYS_FLOPS
-    flops = iters * ((2 * U + 1 + 7) * sweep + 2 * U ** 3) + 2 * sweep
+    sweep = (N - 1) * PHYS_FLOPS
+    flops = iters * (20 * M * sweep + 2 * U ** 3) + 2 * M * sweep
     nbytes = (4 * (2 * U + M * N * 25 + 3 * M + 13 + M * N * 19
                    + M * (N - 1) * 6 + 2) + 8 * (M * 76 + 14 + 7 * M))
     return bound(flops, nbytes)
@@ -1543,9 +1603,13 @@ def k7_bound(asm, iters):
 
 def phase_k7_k8_timings(K, dev, name_power, small):
     """K7 per launch at M = 3, 6, 9 (N=10, f32, the inputs of step 5 of the
-    sine rollout) and K8 at path C's two shapes, each against its plain
-    version and its bound."""
+    sine rollout) and K8 at path C's two shapes: the wrapper's call by CUDA
+    events (``ms``, the clock of every other kernel's row) beside the
+    kernel's device time (``device_ms``), its plain version and its
+    bound."""
     from knode_cosserat_tpu_torch.core.assembly import make_ring_assembly
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
     from knode_cosserat_tpu_torch.ops.assembly import (
         assembly_step_reference, make_assembly_step_kernel)
     from knode_cosserat_tpu_torch.ops.next_segment import (
@@ -1559,33 +1623,41 @@ def phase_k7_k8_timings(K, dev, name_power, small):
         ins = step_args(asm, assembly_controls(asm, 8, np.linspace(
             0.7, 1.3, M)), 5)
         k = make_assembly_step_kernel(asm)
-        kern = timed(lambda: k(*ins), 20)
+        kern, seen = device_ms(lambda: k(*ins), 20, "assembly_kernel", kasm)
+        call = timed(lambda: k(*ins), 20)
         plain = timed(lambda: assembly_step_reference(asm, *ins), 1)
         iters = int(k(*ins)[4])
         b_ms, b_by = k7_bound(asm, iters)
-        out[f"K7 M={M}"] = dict(ms=kern, plain_ms=plain, bound_ms=b_ms,
-                                bound_by=b_by, iters=iters)
+        out[f"K7 M={M}"] = dict(ms=call, device_ms=kern, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, iters=iters)
         log(f"[time] K7 one coupled step M={M} N=10 f32 ({iters} Newton "
-            f"iterations): kernel {kern:.4f} ms, plain {plain:.3f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by}) {tag}")
+            f"iterations): the wrapper's call {call:.4f} ms (device time "
+            f"{kern:.4f} ms over {seen} of 20 launches), plain {plain:.3f} "
+            f"ms, bound {b_ms:.6f} ms ({b_by}); plan {tuple(kasm.launch_plan(asm.dtype, M, 10))} "
+            f"{tag}")
     for label, p, cfg, net, trajs, ctls in k8_cases(K, dev, small):
         spec = cfg.spec()
         cells = k8_cells(K, p, spec, net, trajs, ctls, cfg.keypoints)
         W = [t.detach() for wb in net.weights() for t in wb]
         fn = make_fused_next_segment(p, spec)
         with torch.no_grad():
-            kern = timed(lambda: fn(net, *cells), 50)
+            kern, seen = device_ms(lambda: fn(net, *cells), 50,
+                                   "next_segment_kernel", kseg)
+            call = timed(lambda: fn(net, *cells), 50)
             plain = timed(lambda: next_segment_reference(p, spec, *cells, *W),
                           50)
         B, din = cells[0].shape[0], spec.dims[0]
         n_w = HIDDEN * (din + 25) + HIDDEN + 25
         b_ms, b_by = bound(B * node_flops(HIDDEN, din),
                            4 * (B * (19 + 19 + 6 + 3 + 19 + 6) + n_w))
-        out[f"K8 {B}"] = dict(ms=kern, plain_ms=plain, bound_ms=b_ms,
-                              bound_by=b_by)
-        log(f"[time] K8 next segment, {label}, hidden {HIDDEN} f32: kernel "
-            f"{kern:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
-            f"({b_by}) {tag}")
+        out[f"K8 {B}"] = dict(ms=call, device_ms=kern, plain_ms=plain,
+                              bound_ms=b_ms, bound_by=b_by)
+        log(f"[time] K8 next segment, {label}, hidden {HIDDEN} f32: the "
+            f"wrapper's call {call:.4f} ms (device time {kern:.4f} ms over "
+            f"{seen} of 50 launches), plain "
+            f"{plain:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}); plan {tuple(kseg.launch_plan(p.dtype, din, HIDDEN, B))} "
+            f"{tag}")
     return out
 
 
@@ -1685,19 +1757,23 @@ def main() -> int:
          "launches": wide["K6"], "max_abs_err": max(errs["K6"]),
          "ms": tt["K6"]["ms"], "plain_ms": tt["K6"]["plain_ms"],
          **row((tt["K6"]["bound_ms"], tt["K6"]["bound_by"]))},
-        {"name": "K7 assembly step (M=3, N=10, one coupled BDF-2 step)",
+        {"name": "K7 assembly step (M=3, N=10, one coupled BDF-2 step; a "
+                 "thread per rod sweep the step needs, redesigned)",
          "route": "cuda", "source": src + "assembly.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_assembly.py:84",
          "launches": k7_launches, "max_abs_err": max(errs["K7"]),
-         "ms": t78["K7 M=3"]["ms"], "plain_ms": t78["K7 M=3"]["plain_ms"],
+         "ms": t78["K7 M=3"]["ms"], "device_ms": t78["K7 M=3"]["device_ms"],
+         "plain_ms": t78["K7 M=3"]["plain_ms"],
          **row((t78["K7 M=3"]["bound_ms"], t78["K7 M=3"]["bound_by"]))},
-        {"name": "K8 next segment (232 cells, 28 inputs, hidden 512)",
+        {"name": "K8 next segment (232 cells, 28 inputs, hidden 512; a "
+                 "warp per cell over rhs_node_coop, redesigned)",
          "route": "cuda", "source": src + "next_segment.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_rhs.py:65",
          "launches": fused["launches"],
          "max_abs_err": max(errs[("K8", torch.float32)]
                             + errs[("K8", torch.float64)]),
-         "ms": t78["K8 232"]["ms"], "plain_ms": t78["K8 232"]["plain_ms"],
+         "ms": t78["K8 232"]["ms"], "device_ms": t78["K8 232"]["device_ms"],
+         "plain_ms": t78["K8 232"]["plain_ms"],
          **row((t78["K8 232"]["bound_ms"], t78["K8 232"]["bound_by"]))},
     ]
     print(json.dumps({"kernels": kernels}))

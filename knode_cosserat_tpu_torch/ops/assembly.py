@@ -16,6 +16,9 @@ its design note is there. Over X = [G_1..G_M, p_plate, h_plate]
     success: lam = 0, fails = 0; stall: hold X, lam = max(30 lam, 1e-4),
     fails += 1
 then a recording sweep gives y and z. No KNODE net and no contact plane.
+The kernel sweeps only the (rod, lane) pairs a pass needs, one thread per
+job (:func:`probe_jobs`), and closes each lane from the jobs' tips; its
+launch shape is :func:`launch_plan`.
 
 ``make_assembly_step_kernel(asm, tol, max_iter)`` returns fn(X0 (U,),
 yh (M,N,19), zh (M,N,6), tf (M,3), pph (3,), vph (3,), hph (4,),
@@ -25,21 +28,91 @@ raises). The assembly's constants go to the card once per wrapper.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..core.assembly import (MAX_FUSED_RODS, RodAssembly, _assembly_residual,
                              _sweep_all)
 from .step import _LM_GROWTH, _LM_LAMBDA0, _MAX_ESCALATIONS, fd1_eps
-from .sweep import raise_on, rod_consts, stream_of
+from . import sweep as _sweep
+from .sweep import WARP, raise_on, rod_consts, stream_of
 
 __all__ = ["make_assembly_step_kernel", "assembly_step_reference",
-           "gauss_jordan", "LAUNCHES"]
+           "gauss_jordan", "launch_plan", "probe_jobs", "AssemblyPlan",
+           "LAUNCHES"]
 
 #: K7 launches made by this module's wrapper since the count was last reset
 LAUNCHES = 0
 
 _N_ALPHAS = 7           # alphas 0.5^0 .. 0.5^6
+_ROD_JOBS = 13          # probe jobs per rod: its base sweep, 6 +h, 6 -h
+_TIP = 13               # a job's tip: p (3), h (4), n (3), m (3)
+_MAX_THREADS = 128
+# sizeof(RodConsts<T>) / sizeof(T) in csrc/rhs_rows.cuh
+_ROD_CONSTS = 76
+# bytes of the kernel's own __shared__ variables (the permutation, the
+# pivot board, the scalars: 404 in float64), beside the dynamic ones
+_STATIC_SMEM = 512
+
+
+class AssemblyPlan(NamedTuple):
+    """K7's launch shape: threads per block and dynamic shared memory in
+    bytes."""
+    threads: int
+    smem_bytes: int
+
+
+def launch_plan(dtype: torch.dtype, M: int, N: int) -> AssemblyPlan:
+    """K7's launch shape for M rods of N nodes: a thread per probe job
+    (13M), per lane (2U+1) and per line-search job (7M), rounded up to whole
+    warps; the shared memory csrc/assembly.cu::smem_count counts (the
+    constants, histories, r and the U x U system in padded rows, the 13M
+    jobs' tips). Raises for M outside 1..MAX_FUSED_RODS, N < 2, or a block
+    the card cannot hold: the longest rod is N = 1127 / 362 / 162 / 99 at
+    M = 1 / 3 / 6 / 9 in float64 and N = 2287 / 749 / 355 / 228 in
+    float32."""
+    if not 1 <= M <= MAX_FUSED_RODS:
+        raise ValueError(f"the fused step supports 1 <= M <= "
+                         f"{MAX_FUSED_RODS} rods, got {M}")
+    if N < 2:
+        raise ValueError(f"a rod needs N >= 2 nodes, got {N}")
+    U = 6 * M + 7
+    threads = -(-max(_ROD_JOBS * M, 2 * U + 1, _N_ALPHAS * M) // WARP) * WARP
+    lda = -(-U // 32) * 32 + 2          # A's padded rows
+    values = (M * _ROD_CONSTS + 14 + 7 * M + M * N * 25 + 3 * M + 13 + 5 * U
+              + U * lda + _N_ALPHAS + 1 + _ROD_JOBS * M * _TIP)
+    smem = values * (8 if dtype == torch.float64 else 4)
+    if threads > _MAX_THREADS or smem + _STATIC_SMEM > _sweep.SMEM_BUDGET:
+        raise ValueError(f"K7 at M={M}, N={N}: {threads} threads, {smem} B "
+                         f"of shared memory exceed one block")
+    return AssemblyPlan(threads, smem)
+
+
+def probe_jobs(M: int):
+    """The probe pass's job map, as csrc/assembly.cu runs it: (jobs, src).
+    jobs[t] = (rod, unknown, sign) is job t's sweep: rod i's base reaction
+    G_i, its unknown k (0..5) moved by sign * h (unknown -1, sign 0: no
+    move), job 13i the base and 13i+1+k+6s the probes. src[l][j] is the job
+    whose tip lane l closes for rod j: lane 0 the base residual, lanes
+    1..U the +h probes of unknown l-1, lanes U+1..2U the -h probes of
+    unknown l-1-U (U = 6M+7); a lane that moves one of G_j's unknowns reads
+    rod j's probe, every other lane (the plate pose's too) its base."""
+    U = 6 * M + 7
+    jobs = []
+    for i in range(M):
+        jobs.append((i, -1, 0))
+        jobs.extend((i, k, s) for s in (1, -1) for k in range(6))
+    src = []
+    for lane in range(2 * U + 1):
+        minus = lane > U
+        pk = lane - 1 - U if minus else lane - 1
+        src.append([_ROD_JOBS * j + (1 + pk % 6 + 6 * minus
+                                     if lane and 0 <= pk < 6 * M
+                                     and pk // 6 == j else 0)
+                     for j in range(M)])
+    return jobs, src
 
 
 def gauss_jordan(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -130,7 +203,7 @@ def make_assembly_step_kernel(asm: RodAssembly, tol: float = 1e-10,
     U = 6 * M + 7
     if M > MAX_FUSED_RODS:
         raise ValueError(f"2(6M+7)+1 = {2 * U + 1} probe lanes exceed the "
-                         f"128-lane tile; the fused step supports M <= "
+                         f"128-thread block; the fused step supports M <= "
                          f"{MAX_FUSED_RODS}")
     cache = {}
 
@@ -177,13 +250,15 @@ def _launch(asm, cache, tol, max_iter, X0, yh, zh, tf, ph):
     z = torch.empty((M, N - 1, 6), **kw)
     r2 = torch.empty((), **kw)
     iters = torch.empty((), dtype=torch.int32, device=X0.device)
+    plan = launch_plan(X0.dtype, M, N)
     with torch.cuda.device(X0.device):
         code = library().knode_assembly(
             int(X0.dtype == torch.float64), M, N, cache["consts"].data_ptr(),
             cache["plate"].data_ptr(), float(tol), fd1_eps(X0.dtype),
             int(max_iter), X0.data_ptr(), yh.data_ptr(), zh.data_ptr(),
             tf.data_ptr(), ph.data_ptr(), X.data_ptr(), y.data_ptr(),
-            z.data_ptr(), r2.data_ptr(), iters.data_ptr(), stream_of(X0))
+            z.data_ptr(), r2.data_ptr(), iters.data_ptr(), plan.threads,
+            plan.smem_bytes, stream_of(X0))
     raise_on(code, "K7 assembly step")
     LAUNCHES += 1
     return X, y, z, r2, iters

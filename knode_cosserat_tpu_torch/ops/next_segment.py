@@ -3,7 +3,9 @@ PyTorch version.
 
 Counterpart of ``knode_cosserat_tpu/ops/pallas_rhs.py``
 (``make_fused_next_segment``). The CUDA kernel is ``csrc/next_segment.cu``
-(one thread per cell over K1's per-node body); its design note is there.
+(one warp per cell over K1's cooperative body, the net staged once per
+block where it fits; its launch shape is :func:`launch_plan`); its design
+note is there.
 
 ``make_fused_next_segment(p, spec)`` returns fn(net, y (B,19), yh (B,19),
 zh (B,6), tf (B,3)) -> (y + ds * rhs(y, yh, zh, tf), z), the
@@ -18,6 +20,7 @@ their gradients.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -25,14 +28,46 @@ import torch.nn.functional as F
 from ..core.params import RodParams
 from ..core.spatial import next_segment_euler
 from ..models.mlp import ACTIVATIONS, MLPSpec
-from .sweep import _ACT_CODES, check_spec, raise_on, rod_consts, stream_of
+from . import sweep as _sweep
+from .sweep import (_ACT_CODES, WARP, check_spec, net_smem_bytes, raise_on,
+                    rod_consts, stream_of)
 
-__all__ = ["make_fused_next_segment", "next_segment_reference", "LAUNCHES"]
+__all__ = ["make_fused_next_segment", "next_segment_reference", "launch_plan",
+           "SegmentPlan", "LAUNCHES"]
 
 #: K8 launches made by this module's wrapper since the count was last reset
 LAUNCHES = 0
 
-_BLOCK = 128    # threads per block: one cell per thread
+_MAX_WARPS = 8      # cells (one warp each) a block runs at once
+_SMS = 132          # the H100 SXM's streaming multiprocessors
+
+
+class SegmentPlan(NamedTuple):
+    """K8's launch shape: threads per block (a warp per cell), blocks,
+    dynamic shared memory in bytes, and whether the net is staged there."""
+    threads: int
+    blocks: int
+    smem_bytes: int
+    staged: bool
+
+
+def launch_plan(dtype: torch.dtype, nn_in: int, hidden: int,
+                B: int) -> SegmentPlan:
+    """K8's launch shape for B cells and a net of ``nn_in`` inputs and
+    ``hidden`` units: a warp per cell, 8 cells a block (fewer only when B
+    is), at most 132 blocks (one per SM; each warp then takes every
+    (8 blocks)-th cell), so that each block's staging of the net serves as
+    many cells as it can (on the H100, 232 cells: 0.0118 ms in 29 blocks,
+    0.0179 in 116, PERF.md); the net staged in shared memory where it
+    fits in ops/sweep.py's SMEM_BUDGET, else read from global memory. A
+    cell's result does not depend on the plan."""
+    if B < 1:
+        raise ValueError(f"K8 needs at least one cell, got {B}")
+    C = min(_MAX_WARPS, B)
+    w = net_smem_bytes(dtype, nn_in, hidden)
+    staged = w <= _sweep.SMEM_BUDGET
+    return SegmentPlan(C * WARP, min(_SMS, -(-B // C)), w if staged else 0,
+                       staged)
 
 
 def _net_fn(spec: MLPSpec, weights):
@@ -129,13 +164,15 @@ def _launch(consts, spec, y, yh, zh, tf, weights):
     z = torch.empty((B, 6), dtype=y.dtype, device=y.device)
     if B == 0:
         return yg, z
+    plan = launch_plan(y.dtype, spec.dims[0], spec.dims[1], B)
     with torch.cuda.device(y.device):
         code = library().knode_next_segment(
             int(y.dtype == torch.float64), spec.dims[0],
             _ACT_CODES[spec.activation], B, ctypes.byref(consts),
             *(w.data_ptr() for w in ws), spec.dims[1], y.data_ptr(),
             yh.data_ptr(), zh.data_ptr(), tf.data_ptr(), yg.data_ptr(),
-            z.data_ptr(), _BLOCK, stream_of(y))
+            z.data_ptr(), plan.threads, plan.blocks, plan.smem_bytes,
+            int(plan.staged), stream_of(y))
     raise_on(code, "K8 next segment")
     LAUNCHES += 1
     return yg, z

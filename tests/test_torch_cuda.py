@@ -514,10 +514,16 @@ def _assembly_step_inputs(asm, seed):
             rnd((3,), 1e-3))
 
 
-@pytest.mark.parametrize("M,N", [(2, 6), (3, 10)])
-def test_assembly_kernel_matches_plain(dev, M, N):
+# (M, N, bound on X and on y relative to its largest). At M = 9 the
+# coupled Jacobian's condition number is ~1e7 (1.2e5 at M = 3), and the
+# plain version alone moves X by 1.6e-9 when the tendon forces change by
+# 1e-15 relative (CPU, float64): two solves that both stop at |r|^2 <=
+# 1e-24 agree there to ~1e-9, not beyond
+@pytest.mark.parametrize("M,N,tol", [(1, 6, 1e-9), (2, 6, 1e-9),
+                                     (3, 10, 1e-9), (9, 10, 1e-8)])
+def test_assembly_kernel_matches_plain(dev, M, N, tol):
     """K7 against its plain version, f64, both solved to 1e-24: X within
-    1e-9, y within 1e-9 of its largest, the same iterations."""
+    tol, y within tol of its largest, the same iterations."""
     from knode_cosserat_tpu_torch.core.assembly import make_ring_assembly
     from knode_cosserat_tpu_torch.ops import assembly as kasm
     asm = make_ring_assembly(n_rods=M, base_radius=0.05, N=N, device=dev)
@@ -527,8 +533,8 @@ def test_assembly_kernel_matches_plain(dev, M, N):
     want = kasm.assembly_step_reference(asm, *ins, tol=1e-24, max_iter=30)
     torch.cuda.synchronize()
     assert kasm.LAUNCHES == 1
-    assert float((got[0] - want[0]).abs().max()) < 1e-9
-    assert float((got[1] - want[1]).abs().max()) < 1e-9 * float(
+    assert float((got[0] - want[0]).abs().max()) < tol
+    assert float((got[1] - want[1]).abs().max()) < tol * float(
         want[1].abs().max())
     assert int(got[4]) == int(want[4])
 
@@ -553,17 +559,118 @@ def test_fused_assembly_rollout_runs_on_the_kernel(dev):
     assert float((out.plate_pose - plain.plate_pose).abs().max()) < 1e-4
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("history", [False, True])
-def test_next_segment_kernel_matches_plain(dev, dtype, history):
-    """K8 against its plain version on 300 cells."""
+@pytest.mark.parametrize("seed", [9, 10, 11])
+def test_assembly_kernel_f32_nine_rods_matches_plain(dev, seed):
+    """K7 in f32 at M = 9 (the fused step's largest assembly) against the
+    same wrapper on CPU tensors (its plain version), one step of two
+    Newton iterations: the first stalls, the second is LM-damped and takes
+    r2 from ~3 to ~1e-6. Equal iterations; the plate pose within 1e-6
+    (the two differ by <= 4e-8; a kernel that reads the base tip for the
+    -h probes, drops the LM term's 2h floor, skips one -h lane or sweeps a
+    wrong candidate moves it by >= 1.4e-5, the kernel emulated on the CPU);
+    G within 1% of its largest (<= 0.2%; the near-null direction of the
+    rods' axial forces); r2 within 10x (<= 2.9x); y as the plain sweep at
+    the kernel's own X. From the third iteration on, rounding decides where
+    each stalls (PERF.md)."""
+    from knode_cosserat_tpu_torch.core.assembly import (_sweep_all,
+                                                        make_ring_assembly)
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    M = 9
+    asms = {d: make_ring_assembly(n_rods=M, base_radius=0.05, N=10,
+                                  dtype=torch.float32, device=d)
+            for d in ("cpu", dev)}
+    ins = [t.float() for t in _assembly_step_inputs(
+        make_ring_assembly(n_rods=M, base_radius=0.05, N=10, device="cpu"),
+        seed)]
+    kasm.LAUNCHES = 0
+    got = kasm.make_assembly_step_kernel(asms[dev], max_iter=2)(
+        *[t.to(dev) for t in ins])
+    got = [t.cpu() for t in got]
+    assert kasm.LAUNCHES == 1
+    want = kasm.make_assembly_step_kernel(asms["cpu"], max_iter=2)(*ins)
+    assert int(got[4]) == int(want[4]) == 2
+    assert float((got[0][6 * M:] - want[0][6 * M:]).abs().max()) < 1e-6
+    G = want[0][:6 * M]
+    assert float((got[0][:6 * M] - G).abs().max()) < 1e-2 * float(
+        G.abs().max())
+    assert 0.1 < float(got[3]) / float(want[3]) < 10.0
+    y, z = _sweep_all(asms["cpu"], got[0][:6 * M].reshape(M, 6), *ins[1:4],
+                      None, False)
+    assert torch.allclose(got[1], y, rtol=1e-5, atol=1e-6)
+    assert torch.allclose(got[2], z, rtol=1e-5, atol=1e-6)
+
+
+def test_assembly_kernel_just_under_the_48kb_default(dev):
+    """K7 at M = 6, N = 10, f64: its 48,944 B plan and the kernel's
+    static shared memory together pass the 48 KB a block gets by default,
+    so the launch must raise the limit. Both solved to 1e-20 (at 1e-24
+    these inputs straddle the stop test): the same iterations, X and y
+    within 1e-7 (~1e-8 apart on the CPU emulation of the kernel)."""
+    from knode_cosserat_tpu_torch.core.assembly import make_ring_assembly
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    asm = make_ring_assembly(n_rods=6, base_radius=0.05, N=10, device=dev)
+    assert 47 * 1024 < kasm.launch_plan(torch.float64, 6, 10).smem_bytes \
+        <= 48 * 1024
+    ins = _assembly_step_inputs(asm, 6)
+    kasm.LAUNCHES = 0
+    got = kasm.make_assembly_step_kernel(asm, tol=1e-20, max_iter=30)(*ins)
+    want = kasm.assembly_step_reference(asm, *ins, tol=1e-20, max_iter=30)
+    torch.cuda.synchronize()
+    assert kasm.LAUNCHES == 1
+    assert int(got[4]) == int(want[4])
+    assert float((got[0] - want[0]).abs().max()) < 1e-7
+    assert float((got[1] - want[1]).abs().max()) < 1e-7 * float(
+        want[1].abs().max())
+
+
+@pytest.mark.parametrize("M,N", [(1, 1127), (9, 99)])
+def test_assembly_kernel_at_its_longest_rod(dev, M, N):
+    """K7 at the longest rod its block holds (ops/assembly.py::launch_plan,
+    f64) launches and agrees with its plain version: both solved to 1e-24,
+    X and y within 1e-7 (at M = 9, N = 99 the plain version alone moves X
+    by 1.7e-8 when the tendon forces change by 1e-15 relative, and its
+    iterations by one: CPU, float64)."""
+    from knode_cosserat_tpu_torch.core.assembly import make_ring_assembly
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    asm = make_ring_assembly(n_rods=M, base_radius=0.05, N=N, device=dev)
+    with pytest.raises(ValueError):
+        kasm.launch_plan(torch.float64, M, N + 1)
+    ins = _assembly_step_inputs(asm, M)
+    kasm.LAUNCHES = 0
+    got = kasm.make_assembly_step_kernel(asm, tol=1e-24, max_iter=30)(*ins)
+    want = kasm.assembly_step_reference(asm, *ins, tol=1e-24, max_iter=30)
+    torch.cuda.synchronize()
+    assert kasm.LAUNCHES == 1
+    assert float(got[3]) <= 1e-24
+    assert abs(int(got[4]) - int(want[4])) <= 1
+    assert float((got[0] - want[0]).abs().max()) < 1e-7
+    assert float((got[1] - want[1]).abs().max()) < 1e-7 * float(
+        want[1].abs().max())
+
+
+def _segment_cells(B, dtype, dev, seed=1):
+    g = np.random.RandomState(seed)
+    return [torch.tensor(a, dtype=dtype, device=dev) for a in (
+        np.eye(1, 19, 3)[0] + 1e-2 * g.randn(B, 19),
+        1e-2 * g.randn(B, 19), 1e-2 * g.randn(B, 6), g.randn(B, 3))]
+
+
+@pytest.mark.parametrize("dtype,history,hidden", [
+    (torch.float64, False, 64), (torch.float64, True, 64),
+    (torch.float32, False, 64), (torch.float32, True, 64),
+    (torch.float32, False, 100), (torch.float64, True, 100),
+    (torch.float64, True, 512)])
+def test_next_segment_kernel_matches_plain(dev, dtype, history, hidden):
+    """K8 against its plain version on 300 cells: the staged net, a ragged
+    hidden width (100), and float64 with 53 inputs at hidden 512, whose
+    324 KB net is read from global memory."""
     from knode_cosserat_tpu_torch.ops import next_segment as kseg
     p = K.apply_mod("nsw", dtype=dtype, device=dev)
-    spec, net = _net(history, dtype, dev)
-    g = np.random.RandomState(1)
-    cells = [torch.tensor(a, dtype=dtype, device=dev) for a in (
-        np.eye(1, 19, 3)[0] + 1e-2 * g.randn(300, 19),
-        1e-2 * g.randn(300, 19), 1e-2 * g.randn(300, 6), g.randn(300, 3))]
+    spec = K.MLPSpec.for_knode(hidden, history=history)
+    net = K.init_mlp(spec, torch.Generator().manual_seed(0), dtype, dev)
+    assert kseg.launch_plan(dtype, spec.dims[0], hidden, 300).staged == (
+        hidden != 512)
+    cells = _segment_cells(300, dtype, dev)
     kseg.LAUNCHES = 0
     with torch.no_grad():
         got = kseg.make_fused_next_segment(p, spec)(net, *cells)
@@ -574,6 +681,41 @@ def test_next_segment_kernel_matches_plain(dev, dtype, history):
     rtol, atol = TOL[dtype]
     for a, b in zip(got, want):
         assert torch.allclose(a, b, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_next_segment_cell_alone_equals_cell_in_batch(dev, dtype):
+    """A cell's bits depend on the net and the warp alone: the same cell
+    alone and inside batches of 31, 300 and 1,904 (other launch plans)."""
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    p = K.apply_mod("nsw", dtype=dtype, device=dev)
+    spec = K.MLPSpec.for_knode(512)
+    net = K.init_mlp(spec, torch.Generator().manual_seed(0), dtype, dev)
+    fn = kseg.make_fused_next_segment(p, spec)
+    cells = _segment_cells(1904, dtype, dev, seed=3)
+    with torch.no_grad():
+        alone = fn(net, *[c[17:18] for c in cells])
+        for B in (31, 300, 1904):
+            got = fn(net, *[c[:B] for c in cells])
+            for a, b in zip(alone, got):
+                assert torch.equal(a[0], b[17]), B
+
+
+def test_next_segment_raises_when_the_card_refuses(dev, monkeypatch):
+    """A plan the card cannot take (the 324 KB float64 53-input net at
+    hidden 512 staged) raises; nothing falls back."""
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    monkeypatch.setattr(ksweep, "SMEM_BUDGET", 1 << 20)
+    p = K.apply_mod("nsw", dtype=torch.float64, device=dev)
+    spec = K.MLPSpec.for_knode(512, history=True)
+    net = K.init_mlp(spec, torch.Generator().manual_seed(0), torch.float64,
+                     dev)
+    assert kseg.launch_plan(torch.float64, 53, 512, 8).staged
+    before = kseg.LAUNCHES
+    with torch.no_grad(), pytest.raises(RuntimeError):
+        kseg.make_fused_next_segment(p, spec)(
+            net, *_segment_cells(8, torch.float64, dev))
+    assert kseg.LAUNCHES == before
 
 
 def test_fused_train_step_runs_on_the_kernel(dev):
