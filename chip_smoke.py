@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check and
-time the hand-written kernels, and drive the serving, training, assembly
-and plate-pose MPC paths.
+time the hand-written kernels, and drive the serving, training, CLI,
+assembly and plate-pose MPC paths.
 
     python3 chip_smoke.py
 
@@ -47,14 +47,27 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      the 10 trained nets of the nsw cells stacked (the eval's launch
      shape) against its plain version and against 10 single-net launches,
      bit for bit.
- 10. K6 (the wide trainer) against its plain version: hidden 640 (five
+ 10. the study's CLI, counted (the CLI's functions, in a temporary
+     directory, each timed on the synchronised host clock):
+     ``train sine sine 0.5 1.0 --mod nsw --epochs CLI_EPOCHS`` (K4; K2 in
+     its validations); ``simulate --model <that checkpoint> --fast`` (K2
+     with the net) against ``simulate --model`` (the plain scan), 100
+     steps, the first 50 within ROLLOUT_F32; where the host has pandas,
+     ``prepare`` and ``estimate`` of tests/fixtures/sil_step_1100;
+     ``simulate --fast`` (physics-only K2) at two sine periods, 230 steps
+     each, saved as ``prepare``'s files of the sinesine preset (the repo
+     holds no recording that long); ``estimate`` on each (with the
+     simulated rod's del_t the velocities within 0.05, mean abs, of the
+     simulator's); ``train-real --data sinesine`` at its defaults (K4).
+     The losses must fall and the launch counts show K2 and K4.
+ 11. K6 (the wide trainer) against its plain version: hidden 640 (five
      forward unit tiles of 128) on bench_data.npz and hidden 8192
      at the train-real shape (1,904 cells, 53 inputs, AdamW 0.1, random
      data, train_real_data, two seeds), after 1 and 20 epochs; 100 + 100
      epochs against one 200-epoch run, bit for bit.
- 11. the wide training path, counted: train_knode at hidden 8192 on the
+ 12. the wide training path, counted: train_knode at hidden 8192 on the
      train-real shape (cfg.fused="auto" routes to K6 on the card).
- 12. K7 (one coupled-assembly Newton step) against its plain version:
+ 13. K7 (one coupled-assembly Newton step) against its plain version:
      float64, one step and 20-step rollouts at M=2 (N=6) and M=3 (N=10),
      and one step at M=6 and M=9 (N=10), X / G / plate within 1e-9 (1e-8
      at M=6 and 9, K7_F64_WIDE), y and z within as much relative,
@@ -62,22 +75,22 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      K7_STRADDLES steps one apart, both converged); float32 at the bench's
      assembly (ASM_CFG), 20 steps: K7 and its plain version inside the
      float64 truth's envelope of the plain coupled Newton.
- 13. the assembly path (A), counted: simulate_assembly(fused=True) at
+ 14. the assembly path (A), counted: simulate_assembly(fused=True) at
      ASM_CFG, float32, T=101 and T=1001 (steps/s; K7 launches == T-1),
      the plain coupled Newton at T=21, and the CLI's simulate-assembly
      (20 steps, its .npz checked).
- 14. the plate-pose MPC path (B), counted: make_assembly_planner(fused=
+ 15. the plate-pose MPC path (B), counted: make_assembly_planner(fused=
      True, w_du=0), horizon 8, 40 iterations, on a 1 cm sway and 0.1 mm
      lift (the cost must fall); the float64 gradient of its first cost
      through K7's roots against the plain Newton's (rtol 1e-6).
- 15. K8 (the fused next segment) against its plain version on path C's
+ 16. K8 (the fused next segment) against its plain version on path C's
      cells: bench_data.npz at for_knode(512) (232 cells) and the train-real
      shape (53 inputs, 1,904 cells), float64 and float32.
- 16. the fused training path (C), counted: FUSED_STEPS
+ 17. the fused training path (C), counted: FUSED_STEPS
      make_train_step(use_pallas=True) steps against as many plain steps
      from the same net (losses within rtol 1e-4), and 20 of each at the
      train-real shape.
- 17. timings, kernel vs plain, each with the card's name and power limit,
+ 18. timings, kernel vs plain, each with the card's name and power limit,
      and each kernel's bound (the larger of its operations over the
      float32 peak and its bytes over the memory rate); K2 at batch 1, 40
      and 256, and K2's share of a mega rollout's wall time per step (CUDA
@@ -144,6 +157,16 @@ MODS = ["nsw", "short", "youngs", "lengthstiff"]
 TRAIN_EPOCHS = 1000
 MULTITRAIN_EPOCHS = 1000          # the CLI's default
 WIDE_HIDDEN = 8192                # the JAX bench's wide trainer shape
+# phase_cli: train's depth (cut from the CLI's 2000 epochs to keep the
+# script inside its time), the hybrid rollouts' length and how many of
+# their steps are held to ROLLOUT_F32, the sinesine files' sine periods
+# (s) and length (train-real's trim of 100 + its train_len of 120 + 10),
+# and the bar on the estimated velocities (tests/test_realworld.py:78)
+CLI_EPOCHS = 400
+CLI_MODEL_STEPS, CLI_MODEL_HELD = 100, 50
+CLI_PERIODS = (1.0, 3.0)
+CLI_SIM_STEPS = 230
+EST_VEL_BAR = 0.05
 # the JAX bench's assembly (bench.py:517-525): 3 rods on a 5 cm ring, N=10
 ASM_CFG = dict(n_rods=3, base_radius=0.05, N=10)
 ASM_AMPS = (0.7, 1.0, 1.3)        # its sine schedule's parameter per rod
@@ -987,6 +1010,187 @@ def phase_multitrain(K, dev):
     return launches, res
 
 
+def write_prepared(path, traj, controls, del_t):
+    """A rollout (T, N, 50) saved in ``prepare``'s npz layout: t, traj,
+    controls, the rod-grid poses ``interpolated`` (T, 7, N) and the marker
+    nodes' positions (T, 5, 3)."""
+    from knode_cosserat_tpu_torch.cli import MARKER_NODES
+
+    T = len(traj)
+    np.savez_compressed(path, t=np.arange(T) * del_t, traj=traj,
+                        controls=controls,
+                        interpolated=np.moveaxis(traj[:, :, :7], 1, 2),
+                        positions=traj[:, MARKER_NODES, :3])
+
+
+def phase_cli(K, dev, name_power):
+    """The study's entry points, counted: the CLI's train, simulate,
+    estimate and train-real functions on the card at hidden 512, in a
+    temporary directory, each timed on the synchronised host clock."""
+    import importlib.util
+    import tempfile
+
+    from knode_cosserat_tpu_torch import cli
+    from knode_cosserat_tpu_torch.ops import step as kstep
+    from knode_cosserat_tpu_torch.ops import sweep as ksweep
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+    from knode_cosserat_tpu_torch.realworld import estimate_state, fit_curve
+    from knode_cosserat_tpu_torch.training.checkpoint import load_checkpoint
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("pandas", "matplotlib")}
+    log(f"[cli] this host has pandas {have['pandas']}, matplotlib "
+        f"{have['matplotlib']} (prepare needs pandas, playback and "
+        f"simulate --gif matplotlib; without them they run on the CPU "
+        f"tests only)")
+    secs = {}
+
+    def run(label, argv):
+        log(f"[cli] python -m knode_cosserat_tpu_torch {' '.join(argv)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        log(f"[time] cli {label}: {secs[label]:.2f} s [{name_power}]")
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="knode_cli_") as d:
+        saved, datas = os.path.join(d, "saved_models"), os.path.join(d,
+                                                                     "datas")
+        kstep.LAUNCHES = ksweep.LAUNCHES = ktrain.LAUNCHES = 0
+        # 1. train on the nsw rod (CLI_EPOCHS: cut from the CLI's 2000
+        # epochs to keep the script inside its time), validation sine 1.25
+        # every 200 epochs. The rod is modified: with the reference rod
+        # itself the epoch-0 score of the rod without a net is 0, so the
+        # kept "best" net would be the untrained one (the reference's
+        # quirk: physics_train.py:275,380)
+        res = run("train", ["train", "sine", "sine", "0.5", "1.0", "--mod",
+                            "nsw", "--epochs", str(CLI_EPOCHS), "--save_dir",
+                            saved])
+        (name,) = os.listdir(saved)
+        ckpt = os.path.join(saved, name)
+        tree, meta = load_checkpoint(ckpt)
+        lh = res.loss_history
+        shapes = [tuple(l["w"].shape) for l in tree["params"]]
+        log(f"[cli] train ({CLI_EPOCHS} epochs, cut from 2000): loss "
+            f"{lh[0]:.4e} -> {lh[-1]:.4e}; DTW history "
+            f"{[(e, round(v, 6)) for e, v in res.dtw_history]}; best DTW "
+            f"{res.best_dtw:.6f}; {name}: weights {shapes}, hidden "
+            f"{meta['train']['hidden']}")
+        if not (np.isfinite(lh).all() and lh[-1] < lh[0]
+                and np.isfinite(res.best_dtw)
+                and shapes == [(HIDDEN, 28), (25, HIDDEN)]
+                and meta["train"]["hidden"] == HIDDEN):
+            raise AssertionError(f"cli train: loss {lh[0]} -> {lh[-1]}, best "
+                                 f"DTW {res.best_dtw}, weights {shapes}")
+
+        # 2. the hybrid rollout of that checkpoint: K2 with the net against
+        # the plain autodiff-Newton scan, both on the card
+        trajs = {}
+        for label, fast in (("simulate --model --fast", ["--fast"]),
+                            ("simulate --model", [])):
+            out = os.path.join(d, f"model{len(trajs)}.npz")
+            trajs[label] = run(label, ["simulate", "--model", ckpt,
+                                       "--steps", str(CLI_MODEL_STEPS),
+                                       "--save", out, *fast])
+        a, b = (torch.tensor(t) for t in trajs.values())
+        ok, e_held = close(a[:CLI_MODEL_HELD], b[:CLI_MODEL_HELD], *ROLLOUT_F32)
+        e_all = float((a - b).abs().max())
+        log(f"[cli] simulate --model --fast vs --model {tuple(a.shape)}: max "
+            f"err {e_held:.3e} over the first {CLI_MODEL_HELD} steps (bar "
+            f"rtol/atol {ROLLOUT_F32}), {e_all:.3e} over all {len(a)}; "
+            f"finite {bool(torch.isfinite(a).all())} / "
+            f"{bool(torch.isfinite(b).all())}")
+        if not ok:
+            raise AssertionError(f"cli simulate: mega vs scan {e_held:.3e} "
+                                 f"beyond {ROLLOUT_F32}")
+
+        # 3. the repo's recorded experiment (a software-in-the-loop
+        # recording as per-topic CSVs, tests/fixtures/sil_step_1100):
+        # prepare (ingestion, then its rollout on the card: float64, the
+        # plain scan) and estimate, where this host has pandas to ingest it
+        if have["pandas"]:
+            fix_dir = os.path.join(d, "fixture")
+            run("prepare (sil_step_1100)",
+                ["prepare", os.path.join(HERE, "tests", "fixtures",
+                                         "sil_step_1100"),
+                 "--out_dir", fix_dir])
+            run("estimate (sil_step_1100)",
+                ["estimate", "sil_step_1100", "--data_dir", fix_dir])
+            prep = np.load(os.path.join(fix_dir, "sil_step_1100.npz"))
+            est = np.load(os.path.join(fix_dir,
+                                       "sil_step_1100_estimated.npz"))
+            T = len(prep["t"])
+            log(f"[cli] prepare sil_step_1100: traj {prep['traj'].shape} "
+                f"{prep['traj'].dtype}, interpolated "
+                f"{prep['interpolated'].shape}; estimate: traj "
+                f"{est['traj'].shape}")
+            if not (prep["traj"].shape == (T, 10, 50)
+                    and prep["traj"].dtype == np.float64
+                    and np.isfinite(prep["traj"]).all()
+                    and est["traj"].shape == (T, 25, 10)
+                    and np.isfinite(est["traj"]).all()):
+                raise AssertionError("cli prepare / estimate of the fixture")
+
+        # 4. physics-only K2 rollouts saved as prepare's files of the
+        # sinesine preset, then estimate each and train-real on them
+        os.makedirs(datas)
+        p_sim = K.apply_mod(None, dtype=torch.float32, device=dev)
+        p_est = K.make_rod(device=dev)
+        for fname, period in zip(cli.REAL_PRESETS["sinesine"], CLI_PERIODS):
+            out = os.path.join(d, f"{fname}_sim.npz")
+            traj = run(f"simulate --fast ({fname})",
+                       ["simulate", "--fast", "--type", "sine", "--arg",
+                        str(period), "--steps", str(CLI_SIM_STEPS), "--save",
+                        out])
+            ctl = np.load(out)["controls"]
+            write_prepared(os.path.join(datas, fname + ".npz"), traj, ctl,
+                           float(p_sim.del_t))
+            run(f"estimate ({fname})", ["estimate", fname, "--data_dir",
+                                        datas])
+            est = np.load(os.path.join(datas, fname + "_estimated.npz"))
+            sim = np.moveaxis(traj, 1, 2).astype(np.float64)  # (T, 50, N)
+            grid = fit_curve(sim[:, :7, cli.MARKER_NODES], cli.MARKER_LOC,
+                             p_sim.N)
+            # the command estimates with the reference's CosseratRod()
+            # defaults (del_t 0.005); with the simulated rod's own del_t
+            # the velocities must track the simulator's
+            # (tests/test_realworld.py:69-78)
+            mine, _ = estimate_state(grid, ctl, p_sim)
+            v_err = float(np.abs(mine[5:-5, 13:16, 5]
+                                 - sim[5:-5, 13:16, 5]).mean())
+            ratio = float(p_sim.del_t) / float(p_est.del_t)
+            e_cmd = float(np.abs(est["traj"][:, 13:16] / ratio
+                                 - mine[:, 13:16]).max())
+            log(f"[cli] estimate {fname}: traj {est['traj'].shape}; "
+                f"velocities with the simulated rod's del_t vs the "
+                f"simulator's: mean abs {v_err:.3e} (bar {EST_VEL_BAR}); the "
+                f"command's (del_t {float(p_est.del_t)}) / {ratio:g} vs "
+                f"those: max {e_cmd:.3e}")
+            if not (v_err < EST_VEL_BAR and e_cmd < 1e-9
+                    and np.isfinite(est["traj"]).all()):
+                raise AssertionError(f"cli estimate {fname}: velocity error "
+                                     f"{v_err:.3e}, command {e_cmd:.3e}")
+        res = run("train-real", ["train-real", "--data", "sinesine",
+                                 "--data_dir", datas, "--save_path",
+                                 os.path.join(d, "real_model")])
+        lh = res.loss_history
+        log(f"[cli] train-real (sinesine, 300 epochs, hidden {HIDDEN}, "
+            f"noise 0.01): loss {lh[0]:.4e} -> {lh[-1]:.4e}")
+        if not (np.isfinite(lh).all() and lh[-1] < lh[0]):
+            raise AssertionError(f"cli train-real: loss {lh[0]} -> {lh[-1]}")
+        torch.cuda.synchronize()
+        launches = {"K2": kstep.LAUNCHES, "K3": ksweep.LAUNCHES,
+                    "K4": ktrain.LAUNCHES}
+    log(f"[cli] {sum(secs.values()):.1f} s in the commands; main-path "
+        f"launches: ops.step.LAUNCHES {launches['K2']}, ops.sweep.LAUNCHES "
+        f"{launches['K3']}, ops.train.LAUNCHES {launches['K4']}")
+    if launches["K2"] == 0 or launches["K4"] == 0:
+        raise AssertionError(f"the CLI path missed a kernel: {launches}")
+    return launches
+
+
 def wide_case(K, dev, hidden, data=None, seed=SEED):
     """A wide run's rod, config, net and data: ``data`` (bench_data.npz) at
     28 inputs, or the train-real shape (4 x 120 steps -> 1,904 cells, 53
@@ -1684,6 +1888,7 @@ def main() -> int:
     train, _ = phase_train(K, dev)
     phase_k5(K, dev, errs, data[0])
     multi, grid = phase_multitrain(K, dev)
+    clis = phase_cli(K, dev, name_power)
     nsw = [n for c, n in zip(grid.cells, grid.params) if c.mod == "nsw"]
     check_step_per_rod(K, dev, errs, K.apply_mod("nsw", dtype=torch.float32,
                                                  device=dev), nsw,
@@ -1718,20 +1923,21 @@ def main() -> int:
          "route": "cuda", "source": src + "rhs_rows.cuh",
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:93",
          "launches": (serve["K2"] + serve["K3"] + train["K2"] + train["K3"]
-                      + multi["K2"] + multi["K3"] + k7_launches
+                      + multi["K2"] + multi["K3"] + clis["K2"] + clis["K3"]
+                      + k7_launches
                       + fused["launches"]),
          "max_abs_err": k1_err, "ms": ms["K1"][0], "plain_ms": ms["K1"][1],
          **row(k1_bound)},
         {"name": "K3 sweep (hybrid: one warp per lane, redesigned)",
          "route": "cuda", "source": src + "sweep.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:201",
-         "launches": serve["K3"] + train["K3"] + multi["K3"],
+         "launches": serve["K3"] + train["K3"] + multi["K3"] + clis["K3"],
          "max_abs_err": k3_err,
          "ms": ms["K3"][0], "plain_ms": ms["K3"][1], **row(k3_bound)},
         {"name": "K2 step (256 rods; one block per rod, redesigned)",
          "route": "cuda", "source": src + "step.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_step.py:57",
-         "launches": serve["K2"] + train["K2"] + multi["K2"],
+         "launches": serve["K2"] + train["K2"] + multi["K2"] + clis["K2"],
          "max_abs_err": max(errs[("K2", torch.float32)]
                             + errs[("K2", torch.float64)]),
          "ms": ms["K2"][0], "plain_ms": ms["K2"][1], **row(k2_bound)},
@@ -1739,7 +1945,7 @@ def main() -> int:
                  "a cluster of 8 blocks per run, redesigned)",
          "route": "cuda", "source": src + "train.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_train.py:345",
-         "launches": train["K4"] + multi["K4"] + wide["K4"],
+         "launches": train["K4"] + multi["K4"] + wide["K4"] + clis["K4"],
          "max_abs_err": max(errs["K4"]),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          **row((k4["bound_ms"], k4["bound_by"]))},

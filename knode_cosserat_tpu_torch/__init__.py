@@ -21,7 +21,9 @@ core/assembly.simulate_assembly(fused=True) and the plate-pose planners of
 control/) and K8 (the teacher-forced next segment, ops/next_segment.py,
 under make_train_step(use_pallas=True)). The multitrain study
 (parallel/grid.py, evaluation/tables.py) runs as
-``python -m knode_cosserat_tpu_torch multitrain``.
+``python -m knode_cosserat_tpu_torch multitrain``; the study's ``train``
+and ``simulate`` and the real-world pipeline (``prepare``, ``estimate``,
+``train-real``, ``playback``; realworld/) are commands of the same CLI.
 
 Importing the package builds and loads nothing: the kernel modules
 (ops/sweep.py, ops/step.py, ops/train.py, ops/train_wide.py,

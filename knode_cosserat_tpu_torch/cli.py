@@ -1,16 +1,28 @@
-"""Command-line interface of the port, reduced to three commands:
+"""Command-line interface of the port:
 
+  simulate           rollout + save + optional energy / animation
+                     (simulate.py)
+  train              sim-data KNODE training (physics_train.py)
   multitrain         (data x mod x seed) grid + eval table
                      (physics_multitrain.py)
   graphs             cross-seed aggregation tables (physics_multigraphs.py)
   simulate-assembly  coupled multi-rod (parallel continuum robot) rollout
+  prepare            experiment ingestion -> datas/*.npz (prepare.py)
+  playback           3D mocap playback gif (plot_bag.py)
+  estimate           pose-only -> full-state estimation (estimate_state.py)
+  train-real         real-data KNODE training (train_segment.py)
 
 Run as ``python -m knode_cosserat_tpu_torch <cmd> ...``. Arguments,
 defaults, files and printouts are those of the JAX package's commands of
 the same names (knode_cosserat_tpu/cli.py). The run takes the CUDA card;
 ``--device cpu`` runs it on the CPU (the JAX package's
-``KNODE_PLATFORM=cpu``). The other commands (train, simulate, ...) are not
-ported yet (ROADMAP.md, Queue 1, item 10).
+``KNODE_PLATFORM=cpu``). ``--dtype`` of train, train-real and simulate is
+the rods' and the net's precision, float32 by default as in the JAX
+package outside its 64-bit mode. The noise of ``--noise_traj`` /
+``--noise_controls`` is drawn from a ``torch.Generator`` seeded with
+``--seed``, so its values differ from the JAX package's PRNG draws. The
+JAX package's sysid, design, replicate and bench commands are not ported
+yet (ROADMAP.md, Queue 1, items 2 and 6).
 """
 from __future__ import annotations
 
@@ -20,6 +32,8 @@ import time
 
 import numpy as np
 
+from .device import default_device
+
 # the study's grid and schedules (knode_cosserat_tpu/cli.py:cmd_multitrain)
 DATAS = {False: ["sine sine 0.5 1.0", "sine sine random 0.5 1.0 0.0"],
          True: ["sine sine 0.05 0.15", "sine sine random 0.05 0.15 0.0"]}
@@ -27,6 +41,179 @@ EVAL_SETS = {False: ["sine 1.5", "step 1.5"], True: ["sine 0.2", "step 1.5"]}
 MODS = ["nsw", "short", "youngs", "lengthstiff"]
 TRAIN_LEN = 30      # grid_train's default
 EVAL_LEN = 100      # evaluate_cells' default
+
+
+# train-real's data sets (knode_cosserat_tpu/cli.py:cmd_train_real)
+REAL_PRESETS = {
+    "sinesine": ["sin_1_0_amp_300", "sin_3_0_amp_300"],
+    "sinesinerand": ["sin_1_0_amp_300", "sin_3_0_amp_300", "rand_0_60s"],
+    "sinesinestep": ["sin_1_0_amp_300", "sin_3_0_amp_300",
+                     "dir_a_tension_950"],
+    "sinesinestepstep": ["sin_1_0_amp_300", "sin_3_0_amp_300",
+                         "dir_a_tension_950", "dir_a_tension_1250"],
+}
+REAL_TRIM = 100                   # train_segment.py:36
+# the marker nodes of the rod grid and their arc positions
+# (estimate_state.py:258)
+MARKER_NODES = [0, 3, 5, 7, 9]
+MARKER_LOC = [0, 3.23, 5.13, 7.07, 9]
+DEVICE_HELP = ("torch device of the run (default: the CUDA card; 'cpu' runs "
+               "on the CPU)")
+
+
+def _add_train_args(sp):
+    sp.add_argument("control_type_arg", nargs="+",
+                    help='trajectories, e.g. "sine sine 0.5 1.0"')
+    sp.add_argument("--mod", type=str, default=None)
+    sp.add_argument("--original", action="store_true")
+    sp.add_argument("--epochs", type=int, default=2000)
+    sp.add_argument("--weight_decay", type=float, default=0.0)
+    sp.add_argument("--noise_traj", type=float, default=0.0)
+    sp.add_argument("--noise_controls", type=float, default=0.0)
+    sp.add_argument("--layers", type=int, default=512)
+    sp.add_argument("--validation", type=str, default=None)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--eval", action=argparse.BooleanOptionalAction,
+                    default=True)
+    sp.add_argument("--save_dir", type=str, default="saved_models")
+    sp.add_argument("--train_len", type=int, default=30)
+    sp.add_argument("--dtype", type=str, default="float32")
+    sp.add_argument("--resume", type=str, default=None,
+                    help="checkpoint to resume from")
+    sp.add_argument("--mesh", type=str, default=None,
+                    help="multi-chip mesh: not ported (raises)")
+    sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
+
+
+def cmd_train(args):
+    """Sim-data KNODE training: data from the reference rod, the net on the
+    modified rod, validation by tip DTW, the best net saved as
+    ``<save_dir>/<short_name>.npz`` with the experiment as metadata.
+    Returns the TrainResult."""
+    import torch
+
+    from .config import DataConfig, EvalConfig, ExperimentConfig, RodConfig
+    from .core.params import apply_mod
+    from .training import (make_training_data, make_validation_reference,
+                           parse_traj_specs)
+    from .training.checkpoint import save_checkpoint
+    from .training.train import TrainConfig, _net_tree, train_knode
+
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: sharded training waits for torch.distributed; see "
+            "ROADMAP.md, Queue 1, item 7")
+    device = default_device(args.device)
+    specs = parse_traj_specs(args.control_type_arg)
+    validation = args.validation or ("sine 0.1" if args.original
+                                     else "sine 1.25")
+    vkind, varg = validation.split(" ")
+
+    cfg = ExperimentConfig(
+        rod=RodConfig(mod=args.mod, original=args.original),
+        data=DataConfig(specs=specs, train_len=args.train_len,
+                        noise_traj=args.noise_traj,
+                        noise_controls=args.noise_controls),
+        train=TrainConfig(epochs=args.epochs, hidden=args.layers,
+                          weight_decay=args.weight_decay, seed=args.seed,
+                          dtype=args.dtype),
+        eval=EvalConfig(validation=(vkind, float(varg))),
+    )
+    dtype = getattr(torch, args.dtype)
+    ref = apply_mod(None, original=args.original, dtype=dtype, device=device)
+    p_mod = cfg.rod.build(dtype, device)
+    trajs, ctls = make_training_data(
+        ref, specs, train_len=args.train_len, noise_traj=args.noise_traj,
+        noise_controls=args.noise_controls,
+        generator=torch.Generator().manual_seed(args.seed))
+    vc = vr = None
+    if args.eval:
+        vc, vr = make_validation_reference(ref, (vkind, float(varg)))
+    path = os.path.join(args.save_dir, cfg.short_name())
+    res = train_knode(p_mod, trajs, ctls, cfg.train, vc, vr, eval_rod=p_mod,
+                      resume_from=args.resume, checkpoint_path=path)
+
+    save_checkpoint(path, {
+        "params": _net_tree(res.best_params if args.eval else res.params),
+        "loss": res.loss_history,
+        "dtw": res.dtw_history,
+    }, meta=cfg.to_dict())
+    print(f"saved {path}.npz (best DTW {res.best_dtw})")
+    return res
+
+
+def cmd_simulate(args):
+    """Forward rollout of the rod, or of the hybrid rod of a ``--model``
+    checkpoint (either package's), saved as traj (T, N, 50) and controls.
+    ``--fast`` on the card solves each step in kernel K2 (with the net when
+    ``--model`` is given); on the CPU it takes K2's plain FD-Newton loop,
+    as the JAX command takes its XLA loop there. Returns traj (numpy)."""
+    import torch
+
+    from .controls import calc_controls
+    from .core.params import apply_mod
+    from .core.stepper import simulate
+    from .models.mlp import MLPSpec, params_from_jax
+    from .training.checkpoint import load_checkpoint
+    from .training.train import rollout_with_nn
+
+    p = apply_mod(args.mod, original=args.original, N=args.nodes,
+                  dtype=getattr(torch, args.dtype),
+                  device=default_device(args.device))
+    if args.real_data:
+        data = np.load(args.real_data, allow_pickle=True)
+        controls = np.asarray(data["controls"])[: args.steps]
+    else:
+        controls = calc_controls(args.type, args.arg, float(p.del_t),
+                                 args.steps)
+    # refuse silently-ignored flag combinations: the elif chain below
+    # dispatches exactly one rollout implementation
+    if args.segments and args.model:
+        raise SystemExit("simulate: --segments (multiple shooting) does not "
+                         "support --model hybrid rollouts yet; drop one")
+    if args.segments and args.fast:
+        raise SystemExit("simulate: --segments and --fast pick different "
+                         "solvers (multiple shooting vs the fused kernel "
+                         "rollout); drop one")
+    if args.segments:
+        raise NotImplementedError(
+            "--segments: multiple shooting (simulate_scan_ms) is not ported "
+            "yet; see ROADMAP.md, Queue 1, item 4")
+    cuda = p.device.type == "cuda"
+    if args.model:
+        ckpt, meta = load_checkpoint(args.model)
+        hidden = meta.get("train", {}).get("hidden", 512)
+        spec = MLPSpec.for_knode(int(hidden))
+        net = params_from_jax(ckpt["params"], spec, dtype=p.dtype,
+                              device=p.device)
+        # --model --fast composes: the hybrid rollout rides K2 (the whole
+        # Newton solve per launch, the net inlined) on the card
+        impl = "mega" if (args.fast and cuda) else "scan"
+        traj = rollout_with_nn(p, controls, spec, net, impl=impl)
+    elif args.fast:
+        from .core.fast_rollout import make_fast_rollout
+        roll = make_fast_rollout(p, impl="mega" if cuda else "plain")
+        traj3, _, _ = roll(torch.as_tensor(controls, dtype=p.dtype,
+                                           device=p.device)[None])
+        traj = traj3[0]
+    else:
+        traj = simulate(p, controls)
+    traj = traj.cpu().numpy()
+    os.makedirs(os.path.dirname(args.save) or ".", exist_ok=True)
+    extra = {}
+    if args.energy:
+        from .core.energy import energy_summary, rod_energies
+        extra = {f"energy_{k}": v.cpu().numpy()
+                 for k, v in rod_energies(p, traj).items()}
+        print(energy_summary(p, traj))
+    np.savez_compressed(args.save, traj=traj, controls=controls, **extra)
+    print(f"saved {args.save}: traj {traj.shape}")
+    if args.gif:
+        from .viz.visualizer import ContinuumRobotVisualizer
+        out = ContinuumRobotVisualizer(traj[:, :, :25], p).save_as_gif(
+            args.gif, max_frames=100)
+        print(f"saved {out}")
+    return traj
 
 
 def cmd_multitrain(args) -> dict:
@@ -44,7 +231,7 @@ def cmd_multitrain(args) -> dict:
     if args.mesh:
         raise NotImplementedError(
             "--mesh: the sharded grid waits for torch.distributed; see "
-            "ROADMAP.md, Queue 1, item 17")
+            "ROADMAP.md, Queue 1, item 7")
     cells = build_grid(DATAS[args.original], MODS, args.n_seeds)
     cfg = TrainConfig(epochs=args.epochs, hidden=args.layers,
                       dtype=args.dtype)
@@ -90,8 +277,8 @@ def cmd_graphs(args):
 
     if args.tipx:
         raise NotImplementedError(
-            "--tipx: the figures need viz/, which is not ported yet; see "
-            "ROADMAP.md, Queue 1, item 16")
+            "--tipx: the tip-X figures (viz.tip_generalization_plot) are "
+            "not wired into graphs yet; see ROADMAP.md, Queue 1, item 6")
     records = []
     for fname in sorted(os.listdir(args.evals_dir)):
         if not fname.endswith(".npz"):
@@ -145,10 +332,151 @@ def cmd_simulate_assembly(args):
     return out
 
 
+def cmd_prepare(args):
+    """Ingest an experiment (a .bag, or a directory of per-topic CSVs),
+    simulate the measured tensions on the measured-hardware rod and save
+    ``<out_dir>/<name>.npz``. Returns the saved path."""
+    from .core.params import apply_mod
+    from .core.stepper import simulate
+    from .evaluation.metrics import fastdtw
+    from .realworld.bag import read_bag, read_topic_csvs
+
+    p = apply_mod(None, device=default_device(args.device))
+    if os.path.isdir(args.experiment):
+        data = read_topic_csvs(args.experiment, float(p.del_t),
+                               args.experiment)
+    else:
+        data = read_bag(args.experiment, float(p.del_t))
+    traj = simulate(p, data["controls"]).cpu().numpy()
+    name = os.path.basename(args.experiment.rstrip("/"))
+    os.makedirs(args.out_dir, exist_ok=True)
+    out = os.path.join(args.out_dir, f"{name}.npz")
+    np.savez_compressed(out, t=data["t"], traj=traj,
+                        controls=data["controls"],
+                        interpolated=data["interpolated"],
+                        positions=data["positions"])
+    tip = data["interpolated"][:, 0:3, 9]
+    T = min(len(traj), len(tip))
+    print("DTW Distance XYZ", fastdtw(traj[:T, -1, :3], tip[:T])[0])
+    print(f"saved {out}")
+    return out
+
+
+def cmd_playback(args):
+    """Animated 3D playback of ingested mocap data (plot_bag.py parity)."""
+    from .viz.mocap import MocapPlayback
+
+    default_device(args.device)         # the package's contract; host work
+    d = np.load(args.data, allow_pickle=True)
+    positions = np.asarray(d["positions"])          # (T, n_links, 3)
+    quats = None
+    if "interpolated" in d:
+        interp = np.asarray(d["interpolated"])      # (T, 7, N)
+        quats = np.stack([interp[:, 3:7, i] for i in MARKER_NODES], axis=1)
+    out = MocapPlayback(positions, quats).save_as_gif(
+        args.gif, max_frames=args.max_frames)
+    print(f"saved {out}")
+    return out
+
+
+def cmd_estimate(args):
+    """Full-state estimation of ``<data_dir>/<data_name>.npz`` (prepare's
+    layout) into ``<data_name>_estimated.npz``: traj (T, 25, N), controls,
+    vstar. Host float64; the rod is built on ``--device``. Returns the
+    saved path."""
+    from .core.params import make_rod
+    from .realworld.curve import fit_curve
+    from .realworld.estimate import estimate_state
+
+    # the reference uses CosseratRod() defaults here
+    rod = make_rod(device=default_device(args.device))
+    d = np.load(os.path.join(args.data_dir, args.data_name + ".npz"),
+                allow_pickle=True)
+    interpolated = d["interpolated"]
+    controls = d["controls"]
+    partial = np.stack([interpolated[:, :, i] for i in MARKER_NODES],
+                       axis=2)
+    full_grid = fit_curve(partial, MARKER_LOC, rod.N)
+    est, vstar = estimate_state(full_grid, controls, rod)
+    out = os.path.join(args.data_dir, args.data_name + "_estimated.npz")
+    np.savez_compressed(out, traj=est, controls=controls, vstar=vstar)
+    print(f"saved {out}")
+    return out
+
+
+def cmd_train_real(args):
+    """Real-data KNODE training on estimated states (``estimate``'s files of
+    a ``--data`` preset), trimmed by REAL_TRIM steps, noised by
+    ``--noise_traj``; saves the final net to ``--save_path``. Returns the
+    TrainResult."""
+    import torch
+
+    from .core.params import apply_mod
+    from .training.checkpoint import save_checkpoint
+    from .training.loss import DEFAULT_KEYPOINTS_REAL
+    from .training.train import TrainConfig, _net_tree, train_knode
+
+    device = default_device(args.device)
+    names = REAL_PRESETS.get(args.data, [args.data])
+    trajs, ctls = [], []
+    for n in names:
+        d = np.load(os.path.join(args.data_dir, n + "_estimated.npz"),
+                    allow_pickle=True)
+        t = d["traj"][REAL_TRIM:args.train_len + REAL_TRIM, :25]
+        trajs.append(np.moveaxis(t, 1, 2))       # -> (T, N, 25)
+        ctls.append(d["controls"][REAL_TRIM:args.train_len + REAL_TRIM])
+    trajs = torch.as_tensor(np.stack(trajs))
+    ctls = torch.as_tensor(np.stack(ctls))
+    gen = torch.Generator().manual_seed(args.seed)
+    trajs = trajs + args.noise_traj * torch.randn(
+        trajs.shape, generator=gen, dtype=trajs.dtype)
+
+    dtype = getattr(torch, args.dtype)
+    p = apply_mod(args.mod, dtype=dtype, device=device)
+    cfg = TrainConfig(epochs=args.epochs, hidden=args.layers,
+                      weight_decay=args.weight_decay, seed=args.seed,
+                      keypoints=DEFAULT_KEYPOINTS_REAL, dtype=args.dtype)
+    res = train_knode(p, trajs, ctls, cfg)
+    save_checkpoint(args.save_path, {"params": _net_tree(res.params),
+                                     "loss": res.loss_history})
+    print(f"saved {args.save_path} (final loss {res.loss_history[-1]:.3e})")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="knode-cosserat-tpu-torch",
                                  description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("train", help="sim-data KNODE training")
+    _add_train_args(sp)
+    sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("simulate", help="forward rollout")
+    sp.add_argument("--type", type=str, default="sine")
+    sp.add_argument("--arg", type=float, default=1.0)
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--mod", type=str, default=None)
+    sp.add_argument("--original", action="store_true")
+    sp.add_argument("--model", type=str, default=None)
+    sp.add_argument("--real_data", type=str, default=None)
+    sp.add_argument("--nodes", type=int, default=10,
+                    help="rod node count N (default 10)")
+    sp.add_argument("--segments", type=int, default=0,
+                    help="multiple shooting: not ported (raises)")
+    sp.add_argument("--fast", action="store_true",
+                    help="the whole Newton step per launch of kernel K2 on "
+                         "the card; composes with --model for hybrid "
+                         "rollouts")
+    sp.add_argument("--save", type=str, default="data/quick_test.npz")
+    sp.add_argument("--gif", type=str, default=None)
+    sp.add_argument("--energy", action="store_true",
+                    help="print + save mechanical-energy budgets "
+                         "(core/energy.py)")
+    sp.add_argument("--dtype", type=str, default="float32",
+                    help="the rod's precision (and the net's with --model)")
+    sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
+    sp.set_defaults(fn=cmd_simulate)
 
     sp = sub.add_parser("multitrain", help="experiment grid + eval table")
     sp.add_argument("--epochs", type=int, default=1000)
@@ -163,9 +491,7 @@ def main(argv=None):
     sp.add_argument("--dtype", type=str, default="float32")
     sp.add_argument("--mesh", type=str, default=None,
                     help="multi-chip mesh: not ported (raises)")
-    sp.add_argument("--device", type=str, default=None,
-                    help="torch device of the run (default: the CUDA card; "
-                         "'cpu' runs on the CPU)")
+    sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
     sp.set_defaults(fn=cmd_multitrain)
 
     sp = sub.add_parser("graphs", help="aggregate eval records")
@@ -192,10 +518,44 @@ def main(argv=None):
                     help="rigid plane n.x = offset the plate can touch "
                          "(smoothed penalty contact)")
     sp.add_argument("--save", type=str, default="data/assembly.npz")
-    sp.add_argument("--device", type=str, default=None,
-                    help="torch device of the run (default: the CUDA card; "
-                         "'cpu' runs on the CPU)")
+    sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
     sp.set_defaults(fn=cmd_simulate_assembly)
+
+    sp = sub.add_parser("prepare", help="ingest physical experiment data")
+    sp.add_argument("experiment", type=str)
+    sp.add_argument("--out_dir", type=str, default="datas")
+    sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
+    sp.set_defaults(fn=cmd_prepare)
+
+    sp = sub.add_parser("playback", help="3D mocap playback gif")
+    sp.add_argument("data", type=str, help="datas/<name>.npz from prepare")
+    sp.add_argument("--gif", type=str, default="animations/playback.gif")
+    sp.add_argument("--max_frames", type=int, default=200)
+    sp.add_argument("--device", type=str, default=None,
+                    help=DEVICE_HELP + "; the playback itself is host work")
+    sp.set_defaults(fn=cmd_playback)
+
+    sp = sub.add_parser("estimate", help="full-state estimation")
+    sp.add_argument("data_name", type=str)
+    sp.add_argument("--data_dir", type=str, default="datas")
+    sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
+    sp.set_defaults(fn=cmd_estimate)
+
+    sp = sub.add_parser("train-real", help="real-data KNODE training")
+    sp.add_argument("--data", type=str, default="sinesine")
+    sp.add_argument("--data_dir", type=str, default="datas")
+    sp.add_argument("--epochs", type=int, default=300)
+    sp.add_argument("--layers", type=int, default=512)
+    sp.add_argument("--weight_decay", type=float, default=1e-1)
+    sp.add_argument("--train_len", type=int, default=120)
+    sp.add_argument("--noise_traj", type=float, default=0.01)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--mod", type=str, default=None)
+    sp.add_argument("--save_path", type=str,
+                    default="saved_models/quick_test")
+    sp.add_argument("--dtype", type=str, default="float32")
+    sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
+    sp.set_defaults(fn=cmd_train_real)
 
     args = ap.parse_args(argv)
     return args.fn(args)

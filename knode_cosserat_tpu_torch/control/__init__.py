@@ -3,7 +3,7 @@
 - assembly_mpc.py: plate-pose tracking over multi-rod assemblies.
 
 The single-rod planner (the JAX package's control/mpc.py) is not ported
-yet (ROADMAP.md, Queue 1, item 14).
+yet (ROADMAP.md, Queue 1, item 1).
 """
 from ..core.assembly import AssemblyCarry
 from .assembly_mpc import (AssemblyMPCController, AssemblyPlanResult,

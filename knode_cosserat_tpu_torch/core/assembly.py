@@ -488,7 +488,7 @@ def assembly_solve_step(asm: RodAssembly, yh, zh, tf, X0, pph, vph, hph,
     to every tensor the residual depends on: the histories, the tensions
     behind tf, the nets' weights (:class:`_ImplicitTangent`). Gradients
     with respect to rod or plate parameters are not tested yet (they wait
-    for training/sysid.py, ROADMAP.md Queue 1 item 15).
+    for training/sysid.py, ROADMAP.md Queue 1 item 2).
     solver: "structured", "dense" or "auto" (module docstring).
     Returns (y (M, N, 19), z_body (M, N-1, 6), X, stats)."""
     if solver == "auto":

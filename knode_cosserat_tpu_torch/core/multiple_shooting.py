@@ -6,7 +6,7 @@ backtracking line search and the Levenberg-Marquardt stall ladder),
 ``_lm_damped_solve`` and ``_newton_dense``. The assembly solver
 (core/assembly.py) drives them. The multiple-shooting solvers of that
 module (``ms_solve_step``, ``simulate_scan_ms``) are not ported yet
-(ROADMAP.md, Queue 1, item 13).
+(ROADMAP.md, Queue 1, item 4).
 
 Unlike the rod-batched ``core/shooting.newton_solve``, these drive ONE
 system X (U,); the residual function broadcasts over leading axes, so the

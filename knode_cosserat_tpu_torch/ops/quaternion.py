@@ -7,14 +7,15 @@ operations the rod physics and the training loss use:
   - quaternion spatial derivative hs = 0.5 * Omega(u) h
     (cosserat_ode.py:160-165),
   - the training loss's quaternion -> Euler angles
-    (Utils/transformations.py:3-31).
+    (Utils/transformations.py:3-31),
+  - pairwise angular velocity between quaternions (estimate_state.py:95-103).
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["quat_to_rotmat", "quat_spatial_derivative",
-           "quaternion_to_euler"]
+           "quaternion_to_euler", "pairwise_angular_velocity"]
 
 
 def quat_to_rotmat(h: torch.Tensor) -> torch.Tensor:
@@ -59,3 +60,16 @@ def quaternion_to_euler(h: torch.Tensor) -> torch.Tensor:
     pitch = torch.asin(torch.clamp(2 * (w * z - x * y), -1.0, 1.0))
     yaw = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x ** 2 + z ** 2))
     return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def pairwise_angular_velocity(q1: torch.Tensor, q2: torch.Tensor,
+                              dt) -> torch.Tensor:
+    """Angular velocity between quaternion pairs (estimate_state.py:95-103).
+    q1, q2: (..., 4) [w,x,y,z] -> (..., 3)."""
+    a0, a1, a2, a3 = q1.unbind(-1)
+    b0, b1, b2, b3 = q2.unbind(-1)
+    return (2.0 / dt) * torch.stack([
+        a0 * b1 - a1 * b0 - a2 * b3 + a3 * b2,
+        a0 * b2 + a1 * b3 - a2 * b0 - a3 * b1,
+        a0 * b3 - a1 * b2 + a2 * b1 - a3 * b0,
+    ], dim=-1)

@@ -432,11 +432,11 @@ def train_knode(
     if mesh is not None:
         raise NotImplementedError(
             "mesh: sharded training (parallel/mesh.py) is not ported yet; "
-            "see ROADMAP.md, Queue 1, item 17")
+            "see ROADMAP.md, Queue 1, item 7")
     if cfg.nn_dtype is not None:
         raise NotImplementedError(
             "cfg.nn_dtype: mixed-precision nets are not ported yet; see "
-            "ROADMAP.md, Queue 1")
+            "ROADMAP.md, Queue 1, item 5")
     spec = cfg.spec()
     dtype = getattr(torch, cfg.dtype)
     device = p_mod.device

@@ -51,11 +51,32 @@ def test_multitrain_then_graphs(tiny, tmp_path, capsys):
     assert table == format_table(aggregate_seeds(records))
 
 
-def test_unported_options_raise(tiny, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 17"):
+def test_unported_options_raise(tiny, tmp_path, monkeypatch):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7$"):
         cli.main(["multitrain", "--mesh", "1,1,1", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="viz"):
         cli.main(["graphs", "--tipx", "--evals_dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7$"):
+        cli.main(["train", "sine", "0.5", "--mesh", "1,1,1", "--device",
+                  "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue 1, item 4$"):
+        cli.main(["simulate", "--segments", "3", "--steps", "3", "--device",
+                  "cpu"])
+    for extra in (["--model", "m.npz"], ["--fast"]):
+        with pytest.raises(SystemExit, match="--segments"):
+            cli.main(["simulate", "--segments", "3", "--steps", "3",
+                      "--device", "cpu", *extra])
+    # every command of the study takes the card unless --device says
+    # otherwise: without one it raises before it reads or writes anything
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    for argv in (["train", "sine", "0.5"], ["simulate", "--steps", "3"],
+                 ["prepare", missing], ["playback", missing],
+                 ["estimate", "x", "--data_dir", missing],
+                 ["train-real", "--data_dir", missing]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    assert os.listdir(tmp_path) == []
 
 
 def test_simulate_assembly(tmp_path, capsys):

@@ -71,6 +71,58 @@ def test_port_imports_and_steps_without_jax():
     assert "STANDALONE_OK" in out.stdout
 
 
+OPTIONAL = textwrap.dedent("""
+    import os, sys, tempfile
+    # (jax is not blocked here: scipy's array-API helpers look it up in
+    # sys.modules; the test above keeps the port free of it)
+    for name in ("pandas", "matplotlib"):
+        sys.modules[name] = None       # any import of them now fails
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import knode_cosserat_tpu_torch.realworld as R
+    from knode_cosserat_tpu_torch import cli
+
+    d = tempfile.mkdtemp()
+    T, N = 106, 10
+    s = np.linspace(0.0, 0.5, N)
+    bend = 0.05 * np.sin(0.3 * np.arange(T))[:, None] * s ** 2
+    poses = np.zeros((T, 7, N))
+    poses[:, 0], poses[:, 2], poses[:, 3] = bend, s, 1.0
+    ctl = 6.0 + np.sin(0.3 * np.arange(T)[:, None] + np.arange(4))
+    for name in cli.REAL_PRESETS["sinesine"]:
+        np.savez(os.path.join(d, name + ".npz"), interpolated=poses,
+                 controls=ctl, positions=np.moveaxis(
+                     poses[:, :3, cli.MARKER_NODES], 1, 2))
+        cli.main(["estimate", name, "--data_dir", d, "--device", "cpu"])
+    res = cli.main(["train-real", "--data_dir", d, "--epochs", "3",
+                    "--layers", "8", "--train_len", "4", "--device", "cpu",
+                    "--save_path", os.path.join(d, "m")])
+    assert np.isfinite(res.loss_history).all()
+    for argv, what in ((["prepare", d, "--device", "cpu"], "pandas"),
+                       (["playback", os.path.join(d, "sin_1_0_amp_300.npz"),
+                         "--device", "cpu"], "matplotlib")):
+        try:
+            cli.main(argv)
+        except ImportError as e:
+            assert what in str(e), e
+        else:
+            raise AssertionError(f"{argv[0]} ran without {what}")
+    print("OPTIONAL_OK")
+""")
+
+
+def test_realworld_runs_without_pandas_and_matplotlib():
+    """A host may lack them (the card's has no matplotlib): the real-world
+    package, estimate and train-real import and run without them; prepare
+    and playback raise an ImportError that names the missing package."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", OPTIONAL], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OPTIONAL_OK" in out.stdout
+
+
 def test_port_sources_never_import_jax():
     pkg = os.path.join(ROOT, "knode_cosserat_tpu_torch")
     bad = re.compile(r"^\s*(import|from)\s+(jax|optax|knode_cosserat_tpu)\b",

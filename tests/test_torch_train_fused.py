@@ -136,7 +136,7 @@ def test_fused_routing_refusals():
     assert ktrain._resolve_fused(ktrain.TrainConfig(dtype="float64"), spec, 8,
                                  cuda) is None
     p = K.apply_mod(None, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7$"):
         ktrain.train_knode(p, None, None, ktrain.TrainConfig(), mesh=object())
     with pytest.raises(NotImplementedError, match="mixed-precision"):
         ktrain.train_knode(p, None, None,
