@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check and
 time the hand-written kernels, and drive the serving, training, CLI,
-assembly and plate-pose MPC paths.
+assembly, plate-pose MPC and single-rod MPC / identification / online
+paths.
 
     python3 chip_smoke.py
 
@@ -80,9 +81,9 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      the plain coupled Newton at T=21, and the CLI's simulate-assembly
      (20 steps, its .npz checked).
  15. the plate-pose MPC path (B), counted: make_assembly_planner(fused=
-     True, w_du=0), horizon 8, 40 iterations, on a 1 cm sway and 0.1 mm
-     lift (the cost must fall); the float64 gradient of its first cost
-     through K7's roots against the plain Newton's (rtol 1e-6).
+     True, w_du=0), horizon 8, MPC_B_ITERS (20) iterations, on a 1 cm sway
+     and 0.1 mm lift (the cost must fall); the float64 gradient of its
+     first cost through K7's roots against the plain Newton's (rtol 1e-6).
  16. K8 (the fused next segment) against its plain version on path C's
      cells: bench_data.npz at for_knode(512) (232 cells) and the train-real
      shape (53 inputs, 1,904 cells), float64 and float32.
@@ -104,6 +105,20 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      at 232 and 1,904 cells: the wrapper's call by CUDA events (``ms``, as
      for every kernel) beside the kernel's device time by torch.profiler
      (``device_ms``).
+ 19. the single-rod MPC, identification and online path (D), counted:
+     make_planner on experimental_rod(N=10), f32, horizon 10, 25
+     iterations, physics only and with for_knode(512) (the cost must
+     fall; K2 launches == (iterations + 2) x horizon: one rollout an
+     iteration, the final rollout and the final cost's; the implicit
+     backward launches none); the float64 gradient of the first cost
+     through K2's roots against newton_solve's (rtol 1e-6); an 8-restart
+     multi-start of 5 iterations (one K2 launch per horizon step for all
+     restarts); five MPCController.act calls (5 iterations, then 2); the
+     CLI's sysid --mod youngs --fit E (teacher, 100 steps on 60; rollout,
+     3 steps on 4), design (horizon 3, 2 steps) and sysid --assembly 2,
+     each on the host clock, each loss
+     falling; an OnlineAdapter fed 100 K2-rollout frames of the true rod
+     (the window loss under physics, a certified handoff, update() in ms).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -196,10 +211,24 @@ MPC_GRAD_RTOL = 1e-6              # IFT gradient, K7's roots vs plain (f64)
 # the cost climbs for the 40 iterations (measured on the CPU with the
 # plain solver: 4.0e-5 -> 6.4e-5; with w_du = 0, 4.0e-5 -> 4.1e-8)
 MPC_MOVE = (0.01, 0.0, 1e-4)
+# path B's Adam iterations: the JAX default 40, cut to 20 to keep the
+# script near half its time limit (the plan is ~2 s an iteration on the
+# card, the eager IFT backward most of it)
+MPC_B_ITERS = 20
 # K8 against its plain version, (rtol, atol): f64 to rounding; f32, where
 # the net's 512-term sums run in another order (measured ~5e-7 on
 # y_grown ~ 2 on the first chip run)
 K8_TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}
+# path D: the single-rod planner's horizon and Adam iterations (the JAX
+# defaults are 60 / 80; cut to keep the phase near two minutes), and a
+# reachable schedule whose tip track is the target (every tendon its own
+# ramp, so no tension's gradient vanishes by symmetry)
+MPC_D_HORIZON = 10
+MPC_D_ITERS = 25
+MPC_D_SCHEDULE = np.stack([np.linspace(a, b, MPC_D_HORIZON) for a, b in
+                           ((2.0, 12.0), (3.0, 5.0), (6.0, 4.0), (1.0, 2.0))],
+                          axis=1)
+ONLINE_FRAMES = 100               # path D: the online adapter's stream
 FUSED_STEPS = 200                 # path C: fused vs plain training steps
 FUSED_LOSS_RTOL = 1e-4            # their losses, f32 (the JAX test's bar)
 
@@ -1594,8 +1623,7 @@ def phase_assembly(K, dev):
 
 def phase_assembly_mpc(K, dev):
     """Path B, counted: one fused plate-pose plan at the bench's assembly
-    (horizon 8, 40 Adam iterations, the JAX defaults but w_du = 0, see
-    MPC_MOVE); then the f64 gradient of its tracking cost at the start
+    (horizon 8, MPC_B_ITERS Adam iterations, w_du = 0, see MPC_MOVE); then the f64 gradient of its tracking cost at the start
     through K7's roots against the gradient through the plain Newton's."""
     from knode_cosserat_tpu_torch.control import (make_assembly_planner,
                                                   rollout_plate)
@@ -1611,7 +1639,8 @@ def phase_assembly_mpc(K, dev):
     ramp = torch.arange(1, H + 1, dtype=asm.dtype, device=dev)[:, None] / H
     target = carry.pp + ramp * torch.tensor(MPC_MOVE, dtype=asm.dtype,
                                             device=dev)
-    plan = make_assembly_planner(asm, H, fused=True, w_du=0.0)
+    plan = make_assembly_planner(asm, H, fused=True, w_du=0.0,
+                                 opt_iters=MPC_B_ITERS)
     torch.cuda.synchronize()
     kasm.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1621,7 +1650,7 @@ def phase_assembly_mpc(K, dev):
     launches = kasm.LAUNCHES
     costs = r.cost_history.cpu().numpy()
     log(f"[mpc] make_assembly_planner(fused=True) M=3 N=10 f32, horizon {H},"
-        f" 40 iterations, w_du 0, target plate move {MPC_MOVE} m: "
+        f" {MPC_B_ITERS} iterations, w_du 0, target plate move {MPC_MOVE} m: "
         f"{secs:.2f} s, "
         f"K7 launches {launches}; cost "
         f"{costs[0]:.4e} -> {costs[-1]:.4e} (final {float(r.cost):.4e}); "
@@ -1649,6 +1678,173 @@ def phase_assembly_mpc(K, dev):
     if not e <= MPC_GRAD_RTOL:
         raise AssertionError(f"path B gradient: {e:.3e} > {MPC_GRAD_RTOL}")
     return dict(launches=launches, seconds=secs, cost=(costs[0], costs[-1]))
+
+
+def phase_model_based(K, dev, name_power):
+    """Path D, counted: the single-rod planner on K2's roots (physics only
+    and with the for_knode(512) net), the float64 gradient through K2's
+    roots against newton_solve's, an 8-restart multi-start, five
+    MPCController.act calls, the CLI's sysid (teacher, rollout, --assembly
+    2) and design, and an OnlineAdapter on K2-rollout frames of the true
+    rod. Each part is timed on the synchronised host clock; the K2 launch
+    counts are read around each."""
+    import tempfile
+
+    from knode_cosserat_tpu_torch import cli
+    from knode_cosserat_tpu_torch.control import mpc
+    from knode_cosserat_tpu_torch.core.fast_rollout import make_fast_rollout
+    from knode_cosserat_tpu_torch.ops import step as kstep
+    from knode_cosserat_tpu_torch.training.online import (OnlineAdapter,
+                                                          OnlineConfig)
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    H, it = MPC_D_HORIZON, MPC_D_ITERS
+    out = dict(K2=0, seconds={})
+
+    def timed_run(label, fn):
+        sync()
+        kstep.LAUNCHES = 0
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        secs = time.perf_counter() - t0
+        out["seconds"][label] = secs
+        out["K2"] += kstep.LAUNCHES
+        log(f"[time] path D {label}: {secs:.2f} s, K2 launches "
+            f"{kstep.LAUNCHES} [{name_power}]")
+        return r, kstep.LAUNCHES
+
+    p = K.experimental_rod(N=10, dtype=torch.float32, device=dev)
+    state = mpc.PlanState.initial(p)
+    with torch.no_grad():
+        target, _ = mpc.rollout_tips(p, state, torch.tensor(
+            MPC_D_SCHEDULE, dtype=p.dtype, device=dev))
+    for hybrid in (False, True):
+        spec, net = (make_net(K, False, p.dtype, dev, scale=1e-3) if hybrid
+                     else (None, None))
+        plan = mpc.make_planner(p, H, spec, opt_iters=it, w_du=0.0)
+        kind = "for_knode(512)" if hybrid else "physics"
+        r, n = timed_run(f"plan {kind} (N=10 f32, horizon {H}, {it} "
+                         f"iterations)",
+                         lambda: plan(state, target, nn_params=net))
+        costs = r.cost_history.cpu().numpy()
+        log(f"[mpc D] {kind}: cost {costs[0]:.4e} -> {costs[-1]:.4e} "
+            f"(final {float(r.cost):.4e}); K2 launches {n}, expected "
+            f"(iterations + 2) x horizon = {(it + 2) * H}")
+        if not (np.isfinite(costs).all() and float(r.cost) < costs[0]):
+            raise AssertionError(f"path D plan ({kind}): cost {costs[0]} -> "
+                                 f"{float(r.cost)}")
+        if cuda and n != (it + 2) * H:
+            raise AssertionError(f"path D plan ({kind}): {n} K2 launches, "
+                                 f"expected {(it + 2) * H}")
+
+    # the float64 gradient of the first cost through K2's roots against
+    # the gradient through newton_solve's roots
+    p64 = K.experimental_rod(N=10, dtype=torch.float64, device=dev)
+    s64, tgt = mpc.PlanState.initial(p64), target.double()
+    grads = []
+    for root in ("k2", "newton"):
+        logits = torch.zeros((H, 4), dtype=torch.float64, device=dev,
+                             requires_grad=True)
+        tips, _ = mpc.rollout_tips(p64, s64, 20.0 * torch.sigmoid(logits),
+                                   tol=1e-20, _root=root)
+        cost = ((tips - tgt) ** 2).sum(-1).mean()
+        grads.append(torch.autograd.grad(cost, logits)[0])
+    e = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    out["grad_err"] = e
+    log(f"[mpc D] f64 gradient of the first cost: through K2's roots vs "
+        f"through newton_solve's, max relative error {e:.3e} (rtol "
+        f"{MPC_GRAD_RTOL})")
+    if not e <= MPC_GRAD_RTOL:
+        raise AssertionError(f"path D gradient: {e:.3e} > {MPC_GRAD_RTOL}")
+
+    multi = mpc.make_multistart_planner(p, H, restarts=8, opt_iters=it // 5,
+                                        w_du=0.0)
+    r, n = timed_run(f"multistart 8 restarts ({it // 5} iterations)",
+                     lambda: multi(state, target,
+                                   torch.Generator().manual_seed(SEED)))
+    if not np.isfinite(float(r.cost)):
+        raise AssertionError("path D multistart: no finite restart")
+    log(f"[mpc D] multistart: best cost {float(r.cost):.4e}, K2 launches "
+        f"{n} (one per horizon step for all 8 restarts: "
+        f"{(it // 5 + 2) * H})")
+    if cuda and n != (it // 5 + 2) * H:
+        raise AssertionError(f"path D multistart: {n} K2 launches")
+
+    ctl = mpc.MPCController(p, horizon=H, first_iters=it // 5,
+                            replan_iters=2, w_du=0.0)
+
+    def act5():
+        return [ctl.act(target)[1]["tip"] for _ in range(5)]
+
+    tips, n = timed_run("MPCController, 5 act calls", act5)
+    tips = torch.stack(tips)
+    log(f"[mpc D] controller tip path (m): "
+        f"{np.array2string(tips.cpu().numpy()[:, :2], precision=5)}; "
+        f"K2 launches {n}")
+    if not bool(torch.isfinite(tips).all()):
+        raise AssertionError("path D controller: non-finite tip")
+
+    argv_dev = [] if cuda else ["--device", "cpu"]
+    tmp = tempfile.TemporaryDirectory(prefix="knode_path_d_")
+    for label, argv in (
+            ("sysid teacher", ["sysid", "--mod", "youngs", "--fit", "E",
+                               "--steps", "100", "--length", "60"]),
+            ("sysid rollout", ["sysid", "--mod", "youngs", "--fit", "E",
+                               "--objective", "rollout", "--steps", "3",
+                               "--length", "4"]),
+            ("design", ["design", "--horizon", "3", "--steps", "2",
+                        "--save", os.path.join(tmp.name, "designed.npz")]),
+            ("sysid assembly", ["sysid", "--assembly", "2", "--steps", "3",
+                                "--length", "4"])):
+        log(f"[cli D] python -m knode_cosserat_tpu_torch {' '.join(argv)}")
+        res, _ = timed_run(f"cli {label}", lambda: cli.main(argv + argv_dev))
+        if label == "design":
+            ok = res.info_final > res.info_initial
+        else:
+            h = res.loss_history.cpu().numpy()
+            ok = bool(np.isfinite(h).all() and h[-1] < h[0])
+        if not ok:
+            raise AssertionError(f"path D {label}: no improvement")
+    tmp.cleanup()
+
+    # online adaptation: K2-rollout frames of the true rod, the model at
+    # the damping fault
+    true = K.experimental_rod(N=10, dtype=torch.float32, device=dev)
+    model = K.apply_mod("damping", dtype=torch.float32, device=dev)
+    stream = torch.tensor(sine_tensions(true, 1, ONLINE_FRAMES)[0],
+                          dtype=true.dtype, device=dev)
+    roll = make_fast_rollout(true, impl="mega" if cuda else "plain",
+                             tol=1e-10)
+    frames = roll(stream[None])[0][0]
+    ad = OnlineAdapter(model, OnlineConfig(window=64, min_fill=16,
+                                           steps_per_update=4, hidden=64))
+    upd = []
+
+    def stream_all():
+        for t in range(ONLINE_FRAMES):
+            ad.observe(frames[t], stream[t])
+            if ad.ready and t % 2 == 0:
+                sync()
+                t0 = time.perf_counter()
+                ad.update()
+                sync()
+                upd.append((time.perf_counter() - t0) * 1e3)
+        return ad
+
+    _, n = timed_run(f"OnlineAdapter, {ONLINE_FRAMES} frames", stream_all)
+    win, phys = ad.window_loss(), ad.physics_loss()
+    out["online_update_ms"] = float(np.mean(upd))
+    log(f"[online D] {len(upd)} updates, update() {np.mean(upd):.2f} ms "
+        f"mean ({np.min(upd):.2f} min) [{name_power}]; window loss "
+        f"{win:.4e} vs physics {phys:.4e}; certified "
+        f"{ad.certified_updates}, rejected {ad.rejected_updates}; K2 "
+        f"launches (the probes) {n}")
+    if not (win < phys and ad.certified_params is not None):
+        raise AssertionError(f"path D online: window {win} vs physics "
+                             f"{phys}, certified {ad.certified_updates}")
+    return out
 
 
 def k8_cells(K, p, spec, net, trajs, ctls, keypoints):
@@ -1904,6 +2100,7 @@ def main() -> int:
     k4 = phase_k4_timings(K, dev, name_power, data)["232"]
     tt = phase_train_timings(K, dev, name_power, data[0])
     t78 = phase_k7_k8_timings(K, dev, name_power, data[0])
+    path_d = phase_model_based(K, dev, name_power)
     k7_launches = asm["launches"] + mpc["launches"]
 
     # bounds at the timed shapes (float32, hidden 512, 28 inputs, N=10)
@@ -1924,7 +2121,7 @@ def main() -> int:
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:93",
          "launches": (serve["K2"] + serve["K3"] + train["K2"] + train["K3"]
                       + multi["K2"] + multi["K3"] + clis["K2"] + clis["K3"]
-                      + k7_launches
+                      + path_d["K2"] + k7_launches
                       + fused["launches"]),
          "max_abs_err": k1_err, "ms": ms["K1"][0], "plain_ms": ms["K1"][1],
          **row(k1_bound)},
@@ -1937,7 +2134,8 @@ def main() -> int:
         {"name": "K2 step (256 rods; one block per rod, redesigned)",
          "route": "cuda", "source": src + "step.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_step.py:57",
-         "launches": serve["K2"] + train["K2"] + multi["K2"] + clis["K2"],
+         "launches": (serve["K2"] + train["K2"] + multi["K2"] + clis["K2"]
+                      + path_d["K2"]),
          "max_abs_err": max(errs[("K2", torch.float32)]
                             + errs[("K2", torch.float64)]),
          "ms": ms["K2"][0], "plain_ms": ms["K2"][1], **row(k2_bound)},

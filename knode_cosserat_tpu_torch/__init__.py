@@ -24,6 +24,12 @@ under make_train_step(use_pallas=True)). The multitrain study
 ``python -m knode_cosserat_tpu_torch multitrain``; the study's ``train``
 and ``simulate`` and the real-world pipeline (``prepare``, ``estimate``,
 ``train-real``, ``playback``; realworld/) are commands of the same CLI.
+The model-based side differentiates through the implicit rod
+(core/shooting.implicit_root, simulate_scan(differentiable=True)): the
+single-rod planner control/mpc.py, whose forward roots are K2 launches on
+the card, system identification training/sysid.py (the CLI's ``sysid`` and
+``design``), and online adaptation training/online.py with
+utils/health.py.
 
 Importing the package builds and loads nothing: the kernel modules
 (ops/sweep.py, ops/step.py, ops/train.py, ops/train_wide.py,

@@ -11,6 +11,10 @@
   playback           3D mocap playback gif (plot_bag.py)
   estimate           pose-only -> full-state estimation (estimate_state.py)
   train-real         real-data KNODE training (train_segment.py)
+  sysid              gradient-based physical-parameter identification
+                     (training/sysid.py; --assembly M: per-rod, from the
+                     end plate)
+  design             Fisher-optimal input design for sysid
 
 Run as ``python -m knode_cosserat_tpu_torch <cmd> ...``. Arguments,
 defaults, files and printouts are those of the JAX package's commands of
@@ -20,9 +24,13 @@ the same names (knode_cosserat_tpu/cli.py). The run takes the CUDA card;
 the rods' and the net's precision, float32 by default as in the JAX
 package outside its 64-bit mode. The noise of ``--noise_traj`` /
 ``--noise_controls`` is drawn from a ``torch.Generator`` seeded with
-``--seed``, so its values differ from the JAX package's PRNG draws. The
-JAX package's sysid, design, replicate and bench commands are not ported
-yet (ROADMAP.md, Queue 1, items 2 and 6).
+``--seed``, so its values differ from the JAX package's PRNG draws.
+``--dtype auto`` of sysid and design is float64 with ``--device cpu`` and
+float32 on the card; an explicit ``--dtype float64`` runs on the card (the
+H100 has float64; the JAX command pins the CPU for it because the TPU has
+none). design's start is drawn from a ``torch.Generator`` seeded with 0.
+The JAX package's replicate and bench commands are not ported yet
+(ROADMAP.md, Queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -102,7 +110,7 @@ def cmd_train(args):
     if args.mesh:
         raise NotImplementedError(
             "--mesh: sharded training waits for torch.distributed; see "
-            "ROADMAP.md, Queue 1, item 7")
+            "ROADMAP.md, Queue 1, item 4")
     device = default_device(args.device)
     specs = parse_traj_specs(args.control_type_arg)
     validation = args.validation or ("sine 0.1" if args.original
@@ -178,7 +186,7 @@ def cmd_simulate(args):
     if args.segments:
         raise NotImplementedError(
             "--segments: multiple shooting (simulate_scan_ms) is not ported "
-            "yet; see ROADMAP.md, Queue 1, item 4")
+            "yet; see ROADMAP.md, Queue 1, item 1")
     cuda = p.device.type == "cuda"
     if args.model:
         ckpt, meta = load_checkpoint(args.model)
@@ -231,7 +239,7 @@ def cmd_multitrain(args) -> dict:
     if args.mesh:
         raise NotImplementedError(
             "--mesh: the sharded grid waits for torch.distributed; see "
-            "ROADMAP.md, Queue 1, item 7")
+            "ROADMAP.md, Queue 1, item 4")
     cells = build_grid(DATAS[args.original], MODS, args.n_seeds)
     cfg = TrainConfig(epochs=args.epochs, hidden=args.layers,
                       dtype=args.dtype)
@@ -278,7 +286,7 @@ def cmd_graphs(args):
     if args.tipx:
         raise NotImplementedError(
             "--tipx: the tip-X figures (viz.tip_generalization_plot) are "
-            "not wired into graphs yet; see ROADMAP.md, Queue 1, item 6")
+            "not wired into graphs yet; see ROADMAP.md, Queue 1, item 3")
     records = []
     for fname in sorted(os.listdir(args.evals_dir)):
         if not fname.endswith(".npz"):
@@ -443,6 +451,198 @@ def cmd_train_real(args):
     return res
 
 
+def coerce_traj_layout(t, N, layout="auto"):
+    """Return ``t`` in state-last (T, N, C) layout, C in (25, 50).
+
+    layout: "state-last", "reference" ((T, C, N), transposed), or "auto".
+    Auto-detection refuses the ambiguous case: a rod with N in (25, 50)
+    nodes matches both patterns."""
+    if t.ndim != 3:
+        raise SystemExit(f"sysid: traj must be 3-D, got {t.shape}")
+    state_last = t.shape[1] == N and t.shape[2] in (25, 50)
+    ref_layout = t.shape[1] in (25, 50) and t.shape[2] == N
+    if layout == "auto" and state_last and ref_layout:
+        raise SystemExit(
+            f"sysid: traj shape {t.shape} is ambiguous for a rod with "
+            f"N={N} nodes (both layouts match); pass --layout "
+            "state-last or --layout reference")
+    if layout == "state-last" or (layout == "auto" and state_last):
+        if not state_last:
+            raise SystemExit(f"sysid: traj shape {t.shape} is not "
+                             f"state-last (T, N={N}, 25|50)")
+        return t
+    if layout == "reference" or (layout == "auto" and ref_layout):
+        if not ref_layout:
+            raise SystemExit(f"sysid: traj shape {t.shape} is not "
+                             f"reference layout (T, 25|50, N={N})")
+        return np.moveaxis(t, 1, 2)
+    raise SystemExit(
+        f"sysid: traj shape {t.shape} matches neither (T, N={N}, "
+        f"25|50) nor (T, 25|50, N={N}); check the file or --mod/"
+        "--original node count")
+
+
+def _sysid_dtype(requested: str, device):
+    """``--dtype`` of sysid / design: "auto" is float64 on the CPU and
+    float32 on the card; an explicit float64 runs where ``device`` is."""
+    import torch
+
+    if requested == "auto":
+        requested = "float64" if device.type == "cpu" else "float32"
+    return getattr(torch, requested)
+
+
+def cmd_sysid(args):
+    """Identify physical rod parameters: by default the plant is the true
+    rod under ``--type/--arg/--length`` controls and the fit starts at the
+    ``--mod`` fault; ``--data`` fits recorded trajectories instead;
+    ``--assembly M`` localizes a fault in rod 0 of an M-rod ring from its
+    end plate. Prints the JAX command's lines; returns the SysIdResult
+    (AssemblySysIdResult)."""
+    import torch
+
+    from .controls import calc_controls
+    from .core.params import apply_mod
+    from .core.stepper import simulate_scan
+    from .training.sysid import fit_rod_params, theta_init, theta_values
+
+    device = default_device(args.device)
+    dtype = _sysid_dtype(args.dtype, device)
+    if args.assembly:
+        return _sysid_assembly(args, dtype, device)
+    p0 = apply_mod(args.mod, original=args.original, dtype=dtype,
+                   device=device)
+    truth = None
+    if args.data:
+        data = np.load(args.data, allow_pickle=True)
+        t = coerce_traj_layout(np.asarray(data["traj"]), int(p0.N),
+                               args.layout)
+        traj = torch.as_tensor(t[args.trim:, :, :25].copy(), dtype=dtype,
+                               device=device)
+        controls = torch.as_tensor(
+            np.asarray(data["controls"])[args.trim:].copy(), dtype=dtype,
+            device=device)
+    else:
+        # the plant is the true rod; the model starts at the faulted mod
+        plant = apply_mod(None, original=args.original, dtype=dtype,
+                          device=device)
+        controls = torch.as_tensor(
+            calc_controls(args.type, args.arg, float(plant.del_t),
+                          args.length), dtype=dtype, device=device)
+        traj = simulate_scan(plant, controls).traj[:, :, :25]
+        truth = theta_values(theta_init(plant, args.fit))
+
+    # the JAX command's chunk policy (50 for rollout fits on the chip);
+    # the port's eager loop gives the same result for every chunk
+    chunk = args.chunk
+    if chunk == 0:
+        chunk = (50 if args.objective == "rollout" and device.type != "cpu"
+                 and dtype != torch.float64 else None)
+    # external windows start mid-motion: drop the fabricated first
+    # transition from the teacher loss there
+    res = fit_rod_params(p0, traj, controls, fields=tuple(args.fit),
+                         objective=args.objective, steps=args.steps,
+                         lr=args.lr, n_starts=args.n_starts,
+                         skip_first=bool(args.data), chunk=chunk)
+    if args.n_starts > 1:
+        print("start losses:",
+              " ".join(f"{v:.3e}" for v in res.start_losses.cpu().numpy()))
+    start = theta_values(theta_init(p0, args.fit))
+    print(f"objective {args.objective}: loss "
+          f"{float(res.loss_history[0]):.3e} -> "
+          f"{float(res.loss_history[-1]):.3e} in {args.steps} steps")
+    for name in args.fit:
+        line = f"  {name}: {start[name]} -> {res.values[name]}"
+        if truth is not None:
+            line += f"  (true {truth[name]})"
+        print(line)
+    return res
+
+
+def _sysid_assembly(args, dtype, device):
+    """``sysid --assembly M``: per-rod fault localization on an M-rod ring
+    whose rod 0 carries the ``--mod`` fault, from end-plate poses alone
+    (training/sysid.fit_assembly_params)."""
+    import torch
+
+    from .controls import calc_controls
+    from .core.assembly import (make_ring_assembly, simulate_assembly,
+                                stack_rods)
+    from .core.params import apply_mod
+    from .training.sysid import (apply_theta, fit_assembly_params,
+                                 theta_init, theta_values)
+
+    M = int(args.assembly)
+    if M < 2:
+        raise SystemExit("--assembly needs M >= 2 rods")
+    asm_nom = make_ring_assembly(n_rods=M, dtype=dtype, device=device)
+    rods = list(asm_nom.rods)
+    faulted = apply_mod(args.mod, original=args.original, dtype=dtype,
+                        device=device)
+    rods_true = [apply_theta(rods[0], theta_init(faulted, args.fit))]
+    rods_true += rods[1:]
+    asm_true = asm_nom.replace(rods=stack_rods(rods_true))
+
+    del_t = float(rods[0].del_t)
+    # per-rod phase-shifted excitation separates the rods
+    ctl = np.stack([np.asarray(calc_controls(args.type,
+                                             args.arg * (1 + 0.5 * i),
+                                             del_t, args.length))
+                    for i in range(M)], axis=1)
+    obs = simulate_assembly(asm_true, ctl)
+    res = fit_assembly_params(asm_nom, obs.plate_pose, ctl,
+                              fields=tuple(args.fit), steps=args.steps,
+                              lr=args.lr, w_ori=args.w_ori,
+                              chunk=args.chunk or None)
+    stacked = lambda rs: theta_values({
+        k: torch.stack([theta_init(r, args.fit)[k] for r in rs])
+        for k in args.fit})
+    truth, start = stacked(rods_true), stacked(rods)
+    print(f"assembly sysid (M={M}, fault in rod 0 via mod "
+          f"{args.mod!r}): loss {float(res.loss_history[0]):.3e} -> "
+          f"{float(res.loss_history[-1]):.3e} in {args.steps} steps")
+    for name in args.fit:
+        fit_v = np.asarray(res.values[name])
+        true_v = np.asarray(truth[name])
+        rel = np.abs(fit_v - true_v) / np.maximum(np.abs(true_v), 1e-30)
+        print(f"  {name} per rod: start {start[name]}")
+        print(f"  {name} fit : {fit_v}")
+        print(f"  {name} true: {true_v}  (max rel err {rel.max():.2e})")
+        start_v = np.asarray(start[name])
+        dev = np.abs(fit_v - start_v) / np.maximum(np.abs(start_v), 1e-30)
+        flat = dev.reshape(M, -1).sum(axis=1)
+        print(f"  localization: rod {int(np.argmax(flat))} moved most "
+              f"(expected 0)")
+    return res
+
+
+def cmd_design(args):
+    """Fisher-optimal input design around the ``--mod`` rod; saves the
+    designed controls to ``--save``. Returns the DesignResult."""
+    from .core.params import apply_mod
+    from .training.sysid import design_experiment
+
+    device = default_device(args.device)
+    dtype = _sysid_dtype(args.dtype, device)
+    p = apply_mod(args.mod, original=args.original, dtype=dtype,
+                  device=device)
+    res = design_experiment(p, fields=tuple(args.fit), horizon=args.horizon,
+                            criterion=args.criterion, u_min=args.u_min,
+                            u_max=args.u_max, steps=args.steps, lr=args.lr)
+    crit = ("log det Fisher" if args.criterion == "D"
+            else "min Fisher eigenvalue")
+    print(f"{crit}: {res.info_initial:.3f} -> {res.info_final:.3f} "
+          f"({args.steps} steps, fields {' '.join(args.fit)})")
+    os.makedirs(os.path.dirname(args.save) or ".", exist_ok=True)
+    controls = res.controls.cpu().numpy()
+    np.savez_compressed(args.save, controls=controls,
+                        objective_history=res.objective_history.cpu().numpy())
+    print(f"saved {args.save}: controls {controls.shape} — run it with "
+          f"`simulate --real_data {args.save}` or on the physical rig, "
+          "then `sysid --data ...`")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="knode-cosserat-tpu-torch",
                                  description=__doc__)
@@ -556,6 +756,75 @@ def main(argv=None):
     sp.add_argument("--dtype", type=str, default="float32")
     sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
     sp.set_defaults(fn=cmd_train_real)
+
+    sp = sub.add_parser(
+        "sysid", help="gradient-based physical-parameter identification")
+    sp.add_argument("--fit", nargs="+", default=["E"],
+                    help="base parameters to fit (E L r rho Bbt C g ...)")
+    sp.add_argument("--mod", type=str, default="youngs",
+                    help="faulted starting point (the mods registry)")
+    sp.add_argument("--original", action="store_true")
+    sp.add_argument("--objective", choices=("teacher", "rollout"),
+                    default="teacher")
+    sp.add_argument("--steps", type=int, default=300)
+    sp.add_argument("--lr", type=float, default=0.1)
+    sp.add_argument("--n_starts", type=int, default=1,
+                    help=">1: random-restart fits, best wins")
+    sp.add_argument("--type", type=str, default="sine",
+                    help="plant control signal (when no --data)")
+    sp.add_argument("--arg", type=float, default=1.0)
+    sp.add_argument("--length", type=int, default=60,
+                    help="plant trajectory steps (when no --data)")
+    sp.add_argument("--data", type=str, default=None,
+                    help="npz with traj+controls (from `simulate`, prepare, "
+                         "or estimate) instead of the generated plant; both "
+                         "state-last and reference (T, C, N) layouts accepted")
+    sp.add_argument("--trim", type=int, default=0,
+                    help="drop the first TRIM steps (estimated real data "
+                         "uses 100, train_segment.py:36)")
+    sp.add_argument("--layout", choices=("auto", "state-last", "reference"),
+                    default="auto",
+                    help="traj axis layout of --data: state-last (T, N, C) "
+                         "or reference (T, C, N); required explicitly when "
+                         "N is 25 or 50 (ambiguous)")
+    sp.add_argument("--dtype", choices=("auto", "float32", "float64"),
+                    default="auto",
+                    help="auto (default): float32 on the card, float64 with "
+                         "--device cpu; float64 runs on the card too")
+    sp.add_argument("--chunk", type=int, default=0,
+                    help="the JAX command's fit-scan chunk size (no effect "
+                         "on the port's result); 0 = auto")
+    sp.add_argument("--assembly", type=int, default=0, metavar="M",
+                    help="fault localization on an M-rod parallel "
+                         "continuum robot: the plant carries the --mod "
+                         "fault in ROD 0 only, the fit recovers per-rod "
+                         "values from END-PLATE pose alone "
+                         "(training/sysid.fit_assembly_params)")
+    sp.add_argument("--w_ori", type=float, default=1.0,
+                    help="plate-orientation observation weight for "
+                         "--assembly (0 = positions only; orientation is "
+                         "what separates symmetric rods)")
+    sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
+    sp.set_defaults(fn=cmd_sysid)
+
+    sp = sub.add_parser(
+        "design", help="Fisher-optimal input design for sysid")
+    sp.add_argument("--fit", nargs="+", default=["E"],
+                    help="parameters the experiment should inform")
+    sp.add_argument("--mod", type=str, default=None,
+                    help="nominal rod the design linearizes around")
+    sp.add_argument("--original", action="store_true")
+    sp.add_argument("--horizon", type=int, default=30)
+    sp.add_argument("--criterion", choices=("D", "E"), default="D")
+    sp.add_argument("--u_min", type=float, default=0.0)
+    sp.add_argument("--u_max", type=float, default=10.0)
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--lr", type=float, default=0.2)
+    sp.add_argument("--save", type=str, default="data/designed_controls.npz")
+    sp.add_argument("--dtype", choices=("auto", "float32", "float64"),
+                    default="auto", help="see sysid --dtype")
+    sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
+    sp.set_defaults(fn=cmd_design)
 
     args = ap.parse_args(argv)
     return args.fn(args)

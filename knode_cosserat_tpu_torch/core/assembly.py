@@ -51,7 +51,7 @@ from .multiple_shooting import (_lm_damped_solve, _newton_dense, _newton_loop,
                                 jacobian)
 from .params import RodParams, make_rod, rod_from_numpy
 from .rhs import _cross, _mv, _mv_t, rhs
-from .shooting import NewtonStats
+from .shooting import NewtonStats, implicit_root
 from .spatial import integrate_euler
 
 __all__ = ["PlateParams", "RodAssembly", "make_ring_assembly", "stack_rods",
@@ -435,24 +435,6 @@ def _newton_structured(residual_fn, jac_fn, X0, tol, max_iter, **kw):
     return _newton_loop(residual_fn, direction, X0, tol, max_iter, **kw)
 
 
-class _ImplicitTangent(torch.autograd.Function):
-    """Zero in the forward pass; in the backward pass it turns the
-    cotangent g of the solved root into lambda = J(X*)^-T g (the implicit
-    function theorem). Used as X = X* + _ImplicitTangent(-r(X*, theta)):
-    the value is exactly the root, and autograd carries -lambda through the
-    residual's VJP to everything theta that the residual depends on."""
-
-    @staticmethod
-    def forward(ctx, neg_r, X, res_fixed):
-        ctx.X, ctx.res_fixed = X, res_fixed
-        return torch.zeros_like(neg_r)
-
-    @staticmethod
-    def backward(ctx, g):
-        J = jacobian(ctx.res_fixed, ctx.X)
-        return torch.linalg.solve(J.transpose(0, 1), g), None, None
-
-
 def _residual_fn(asm, detach: bool, **kw):
     """X -> _assembly_residual(asm, X, **kw); ``detach`` detaches every
     tensor input first (the solves and Jacobians run at fixed inputs)."""
@@ -462,17 +444,20 @@ def _residual_fn(asm, detach: bool, **kw):
     return partial(_assembly_residual, asm, **kw)
 
 
-def _implicit_root(res, res_fixed, X_star, tol):
-    """The solved root X* with implicit-function-theorem gradients, and the
-    JAX package's stats under the implicit path: iterations 0
-    (unavailable), converged from the actual residual."""
-    X = X_star.detach()
-    r = res(X)
-    if torch.is_grad_enabled() and r.requires_grad:
-        X = X + _ImplicitTangent.apply(-r, X, res_fixed)
-    r2 = (r.detach() ** 2).sum()
-    zero = torch.zeros((), dtype=torch.int32, device=X.device)
-    return X, NewtonStats(zero, r2.sqrt(), r2 <= tol, zero)
+_HISTORIES = ("yh", "zh", "tf", "pph", "vph", "hph", "wbh")
+
+
+def _implicit_root(asm, X_star, tol, **kw):
+    """The solved root X* with implicit-function-theorem gradients
+    (shooting.implicit_root): the histories and tendon forces are its
+    explicit arguments, the rods, the plate and the nets its closure."""
+    rest = {k: v for k, v in kw.items() if k not in _HISTORIES}
+
+    def res(X, *histories):
+        return _assembly_residual(asm, X, *histories, **rest)
+
+    return implicit_root(res, X_star, tol, args=[kw[k] for k in _HISTORIES],
+                         root=X_star)
 
 
 def assembly_solve_step(asm: RodAssembly, yh, zh, tf, X0, pph, vph, hph,
@@ -485,10 +470,9 @@ def assembly_solve_step(asm: RodAssembly, yh, zh, tf, X0, pph, vph, hph,
     yh/zh: (M, N, 19)/(M, N, 6) histories; tf: (M, 3) tendon body forces;
     X0: (6M+7,) warm start; pph/vph/hph/wbh: plate histories.
     differentiable: the root carries implicit-function-theorem gradients
-    to every tensor the residual depends on: the histories, the tensions
-    behind tf, the nets' weights (:class:`_ImplicitTangent`). Gradients
-    with respect to rod or plate parameters are not tested yet (they wait
-    for training/sysid.py, ROADMAP.md Queue 1 item 2).
+    (shooting.implicit_root) to every tensor the residual depends on: the
+    histories, the tensions behind tf, the nets' weights, the rods' and
+    the plate's parameters (training/sysid.fit_assembly_params).
     solver: "structured", "dense" or "auto" (module docstring).
     Returns (y (M, N, 19), z_body (M, N-1, 6), X, stats)."""
     if solver == "auto":
@@ -507,8 +491,7 @@ def assembly_solve_step(asm: RodAssembly, yh, zh, tf, X0, pph, vph, hph,
         else:
             X, stats = _newton_dense(res_fixed, X0.detach(), tol, max_iter)
     if differentiable:
-        X, stats = _implicit_root(_residual_fn(asm, False, **kw), res_fixed,
-                                  X, tol)
+        X, stats = _implicit_root(asm, X, tol, **kw)
     M = asm.M
     y, z_body = _sweep_all(asm, X[:6 * M].reshape(M, 6), yh, zh, tf,
                            nn_fn, nn_history, nn_spec, nn_params)
@@ -625,12 +608,10 @@ def assembly_step_carry(asm: RodAssembly, carry: AssemblyCarry, tensions,
     X0 = torch.cat([(2.0 * G - G_prev).reshape(-1), pp, hp])
     if solve_fn is not None and differentiable:
         kw = dict(yh=yh, zh=zh, tf=tf, pph=pph, vph=vph, hph=hph, wbh=wbh)
-        res_fixed = _residual_fn(asm, True, **kw)
         with torch.no_grad():
             X_star = solve_fn(*(t.detach() for t in (X0, yh, zh, tf, pph,
                                                      vph, hph, wbh)))[0]
-        X, stats = _implicit_root(_residual_fn(asm, False, **kw), res_fixed,
-                                  X_star, tol)
+        X, stats = _implicit_root(asm, X_star, tol, **kw)
         y_new, z_body = _sweep_all(asm, X[:6 * M].reshape(M, 6), yh, zh,
                                    tf, None, False)
     elif solve_fn is not None:

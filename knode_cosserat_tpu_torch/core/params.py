@@ -1,9 +1,10 @@
 """Rod parameters as a frozen dataclass of tensors.
 
 PyTorch counterpart of ``knode_cosserat_tpu/core/params.py``. The derived
-terms are computed by :func:`derive` in float64 numpy on the host (for
-conditioning, including the ``v_rest`` precompute that keeps the float32
-path exact) and then cast to the requested dtype. ``RodParams.to`` moves
+terms are computed by :func:`derive` in float64 torch operations,
+differentiable in the base parameters (for conditioning, including the
+``v_rest`` precompute that keeps the float32 path exact), and then cast to
+the requested dtype. ``RodParams.to`` moves
 every tensor leaf to a device and/or dtype.
 
 State conventions:
@@ -14,6 +15,7 @@ All layouts are state-last: ``(..., N, 19)``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -82,7 +84,7 @@ class RodParams:
     Kse_c0Bse_inv: Any = None   # (3,3)
     Kbt_c0Bbt_inv: Any = None   # (3,3)
     Kse_vstar: Any = None       # (3,)
-    # Kse_c0Bse_inv @ Kse_vstar, precomputed in f64 on the host so the f32
+    # Kse_c0Bse_inv @ Kse_vstar, precomputed in f64 (derive) so the f32
     # path avoids adding O(1e5) stiffness terms to O(1) internal forces
     v_rest: Any = None          # (3,)
     rhoA: Any = None
@@ -116,45 +118,50 @@ class RodParams:
 
 def derive(p: RodParams, dtype: torch.dtype = torch.float64,
            device=None) -> RodParams:
-    """Fill the derived terms (reference cosserat_ode.py:58-78). Computed in
-    float64 numpy on the host for conditioning, then cast to ``dtype`` on
-    ``device`` (default: the CUDA card, see device.py)."""
-    device = default_device(device)
-    f64 = lambda x: np.asarray(_host(x), np.float64)
-    L = float(f64(p.L))
-    E = float(f64(p.E))
-    r = float(f64(p.r))
-    rho = float(f64(p.rho))
-    del_t = float(f64(p.del_t))
-    Bse, Bbt, vstar, g = f64(p.Bse), f64(p.Bbt), f64(p.vstar), f64(p.g)
+    """Fill the derived terms (reference cosserat_ode.py:58-78): float64
+    torch operations, differentiable in every base leaf, cast to ``dtype``
+    on ``device`` (default: the CUDA card, see device.py) at the end, so a
+    float32 rod keeps the float64 conditioning of ``v_rest``. This one
+    function is both of the JAX package's derives: the host ``derive`` and
+    the traced ``derive_traced`` that system identification differentiates
+    (training/sysid.py).
 
-    A = np.pi * r ** 2
+    The arithmetic runs on the CPU whatever the rod's device (the leaves
+    move there and back, differentiably): its values are then the JAX host
+    derive's bit for bit, and a rod built on the card equals the one built
+    on the CPU (the card's float64 ``pow`` may round differently by an
+    ulp, which moves Newton stop tests that sit at the tolerance)."""
+    device = default_device(device)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float64, device="cpu")
+    L, E, r, rho, del_t = f(p.L), f(p.E), f(p.r), f(p.rho), f(p.del_t)
+    Bse, Bbt, vstar, g = f(p.Bse), f(p.Bbt), f(p.vstar), f(p.g)
+
+    A = math.pi * r ** 2
     Gmod = E / (2 * (1 + 0.3))
     ds = L / (p.N - 1)
-    J = np.diag([np.pi * r ** 4 / 4, np.pi * r ** 4 / 4, np.pi * r ** 4 / 2])
-    Kse = np.diag([Gmod * A, Gmod * A, E * A])
-    Kbt = np.diag([E * J[0, 0], E * J[1, 1], Gmod * J[2, 2]])
+    J = torch.diag(torch.stack([math.pi * r ** 4 / 4, math.pi * r ** 4 / 4,
+                                math.pi * r ** 4 / 2]))
+    Kse = torch.diag(torch.stack([Gmod * A, Gmod * A, E * A]))
+    Kbt = torch.diag(torch.stack([E * J[0, 0], E * J[1, 1], Gmod * J[2, 2]]))
 
     c0 = 1.5 / del_t
     c1 = -2.0 / del_t
     c2 = 0.5 / del_t
 
-    Kse_c0Bse_inv = np.linalg.inv(Kse + c0 * Bse)
-    Kbt_c0Bbt_inv = np.linalg.inv(Kbt + c0 * Bbt)
-    Kse_vstar = Kse @ vstar
-    v_rest = Kse_c0Bse_inv @ Kse_vstar
+    Kse_c0Bse_inv = torch.linalg.inv(Kse + c0 * Bse)
+    Kbt_c0Bbt_inv = torch.linalg.inv(Kbt + c0 * Bbt)
+    Kse_vstar = (Kse * vstar).sum(-1)
+    v_rest = (Kse_c0Bse_inv * Kse_vstar).sum(-1)
 
-    cast = lambda x: torch.as_tensor(np.asarray(x, np.float64)).to(
-        device=device, dtype=dtype)
-
+    cast = lambda x: x.to(device=device, dtype=dtype)
     return p.replace(
         L=cast(L), E=cast(E), r=cast(r), rho=cast(rho), del_t=cast(del_t),
         vstar=cast(vstar), g=cast(g), Bse=cast(Bse), Bbt=cast(Bbt),
-        C=cast(f64(p.C)), F_tip=cast(f64(p.F_tip)), M_tip=cast(f64(p.M_tip)),
-        T0=cast(f64(p.T0)), tendon_offset=cast(f64(p.tendon_offset)),
-        tendon_dirs=cast(f64(p.tendon_dirs)),
-        p0=cast(f64(p.p0)), h0=cast(f64(p.h0)), q0=cast(f64(p.q0)),
-        w0=cast(f64(p.w0)),
+        C=cast(f(p.C)), F_tip=cast(f(p.F_tip)), M_tip=cast(f(p.M_tip)),
+        T0=cast(f(p.T0)), tendon_offset=cast(f(p.tendon_offset)),
+        tendon_dirs=cast(f(p.tendon_dirs)),
+        p0=cast(f(p.p0)), h0=cast(f(p.h0)), q0=cast(f(p.q0)),
+        w0=cast(f(p.w0)),
         A=cast(A), Gmod=cast(Gmod), ds=cast(ds), J=cast(J),
         Kse=cast(Kse), Kbt=cast(Kbt), c0=cast(c0), c1=cast(c1), c2=cast(c2),
         Kse_c0Bse_inv=cast(Kse_c0Bse_inv), Kbt_c0Bbt_inv=cast(Kbt_c0Bbt_inv),
@@ -164,6 +171,7 @@ def derive(p: RodParams, dtype: torch.dtype = torch.float64,
 
 
 def _host(x):
+    """A leaf as float64 numpy on the host."""
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", torch.float64).numpy()
     return x

@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``knode_cosserat_tpu/core/stepper.py`` (reference
 rollout driver knode.py:55-102): a Python loop over control steps, each
-step a warm-started, rod-batched Newton shooting solve (core/shooting.py).
-A batch of rollouts is a leading axis on ``controls``.
+step a warm-started, rod-batched Newton shooting solve (core/shooting.py),
+differentiable by the implicit function theorem on request. A batch of
+rollouts is a leading axis on ``controls``.
 
 Reference quirks kept as they are:
   * trajectory[0] is the initial straight rod recorded as [y, z, y, z];
@@ -21,13 +22,15 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..models.mlp import mlp_forward
 from .params import RodParams
-from .shooting import newton_solve
+from .shooting import implicit_root, newton_solve
 from .spatial import integrate_euler, integrate_rk4, tip_residual
 
 __all__ = ["initial_state", "simulate", "simulate_scan", "SimOutput",
-           "tendon_forces"]
+           "tendon_forces", "step_residual"]
 
 
 class SimOutput(NamedTuple):
@@ -63,6 +66,42 @@ def tendon_forces(p: RodParams, tensions: torch.Tensor) -> torch.Tensor:
     return (tensions.unsqueeze(-1) * p.tendon_dirs).sum(-2)
 
 
+def _sweep(p: RodParams, G, yh, zh, tf, nn_fn, nn_history, method):
+    """The spatial sweep of one BDF-2 step at G: (y, z_body)."""
+    if method == "euler":
+        return integrate_euler(p, G, yh, zh, tf, nn_fn, nn_history)
+    yh_int = 0.5 * (yh[..., :-1, :] + yh[..., 1:, :])
+    zh_int = 0.5 * (zh[..., :-1, :] + zh[..., 1:, :])
+    return integrate_rk4(p, G, yh, zh, yh_int, zh_int, tf, nn_fn, nn_history)
+
+
+def step_residual(p: RodParams, yh, zh, tf, nn_fn=None,
+                  nn_history: bool = False, method: str = "euler",
+                  net=None, with_state: bool = False):
+    """The tip residual of one BDF-2 step as ``(fn, args)`` for
+    shooting.implicit_root: fn(G, *args), args = (yh, zh, tf, the rod's
+    leaves that require grad, and ``net``'s weights), so derivatives of
+    every order with respect to rod parameters (training/sysid.
+    identifiability) are exact. ``nn_fn`` is the closure's net; ``net`` (a
+    KnodeMLP, in place of nn_fn) is called with its weights as arguments.
+    with_state: fn returns (r, (y, z_body)), the swept rod beside it
+    (implicit_root's ``aux``)."""
+    names = [n for n, v in p.leaves() if v.requires_grad]
+    weights = list(net.parameters()) if net is not None else []
+
+    def fn(G, yh, zh, tf, *vals):
+        q = p.replace(**dict(zip(names, vals))) if names else p
+        f = nn_fn
+        if net is not None:
+            ws = vals[len(names):]
+            f = lambda x: mlp_forward(net.spec, ws, x)
+        y, z = _sweep(q, G, yh, zh, tf, f, nn_history, method)
+        r = tip_residual(q, y)
+        return (r, (y, z)) if with_state else r
+
+    return fn, (yh, zh, tf, *(getattr(p, n) for n in names), *weights)
+
+
 def simulate_scan(
     p: RodParams,
     controls: torch.Tensor,
@@ -71,6 +110,8 @@ def simulate_scan(
     method: str = "euler",
     tol: Optional[float] = None,
     max_iter: int = 50,
+    differentiable: bool = False,
+    remat: bool = False,
     extrapolate: bool = True,
     initial: Optional[tuple] = None,
 ) -> SimOutput:
@@ -82,6 +123,16 @@ def simulate_scan(
     Per step (knode.py:70-100): BDF-2 history yh = c1*y + c2*y_prev, Newton
     shooting solve for G warm-started from the previous step, then one
     final spatial sweep at the solved G to produce the recorded state.
+
+    differentiable=True: each step's root carries implicit-function-theorem
+    gradients (shooting.implicit_root at the root newton_solve found), so
+    the rollout differentiates with respect to the controls, the initial
+    state, the rod's parameters and the net's weights; stats report
+    iterations 0 and ``converged`` from the actual residual. Otherwise the
+    rollout records no graph. remat=True checkpoints each time step
+    (torch.utils.checkpoint, non-reentrant): the backward pass recomputes
+    the step, its Newton solve included, which is deterministic, so the
+    gradient equals the plain path's.
     """
     if method not in ("euler", "rk4"):
         raise ValueError(f"unknown method {method!r}")
@@ -103,33 +154,43 @@ def simulate_scan(
     z_tip = z0[:, -1:]                      # frozen forever (see docstring)
     G0 = torch.zeros((B, 6), dtype=p.dtype, device=p.device)
 
-    y, z, y_prev, z_prev, G, G_prev = y0, z0, y0, z0, G0, G0
-    records = [torch.cat([y0, z0, y0, z0], dim=-1)]
-    Gs, iters, res, lm = [G0], [], [], []
-    for t in range(T - 1):
+    def step(y, z, y_prev, z_prev, G, G_prev, u):
         yh = p.c1 * y + p.c2 * y_prev
         zh = p.c1 * z + p.c2 * z_prev
         G_guess = 2.0 * G - G_prev if extrapolate else G
-        tf = tendon_forces(p, controls[:, t])
-
-        if method == "euler":
-            integrate = lambda Gx: integrate_euler(p, Gx, yh, zh, tf, nn_fn,
-                                                   nn_history)
+        tf = tendon_forces(p, u)
+        if differentiable:
+            fn, args = step_residual(p, yh, zh, tf, nn_fn, nn_history,
+                                     method)
+            G_new, stats = implicit_root(fn, G_guess, tol, max_iter, args)
         else:
-            yh_int = 0.5 * (yh[:, :-1] + yh[:, 1:])
-            zh_int = 0.5 * (zh[:, :-1] + zh[:, 1:])
-            integrate = lambda Gx: integrate_rk4(p, Gx, yh, zh, yh_int,
-                                                 zh_int, tf, nn_fn, nn_history)
-        G_new, stats = newton_solve(lambda Gx: tip_residual(p, integrate(Gx)[0]),
-                                    G_guess, tol=tol, max_iter=max_iter)
-        y_new, z_body = integrate(G_new)
+            G_new, stats = newton_solve(
+                lambda Gx: tip_residual(p, _sweep(p, Gx, yh, zh, tf, nn_fn,
+                                                  nn_history, method)[0]),
+                G_guess, tol=tol, max_iter=max_iter)
+        y_new, z_body = _sweep(p, G_new, yh, zh, tf, nn_fn, nn_history,
+                               method)
         z_new = torch.cat([z_body, z_tip], dim=-2)
-        records.append(torch.cat([y_new, z_new, yh, zh], dim=-1))
-        Gs.append(G_new)
-        iters.append(stats.iterations)
-        res.append(stats.residual_norm)
-        lm.append(stats.lm_retries)
-        y, z, y_prev, z_prev, G, G_prev = y_new, z_new, y, z, G_new, G
+        return (y_new, z_new, G_new, torch.cat([y_new, z_new, yh, zh], -1),
+                stats.iterations, stats.residual_norm, stats.lm_retries)
+
+    if remat and differentiable and torch.is_grad_enabled():
+        run = lambda *a: checkpoint(step, *a, use_reentrant=False)
+    else:
+        run = step
+    y, z, y_prev, z_prev, G, G_prev = y0, z0, y0, z0, G0, G0
+    records = [torch.cat([y0, z0, y0, z0], dim=-1)]
+    Gs, iters, res, lm = [G0], [], [], []
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        for t in range(T - 1):
+            y_new, z_new, G_new, record, it, rn, lmr = run(
+                y, z, y_prev, z_prev, G, G_prev, controls[:, t])
+            records.append(record)
+            Gs.append(G_new)
+            iters.append(it)
+            res.append(rn)
+            lm.append(lmr)
+            y, z, y_prev, z_prev, G, G_prev = y_new, z_new, y, z, G_new, G
 
     zero_i = torch.zeros(B, dtype=torch.int32, device=p.device)
     zero_f = torch.zeros(B, dtype=p.dtype, device=p.device)

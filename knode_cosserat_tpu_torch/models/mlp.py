@@ -20,6 +20,7 @@ from torch import nn
 from ..device import default_device
 
 __all__ = ["MLPSpec", "KnodeMLP", "StackedMLP", "init_mlp", "mlp_apply",
+           "mlp_forward",
            "clamp_nonnegative", "count_params", "bind", "params_from_jax",
            "stacked_params_from_jax", "ACTIVATIONS"]
 
@@ -84,18 +85,26 @@ class KnodeMLP(nn.Module):
         """Inputs and weights of different dtypes compute in the wider one
         (JAX's promotion: float32 weights on float64 features give float64,
         with the gradient flowing back to the float32 weights)."""
-        act = ACTIVATIONS[self.spec.activation]
-        n = len(self.layers)
-        for i, layer in enumerate(self.layers):
-            dt = torch.promote_types(x.dtype, layer.weight.dtype)
-            x = F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
-            if i < n - 1:
-                x = act(x)
-        return x
+        return mlp_forward(self.spec, list(self.parameters()), x)
 
     def weights(self):
         """[(w (dout, din), b (dout,)), ...] per layer."""
         return [(layer.weight, layer.bias) for layer in self.layers]
+
+
+def mlp_forward(spec: MLPSpec, weights, x: torch.Tensor) -> torch.Tensor:
+    """The net's function of its parameters [w1, b1, w2, b2, ...] (in
+    ``KnodeMLP.parameters()`` order): a net whose weights are explicit
+    arguments (core/stepper.step_residual)."""
+    act = ACTIVATIONS[spec.activation]
+    n = len(weights) // 2
+    for i in range(n):
+        W, b = weights[2 * i], weights[2 * i + 1]
+        dt = torch.promote_types(x.dtype, W.dtype)
+        x = F.linear(x.to(dt), W.to(dt), b.to(dt))
+        if i < n - 1:
+            x = act(x)
+    return x
 
 
 def init_mlp(spec: MLPSpec, generator: torch.Generator,

@@ -78,7 +78,7 @@ def grid_train(
     if mesh is not None:
         raise NotImplementedError(
             "mesh: the sharded grid (make_sharded_grid_training_run) waits "
-            "for torch.distributed; see ROADMAP.md, Queue 1, item 7")
+            "for torch.distributed; see ROADMAP.md, Queue 1, item 4")
     if reference_rod is None:
         reference_rod = apply_mod(None, original=original)
     data_cache = {}

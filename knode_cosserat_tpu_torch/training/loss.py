@@ -17,6 +17,7 @@ trajectory (the JAX package vmaps a single-trajectory loss instead).
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -27,7 +28,8 @@ from ..core.stepper import tendon_forces
 from ..models.mlp import KnodeMLP, MLPSpec, mlp_apply
 from ..ops.quaternion import quaternion_to_euler
 
-__all__ = ["teacher_forced_loss", "grow_predictions",
+__all__ = ["teacher_forced_loss", "teacher_forced_residuals",
+           "grow_predictions",
            "DEFAULT_KEYPOINTS_FAST", "DEFAULT_KEYPOINTS_SLOW",
            "DEFAULT_KEYPOINTS_REAL"]
 
@@ -133,3 +135,46 @@ def teacher_forced_loss(
             + mse(quaternion_to_euler(y_grown[..., 3:7]),
                   quaternion_to_euler(tgt_y[..., 3:7]))
             + mse(z_new, tgt_z))
+
+
+def teacher_forced_residuals(
+    p: RodParams,
+    spec: MLPSpec,
+    nn_params: KnodeMLP | None,
+    traj: torch.Tensor,
+    controls: torch.Tensor,
+    keypoints: Sequence[int] = DEFAULT_KEYPOINTS_FAST,
+    skip_first: bool = False,
+) -> torch.Tensor:
+    """The residual vector r of each trajectory, shape
+    ``traj.shape[:-3] + (n,)``, with sum(r**2) == teacher_forced_loss.
+
+    The loss is four equally weighted MSE groups (positions, internal
+    states 7:19, Euler angles, strains); each group's raw residuals are
+    scaled by 1/sqrt(its size), so the plain square-sum reproduces it. Its
+    Jacobian feeds the Gauss-Newton / Fisher path of
+    training/sysid.identifiability."""
+    if skip_first and traj.shape[-3] < 3:
+        raise ValueError(
+            f"teacher_forced_residuals(skip_first=True) needs >= 3 "
+            f"frames, got traj of length {traj.shape[-3]}")
+    y_grown, z_new = grow_predictions(p, spec, nn_params, traj, controls,
+                                      keypoints)
+    target = traj[..., 1:, :, :]
+    if skip_first:
+        y_grown, z_new = y_grown[..., 1:, :, :], z_new[..., 1:, :, :]
+        target = target[..., 1:, :, :]
+    tgt_y = _nodes(target[..., :19], list(keypoints))
+    tgt_z = _nodes(target[..., 19:], [k - 1 for k in keypoints])
+
+    def group(a, b):
+        d = (a - b).flatten(-3)
+        return d / math.sqrt(d.shape[-1])
+
+    return torch.cat([
+        group(y_grown[..., 0:3], tgt_y[..., 0:3]),
+        group(y_grown[..., 7:19], tgt_y[..., 7:19]),
+        group(quaternion_to_euler(y_grown[..., 3:7]),
+              quaternion_to_euler(tgt_y[..., 3:7])),
+        group(z_new, tgt_z),
+    ], dim=-1)

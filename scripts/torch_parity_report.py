@@ -1,9 +1,13 @@
-"""Observed errors of the PyTorch port's CLI and real-world modules against
-the JAX package, float64 on the CPU, on the inputs of
-tests/test_torch_{realworld,cli_train,energy_io}.py (whose assertions hold
-the bars printed here). One line per module: the largest error and its bar.
+"""Observed errors of the PyTorch port's CLI, real-world and model-based
+modules against the JAX package, float64 on the CPU, on the inputs of
+tests/test_torch_{realworld,cli_train,energy_io,diff_rollout,mpc,sysid,
+online}.py (whose assertions hold the bars printed here). One line per
+module: the largest error and its bar.
 
-    JAX_PLATFORMS=cpu python scripts/torch_parity_report.py
+    JAX_PLATFORMS=cpu python scripts/torch_parity_report.py [model]
+
+``model`` reports the model-based modules only (the differentiable rod,
+the planner, system identification, online adaptation).
 """
 import os
 import sys
@@ -70,6 +74,153 @@ def quiet(fn, *a):
             return fn(*a)
         finally:
             sys.stdout = old
+
+
+def model_based():
+    """The differentiable derive and rollout, control/mpc, training/sysid
+    and training/online against the JAX package."""
+    from knode_cosserat_tpu.control import mpc as jm
+    from knode_cosserat_tpu.core import assembly as ja
+    from knode_cosserat_tpu.core import stepper as jst
+    from knode_cosserat_tpu.training import online as jo
+    from knode_cosserat_tpu.training import sysid as js
+    from knode_cosserat_tpu_torch.control import mpc as km
+    from knode_cosserat_tpu_torch.core import assembly as ka
+    from knode_cosserat_tpu_torch.core import stepper as kst
+    from knode_cosserat_tpu_torch.training import online as ko
+    from knode_cosserat_tpu_torch.training import sysid as ks
+
+    derived = ("A", "Gmod", "ds", "J", "Kse", "Kbt", "c0", "c1", "c2",
+               "Kse_c0Bse_inv", "Kbt_c0Bbt_inv", "Kse_vstar", "v_rest",
+               "rhoA", "rhoAg", "rhoJ")
+    pj = J.experimental_rod("damping", dtype=jnp.float64)
+    pk = K.experimental_rod("damping", device="cpu")
+    pt = J.core.params.derive_traced(pj)
+    nz = lambda name, q: np.asarray(getattr(q, name)) != 0
+    report("derive vs the host derive, max rel",
+           max(rel(getattr(pk, n).numpy()[nz(n, pj)],
+                   np.asarray(getattr(pj, n))[nz(n, pj)]) for n in derived),
+           "rtol 1e-15")
+    report("derive vs derive_traced, max rel",
+           max(rel(getattr(pk, n).numpy()[nz(n, pt)],
+                   np.asarray(getattr(pt, n))[nz(n, pt)]) for n in derived),
+           "rtol 1e-12")
+
+    r6j, r6k = J.make_rod(N=6, dtype=jnp.float64), K.make_rod(N=6,
+                                                               device="cpu")
+    ctl = J.calc_controls("sine", 1.0, float(r6j.del_t), 5)
+    tip = lambda out: out.traj[-1, -1, 0]
+    want = jax.grad(lambda c, g: tip(jst.simulate_scan(
+        J.core.params.derive_traced(r6j.replace(g=g)), c,
+        differentiable=True)), argnums=(0, 1))(jnp.asarray(ctl),
+                                               jnp.asarray(r6j.g))
+    c, g = torch.tensor(ctl, requires_grad=True), r6k.g.clone()
+    g.requires_grad_(True)
+    got = torch.autograd.grad(tip(kst.simulate_scan(
+        K.derive(r6k.replace(g=g), device="cpu"), c, differentiable=True)),
+        [c, g])
+    report("simulate_scan(differentiable) d tip / d tensions, max rel",
+           absd(got[0], want[0]) / np.abs(want[0]).max(), "rtol 1e-6")
+    report("simulate_scan(differentiable) d tip / d gravity, max rel",
+           absd(got[1], want[1]) / np.abs(want[1]).max(), "rtol 1e-6")
+
+    H = 3
+    u = np.stack([np.linspace(2, 12, H), np.linspace(3, 5, H),
+                  np.linspace(6, 4, H), np.linspace(1, 2, H)], axis=1)
+    tips, _ = jm.rollout_tips(r6j, jm.PlanState.initial(r6j),
+                              jnp.asarray(u))
+    tgt = np.asarray(tips) + 1e-3
+    want = jm.make_planner(r6j, H, opt_iters=3)(jm.PlanState.initial(r6j),
+                                                jnp.asarray(tgt))
+    got = km.make_planner(r6k, H, opt_iters=3)(km.PlanState.initial(r6k),
+                                               torch.tensor(tgt))
+    report("make_planner cost history (3 iterations), max rel",
+           rel(got.cost_history, want.cost_history), "rtol 1e-6")
+    a, b = (km.make_planner(r6k, H, opt_iters=2, tol=1e-20, _root=root)(
+        km.PlanState.initial(r6k), torch.tensor(tgt))
+        for root in ("k2", "newton"))
+    report("make_planner on K2's plain roots vs newton_solve's, max rel",
+           rel(a.cost_history, b.cost_history), "rtol 1e-6")
+
+    plant = J.experimental_rod(N=6, dtype=jnp.float64)
+    ctl = J.calc_controls("sine", 1.0, float(plant.del_t), 5)
+    traj = np.asarray(jst.simulate_scan(plant, jnp.asarray(ctl)).traj)[
+        ..., :25]
+    p0j = J.experimental_rod("youngs", N=6, dtype=jnp.float64)
+    p0k = K.experimental_rod("youngs", N=6, device="cpu")
+    kp = (3, 5)
+    for obj in ("teacher", "rollout"):
+        kw = dict(fields=("E",), objective=obj, steps=3, lr=0.1,
+                  keypoints=kp)
+        report(f"fit_rod_params ({obj}) loss history, max rel",
+               rel(ks.fit_rod_params(p0k, traj, ctl, **kw).loss_history,
+                   js.fit_rod_params(p0j, traj, ctl, **kw).loss_history),
+               "rtol 1e-6")
+    for h in ("exact", "gn"):
+        kw = dict(fields=("E", "Bbt"), keypoints=kp, hessian=h)
+        report(f"identifiability ({h}, teacher) Hessian, max rel",
+               absd(ks.identifiability(p0k, traj, ctl, **kw).hessian,
+                    js.identifiability(p0j, traj, ctl, **kw).hessian)
+               / np.abs(js.identifiability(p0j, traj, ctl,
+                                           **kw).hessian).max(),
+               "rtol 1e-8")
+    u0 = np.full((3, 4), 5.0)
+    u0[:, 0] = [3.0, 6.0, 8.0]
+    kw = dict(fields=("E", "rho"), horizon=3, steps=2, keypoints=kp,
+              u_init=u0)
+    report("design_experiment objective history, max rel",
+           rel(ks.design_experiment(K.experimental_rod(N=6, device="cpu"),
+                                    **kw).objective_history,
+               js.design_experiment(plant, **kw).objective_history),
+           "rtol 1e-6")
+    wj = js.laplace_posterior(p0j, traj[:4], ctl[:4], fields=("E",),
+                              keypoints=kp)
+    wk = ks.laplace_posterior(p0k, traj[:4], ctl[:4], fields=("E",),
+                              keypoints=kp)
+    report("laplace_posterior covariance (rollout Hessian), max rel",
+           rel(wk.covariance, wj.covariance), "rtol 1e-6")
+
+    asm_j = ja.make_ring_assembly(n_rods=2, N=5, dtype=jnp.float64)
+    asm_k = ka.assembly_from_jax(asm_j, device="cpu")
+    c2 = np.stack([J.calc_controls("sine", a, float(asm_k.rods[0].del_t), 4)
+                   for a in (0.7, 1.3)], axis=1)
+    stiff = [ks.apply_theta(r, {"E": ks.theta_init(r, ("E",))["E"]
+                                + (0.3 if i == 0 else 0.0)})
+             for i, r in enumerate(asm_k.rods)]
+    plate = ka.simulate_assembly(asm_k.replace(rods=ka.stack_rods(stiff)),
+                                 c2).plate_pose.numpy()
+    plate[:, 4] += 1e-3              # tilted, as tests/test_torch_sysid.py
+    kw = dict(fields=("E",), steps=2, lr=0.01, w_ori=0.5, tol=1e-24)
+    report("fit_assembly_params loss history, max rel",
+           rel(ks.fit_assembly_params(asm_k, plate, c2, **kw).loss_history,
+               js.fit_assembly_params(asm_j, plate, c2, **kw).loss_history),
+           "rtol 1e-6")
+    hj = js.assembly_identifiability(asm_j, plate, c2, w_ori=0.5).hessian
+    hk = ks.assembly_identifiability(asm_k, plate, c2, w_ori=0.5).hessian
+    report("assembly_identifiability Hessian, max rel",
+           absd(hk, hj) / np.abs(hj).max(), "rtol 1e-6")
+
+    plant6 = J.apply_mod(None, N=6, dtype=jnp.float64)
+    sctl = J.calc_controls("sine", 0.5, float(plant6.del_t), 14)
+    stream = np.asarray(jst.simulate_scan(plant6, jnp.asarray(sctl)).traj)
+    cfg = dict(window=8, min_fill=4, steps_per_update=2, lr=1e-3, hidden=8,
+               seed=0, keypoints=kp, probe_horizon=3)
+    aj = jo.OnlineAdapter(J.apply_mod("damping", N=6, dtype=jnp.float64),
+                          jo.OnlineConfig(**cfg))
+    ak = ko.OnlineAdapter(K.apply_mod("damping", N=6, device="cpu"),
+                          ko.OnlineConfig(**cfg),
+                          params=K.params_from_jax(
+                              aj.params, ko.OnlineConfig(**cfg).spec(),
+                              device="cpu"))
+    lj, lk = [], []
+    for t in range(10):
+        aj.observe(stream[t], sctl[t])
+        ak.observe(stream[t], sctl[t])
+        if aj.ready and t % 2 == 0:
+            lj.append(aj.update())
+            lk.append(ak.update())
+    report("OnlineAdapter update losses (JAX net carried), max rel",
+           rel(lk, lj), "rtol 1e-6")
 
 
 def main():
@@ -171,4 +322,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["model"]:
+        model_based()
+    else:
+        main()
+        model_based()

@@ -2,7 +2,9 @@
 the grid, writes one checkpoint per cell and the eval records, and prints
 the table and its phases; ``graphs`` reads the records back into the same
 table; ``simulate-assembly`` writes the coupled rollout the JAX CLI
-writes."""
+writes; ``sysid`` (teacher, rollout, ``--assembly 2``) prints what the JAX
+command prints, and ``design`` what the JAX package's design gives from
+the same start."""
 import os
 
 import numpy as np
@@ -52,14 +54,14 @@ def test_multitrain_then_graphs(tiny, tmp_path, capsys):
 
 
 def test_unported_options_raise(tiny, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7$"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 4$"):
         cli.main(["multitrain", "--mesh", "1,1,1", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="viz"):
         cli.main(["graphs", "--tipx", "--evals_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7$"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 4$"):
         cli.main(["train", "sine", "0.5", "--mesh", "1,1,1", "--device",
                   "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4$"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 1$"):
         cli.main(["simulate", "--segments", "3", "--steps", "3", "--device",
                   "cpu"])
     for extra in (["--model", "m.npz"], ["--fast"]):
@@ -107,3 +109,113 @@ def test_simulate_assembly(tmp_path, capsys):
     assert torch.equal(out.traj, want.traj)
     ctl = calc_controls("sine", 1.0, float(asm.rods[0].del_t), 5)
     np.testing.assert_array_equal(d["controls"][:, 0], ctl)
+
+
+# ------------------------------------------------------------ sysid, design
+
+_FLOAT = r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?"
+
+
+def _numbers(text):
+    import re
+    return [float(x) for x in re.findall(_FLOAT, text)]
+
+
+def _jax_cli(monkeypatch, argv, capsys):
+    """The JAX package's command in-process on the CPU in float64 (its
+    sysid / design pick float64 under KNODE_PLATFORM=cpu)."""
+    from knode_cosserat_tpu import cli as jcli
+
+    monkeypatch.setenv("KNODE_PLATFORM", "cpu")
+    monkeypatch.setenv("KNODE_NO_COMPILE_CACHE", "1")
+    jcli.main(argv)
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    ["sysid", "--length", "6", "--steps", "3"],
+    ["sysid", "--objective", "rollout", "--length", "4", "--steps", "2"],
+    ["sysid", "--assembly", "2", "--length", "4", "--steps", "2"],
+], ids=["teacher", "rollout", "assembly"])
+def test_sysid_matches_the_jax_command(monkeypatch, capsys, argv):
+    """The same lines as the JAX command (float64 on the CPU: ``--dtype
+    auto`` with ``--device cpu``), every printed number within rtol 1e-6."""
+    want = _jax_cli(monkeypatch, argv, capsys)
+    res = cli.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    assert [ln.split(":")[0] for ln in got.splitlines()] == [
+        ln.split(":")[0] for ln in want.splitlines()]
+    np.testing.assert_allclose(_numbers(got), _numbers(want), rtol=1e-6)
+    hist = res.loss_history
+    assert hist.dtype == torch.float64 and hist.shape == (int(argv[-1]),)
+    assert float(hist[-1]) < float(hist[0])
+
+
+def test_design_matches_jax(monkeypatch, capsys, tmp_path):
+    """``design`` starts from logits drawn from a torch.Generator seeded
+    with 0 (the JAX command draws from its PRNG key), so it is held to the
+    JAX package's design_experiment started from the same schedule: the
+    printed information before and after, and the saved file."""
+    import jax.numpy as jnp
+
+    from knode_cosserat_tpu.core.params import apply_mod
+    from knode_cosserat_tpu.training.sysid import design_experiment
+
+    path = tmp_path / "d" / "designed.npz"
+    res = cli.main(["design", "--horizon", "3", "--steps", "2", "--device",
+                    "cpu", "--save", str(path)])
+    printed = capsys.readouterr().out
+    logits0 = 0.01 * torch.randn((3, 4), generator=torch.Generator()
+                                 .manual_seed(0), dtype=torch.float64)
+    u0 = 10.0 * torch.sigmoid(logits0).numpy()
+    want = design_experiment(apply_mod(None, dtype=jnp.float64),
+                             fields=("E",), horizon=3, steps=2, lr=0.2,
+                             u_init=u0)
+    assert printed.startswith("log det Fisher: ")
+    np.testing.assert_allclose([res.info_initial, res.info_final],
+                               [want.info_initial, want.info_final],
+                               rtol=1e-6)
+    np.testing.assert_allclose(_numbers(printed.splitlines()[0])[:2],
+                               [res.info_initial, res.info_final], rtol=0,
+                               atol=5e-4)     # printed with 3 decimals
+    assert res.info_final > res.info_initial
+    d = np.load(path)
+    np.testing.assert_allclose(d["controls"], np.asarray(want.controls),
+                               rtol=1e-6)
+    assert d["objective_history"].shape == (2,)
+
+
+def test_sysid_data_layouts_and_dtype(tmp_path, capsys, monkeypatch):
+    """``--data`` in either layout (and ``--trim``) fits what the generated
+    plant fits; coerce_traj_layout refuses what the JAX one refuses; the
+    dtype policy; and without a card both commands raise."""
+    from knode_cosserat_tpu.cli import coerce_traj_layout as jcoerce
+    from knode_cosserat_tpu_torch.core.params import apply_mod
+    from knode_cosserat_tpu_torch.core.stepper import simulate
+
+    from knode_cosserat_tpu_torch.controls import calc_controls
+
+    p = apply_mod(None, device="cpu")
+    ctl = calc_controls("sine", 1.0, float(p.del_t), 7)
+    traj = simulate(p, ctl).numpy()
+    paths = {}
+    for layout, t in (("state-last", traj),
+                      ("reference", np.moveaxis(traj, 1, 2))):
+        paths[layout] = tmp_path / f"{layout}.npz"
+        np.savez(paths[layout], traj=t, controls=ctl)
+    fits = [cli.main(["sysid", "--data", str(paths[lay]), "--trim", "1",
+                      "--steps", "2", "--layout", lay, "--device", "cpu"])
+            for lay in ("state-last", "reference")]
+    assert torch.equal(fits[0].loss_history, fits[1].loss_history)
+    assert "(true" not in capsys.readouterr().out
+    for shape in ((5, 25, 25), (5, 7, 9), (5, 10)):
+        for fn in (cli.coerce_traj_layout, jcoerce):
+            with pytest.raises(SystemExit):
+                fn(np.zeros(shape), shape[1])
+    assert cli._sysid_dtype("auto", torch.device("cpu")) == torch.float64
+    assert cli._sysid_dtype("auto", torch.device("cuda")) == torch.float32
+    assert cli._sysid_dtype("float64", torch.device("cuda")) == torch.float64
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["sysid", "--steps", "1"], ["design", "--steps", "1"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)

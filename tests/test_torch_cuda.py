@@ -742,3 +742,39 @@ def test_fused_train_step_runs_on_the_kernel(dev):
         losses.append(torch.stack([step(n, trajs, ctls) for _ in range(5)]))
         assert kseg.LAUNCHES == (5 if fused else 0)
     assert torch.allclose(losses[0], losses[1], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_planner_roots_run_on_k2(dev, hybrid):
+    """make_planner on a CUDA rod: every forward root a K2 launch
+    ((iterations + 2) x horizon, none in the implicit backward), the cost
+    falls; in float64 the cost history through K2's roots equals the one
+    through newton_solve's within rtol 1e-6."""
+    from knode_cosserat_tpu_torch.control import mpc
+    H, iters = 3, 3
+    spec, net = _net(False, torch.float32, dev, 1e-3) if hybrid else (None,
+                                                                      None)
+    p = K.experimental_rod(N=6, dtype=torch.float32, device=dev)
+    u = torch.tensor([[2.0, 3.0, 6.0, 1.0], [7.0, 4.0, 5.0, 1.5],
+                      [12.0, 5.0, 4.0, 2.0]], device=dev)
+    state = mpc.PlanState.initial(p)
+    with torch.no_grad():
+        target, _ = mpc.rollout_tips(p, state, u)
+    kstep.LAUNCHES = 0
+    r = mpc.make_planner(p, H, spec, opt_iters=iters, w_du=0.0)(
+        state, target, nn_params=net)
+    assert kstep.LAUNCHES == (iters + 2) * H
+    assert float(r.cost) < float(r.cost_history[0])
+    p64 = K.experimental_rod(N=6, device=dev)
+    net64 = None
+    if hybrid:
+        net64 = K.init_mlp(spec, torch.Generator().manual_seed(0),
+                           torch.float64, dev)
+        net64.load_state_dict({k: v.double() for k, v in
+                               net.state_dict().items()})
+    a, b = (mpc.make_planner(p64, H, spec, opt_iters=2, tol=1e-20,
+                             _root=root)(mpc.PlanState.initial(p64),
+                                         target.double(), nn_params=net64)
+            for root in ("k2", "newton"))
+    np.testing.assert_allclose(a.cost_history.cpu().numpy(),
+                               b.cost_history.cpu().numpy(), rtol=1e-6)

@@ -59,6 +59,28 @@ SCRIPT = textwrap.dedent("""
     assert yg.shape == (5, 19) and z.shape == (5, 6)
     assert calls == [], calls
     assert _build._LIB is None and kasm.LAUNCHES == 0 and kseg.LAUNCHES == 0
+
+    # the model-based slice: planning on K2's plain version, identification
+    # and online adaptation, without jax or optax
+    from knode_cosserat_tpu_torch.control import mpc
+    from knode_cosserat_tpu_torch.training import online, sysid
+    from knode_cosserat_tpu_torch.utils import health
+    r = mpc.make_planner(p, 2, opt_iters=1, _root="k2")(
+        mpc.PlanState.initial(p), torch.zeros(2, 3, dtype=torch.float64))
+    assert bool(torch.isfinite(r.cost)) and step.LAUNCHES == 0
+    sim = K.simulate_scan(p, torch.full((4, 4), 5.0), differentiable=True)
+    assert health.check_rollout(sim).ok
+    fit = sysid.fit_rod_params(p, sim.traj, torch.full((4, 4), 5.0),
+                               steps=1, keypoints=(3, 5))
+    assert fit.loss_history.shape == (1,)
+    ad = online.OnlineAdapter(p, online.OnlineConfig(window=4, min_fill=3,
+                                                     hidden=4,
+                                                     keypoints=(3, 5)))
+    for t in range(3):
+        ad.observe(sim.traj[t], torch.full((4,), 5.0))
+    assert ad.update() is not None
+    assert calls == [], calls
+    assert _build._LIB is None
     print("STANDALONE_OK")
 """)
 
