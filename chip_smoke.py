@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check and
 time the hand-written kernels, and drive the serving, training, CLI,
-assembly, plate-pose MPC and single-rod MPC / identification / online
-paths.
+assembly, plate-pose MPC, single-rod MPC / identification / online, and
+fine-rod / reference-solver / mixed-precision / hardware paths.
 
     python3 chip_smoke.py
 
@@ -119,6 +119,18 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      each on the host clock, each loss
      falling; an OnlineAdapter fed 100 K2-rollout frames of the true rod
      (the window loss under physics, a certified handoff, update() in ms).
+ 20. the fine-rod, reference-solver, mixed-precision and hardware path (E),
+     counted: simulate_scan_ms on experimental_rod(N=40), float64, 20 steps
+     (S=3 and S=13 structured, S=3 dense) and simulate_fsolve at N=10,
+     each held to a physics-only K2 rollout of the same rod (1e-9 of the
+     trajectory's largest entry; RMSE 1e-7); K2 with a bf16-spec net
+     against its plain version with the compute dtype dropped;
+     train_knode(nn_dtype="bfloat16") at for_knode(512) on bench_data.npz,
+     200 epochs, fused="off" (the loss falls, float32 master weights, no K4
+     launch, K2 in its validation), then its epochs/s beside float32 on
+     the same loop; the CLI's replicate at its defaults (the C++ firmware
+     built with the host g++; the bag, estimate and model files, a finite
+     DTW, a falling loss, K4 launched).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -229,6 +241,14 @@ MPC_D_SCHEDULE = np.stack([np.linspace(a, b, MPC_D_HORIZON) for a, b in
                            ((2.0, 12.0), (3.0, 5.0), (6.0, 4.0), (1.0, 2.0))],
                           axis=1)
 ONLINE_FRAMES = 100               # path D: the online adapter's stream
+# path E: the fine rod of multiple shooting (N - 1 = 39 = 3 x 13) and its
+# segment counts, the rollouts' length, the bar against physics-only K2
+# (max |a - b| over the trajectory's largest entry), the fsolve rollout's
+# bar (the goldens' RMSE, tests/test_parity.py:26-36), the bf16 trainer's
+# epochs and validation length
+E_N, E_STEPS, E_REL = 40, 20, 1e-9
+E_FSOLVE_RMSE = 1e-7
+E_EPOCHS, E_EVAL_LEN = 200, 20
 FUSED_STEPS = 200                 # path C: fused vs plain training steps
 FUSED_LOSS_RTOL = 1e-4            # their losses, f32 (the JAX test's bar)
 
@@ -1847,6 +1867,180 @@ def phase_model_based(K, dev, name_power):
     return out
 
 
+def phase_fine_rod_and_hardware(K, dev, name_power, errs):
+    """Path E, counted: multiple shooting (N=40, S=3 and 13 structured, S=3
+    dense) and the MINPACK rollout (N=10), float64, 20 steps each, held to
+    physics-only K2 rollouts of the same rods; K2 with a bf16-spec net
+    against its plain version with the compute dtype dropped;
+    train_knode(nn_dtype="bfloat16") on the plain epoch loop with K2
+    validations beside the float32 plain loop; the CLI's replicate at its
+    defaults (the SIL stack, the bag, prepare, estimate, K4 training). Each
+    part on the synchronised host clock; the K2 / K4 launch counts of the
+    path's runs (the bf16 trainer, replicate) are read around them."""
+    import tempfile
+
+    from knode_cosserat_tpu_torch import cli
+    from knode_cosserat_tpu_torch.core.fast_rollout import make_fast_rollout
+    from knode_cosserat_tpu_torch.core.multiple_shooting import \
+        simulate_scan_ms
+    from knode_cosserat_tpu_torch.core.reference_solver import \
+        simulate_fsolve
+    from knode_cosserat_tpu_torch.models.mlp import KnodeMLP
+    from knode_cosserat_tpu_torch.ops import step as kstep
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = dict(K2=0, K4=0, seconds={})
+
+    def clocked(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, time.perf_counter() - t0
+
+    def k2_reference(p, ctl):
+        roll = make_fast_rollout(p, None, tol=1e-20, max_iter=50,
+                                 impl="mega" if cuda else "plain")
+        with torch.no_grad():
+            return roll(ctl[None])[0][0]
+
+    # multiple shooting on a fine rod against physics-only K2
+    p40 = K.experimental_rod(N=E_N, dtype=torch.float64, device=dev)
+    ctl40 = torch.tensor(sine_tensions(p40, 1, E_STEPS)[0],
+                         dtype=torch.float64, device=dev)
+    ref40 = k2_reference(p40, ctl40)
+    for S, solver in ((3, "structured"), (13, "structured"), (3, "dense")):
+        o, secs = clocked(lambda: simulate_scan_ms(p40, ctl40, S, tol=1e-20,
+                                                   solver=solver))
+        rel = float((o.traj - ref40).abs().max() / ref40.abs().max())
+        label = f"simulate_scan_ms N={E_N} S={S} {solver}"
+        out["seconds"][label] = secs
+        errs.setdefault("E ms", []).append(rel)
+        log(f"[time] path E {label}, f64, {E_STEPS} steps: {secs:.2f} s "
+            f"({secs / (E_STEPS - 1) * 1e3:.1f} ms a step; Newton iterations "
+            f"max {int(o.newton_iters.max())}, residual max "
+            f"{float(o.residuals.max()):.2e}) [{name_power}]")
+        log(f"[ms E] {label}: max |ms - K2| / max |K2| {rel:.3e} (bar "
+            f"{E_REL})")
+        if not rel <= E_REL:
+            raise AssertionError(f"path E {label}: {rel:.3e} > {E_REL}")
+
+    # the MINPACK rollout against physics-only K2
+    p10 = K.experimental_rod(N=10, dtype=torch.float64, device=dev)
+    ctl10 = torch.tensor(sine_tensions(p10, 1, E_STEPS)[0],
+                         dtype=torch.float64, device=dev)
+    ref10 = k2_reference(p10, ctl10).cpu().numpy()
+    traj, secs = clocked(lambda: simulate_fsolve(p10, ctl10.cpu().numpy()))
+    rmse = float(np.sqrt(np.mean((traj - ref10) ** 2)))
+    out["seconds"]["simulate_fsolve N=10"] = secs
+    errs.setdefault("E fsolve", []).append(rmse)
+    log(f"[time] path E simulate_fsolve N=10, f64, {E_STEPS} steps: "
+        f"{secs:.2f} s ({secs / (E_STEPS - 1):.3f} s a step) [{name_power}]")
+    log(f"[fsolve E] RMSE against K2 {rmse:.3e} (bar {E_FSOLVE_RMSE})")
+    if not rmse <= E_FSOLVE_RMSE:
+        raise AssertionError(f"path E fsolve: RMSE {rmse:.3e}")
+
+    # the mixed-precision trainer: the plain epoch loop, K2 validations;
+    # then its epochs/s beside float32 on the same loop, without
+    # validations (train_knode's clock starts after the first 10-epoch
+    # chunk)
+    trajs, ctls = bench_data(dev)
+    ref = K.apply_mod(None, device=dev)
+    vc, vt = K.make_validation_reference(ref, ("sine", 1.25), E_EVAL_LEN)
+    p, cfg, _ = train_setup(K, dev, epochs=E_EPOCHS, eval_every=E_EPOCHS,
+                            eval_len=E_EVAL_LEN, nn_dtype="bfloat16",
+                            fused="off")
+    kstep.LAUNCHES = ktrain.LAUNCHES = 0
+    r, secs = clocked(lambda: K.train_knode(p, trajs, ctls, cfg, vc, vt,
+                                            log=None))
+    lh = r.loss_history
+    out["K2"] += kstep.LAUNCHES
+    out["seconds"]["train_knode bfloat16"] = secs
+    log(f"[time] path E train_knode for_knode(512) nn_dtype=bfloat16, "
+        f"fused=off, {E_EPOCHS} epochs, 232 cells, validations at 0 and "
+        f"{E_EPOCHS}: {secs:.2f} s; K2 launches {kstep.LAUNCHES}, K4 "
+        f"{ktrain.LAUNCHES} [{name_power}]")
+    log(f"[train E] bfloat16: loss {lh[0]:.4e} -> {lh[-1]:.4e}; DTW "
+        f"{[(e, round(d, 6)) for e, d in r.dtw_history]}")
+    masters = {P.dtype for P in r.params.parameters()}
+    if not (np.isfinite(lh).all() and lh[-1] < lh[0]):
+        raise AssertionError(f"path E bf16 train: loss {lh[0]} -> {lh[-1]}")
+    if masters != {torch.float32} or r.params.spec.compute_dtype != \
+            "bfloat16":
+        raise AssertionError(f"path E bf16: master weights {masters}")
+    if cuda and (ktrain.LAUNCHES != 0 or kstep.LAUNCHES == 0):
+        raise AssertionError(f"path E bf16: K4 {ktrain.LAUNCHES}, K2 "
+                             f"{kstep.LAUNCHES} (want 0 and >= 1)")
+    net16 = r.params
+    for nn_dtype in ("bfloat16", None):
+        p, cfg, _ = train_setup(K, dev, epochs=E_EPOCHS, nn_dtype=nn_dtype,
+                                fused="off")
+        kind = nn_dtype or "float32"
+        r, secs = clocked(lambda: K.train_knode(p, trajs, ctls, cfg,
+                                                log=None))
+        out[f"eps {kind}"] = r.epochs_per_sec
+        log(f"[time] path E train_knode nn_dtype={kind}, fused=off, "
+            f"{E_EPOCHS} epochs, no validation: {secs:.2f} s, "
+            f"epochs_per_sec {r.epochs_per_sec:.1f} (loss "
+            f"{r.loss_history[0]:.4e} -> {r.loss_history[-1]:.4e}) "
+            f"[{name_power}]")
+
+    # K2 with the bf16-spec net computes it in float32: its plain version
+    # with the compute dtype dropped (a comparison, not counted)
+    net32 = KnodeMLP(K.MLPSpec.for_knode(HIDDEN), dtype=torch.float32,
+                     device=dev)
+    net32.load_state_dict(net16.state_dict())
+    p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+    G, yh, zh, tf = on(dev, torch.float32, *history_inputs(p, 64, SEED + 5))
+    G = torch.zeros_like(G)
+    k = kstep.make_step_kernel(p, net16.spec, tol=1e-13, max_iter=30)
+    with torch.no_grad():
+        got = k(G, yh, zh, tf, net16)
+        want = kstep.step_reference(p, G, yh, zh, tf, net32, tol=1e-13,
+                                    max_iter=30)
+    sync()
+    for name, a, b in zip(("G", "y"), got[:2], want[:2]):
+        ok, e = close(a, b, 0.0, STEP_F32_ATOL[name])
+        errs.setdefault(("K2", torch.float32), []).append(e)
+        log(f"[K2 E] bf16-spec net, 64 rods, f32: {name} max err {e:.3e} "
+            f"against the plain version in float32")
+        if not ok:
+            raise AssertionError(f"path E K2 bf16 spec: {name} {e:.3e}")
+
+    # the physical workflow, one command, at its defaults
+    tmp = tempfile.TemporaryDirectory(prefix="knode_path_e_")
+    argv = ["replicate", "--out_dir", os.path.join(tmp.name, "rep")]
+    if not cuda:
+        argv += ["--device", "cpu", "--epochs", "3", "--settle", "0.3",
+                 "--tail", "0.3"]
+    log(f"[cli E] python -m knode_cosserat_tpu_torch {' '.join(argv)}")
+    kstep.LAUNCHES = ktrain.LAUNCHES = 0
+    summ, secs = clocked(lambda: cli.main(argv))
+    out["K2"] += kstep.LAUNCHES
+    out["K4"] += ktrain.LAUNCHES
+    out["seconds"]["replicate"] = secs
+    out["replicate"] = summ["seconds"]
+    stages = ", ".join(f"{k} {v:.2f} s" for k, v in summ["seconds"].items())
+    log(f"[time] path E replicate (defaults): {secs:.2f} s: {stages}; K4 "
+        f"launches {ktrain.LAUNCHES}, K2 {kstep.LAUNCHES} [{name_power}]")
+    log(f"[cli E] replicate: {summ['telemetry_frames']} telemetry frames, "
+        f"ingest DTW {summ['dtw']:.4f}, loss {summ['loss_initial']:.4e} -> "
+        f"{summ['loss_final']:.4e}")
+    missing = [k for k in ("bag", "prepared", "estimated", "model")
+               if not os.path.exists(summ[k])]
+    if missing or not np.isfinite(summ["dtw"]) or not (
+            summ["loss_final"] < summ["loss_initial"]):
+        raise AssertionError(f"path E replicate: missing {missing}, DTW "
+                             f"{summ['dtw']}, loss {summ['loss_initial']} -> "
+                             f"{summ['loss_final']}")
+    if cuda and ktrain.LAUNCHES == 0:
+        raise AssertionError("path E replicate: no K4 launch")
+    tmp.cleanup()
+    return out
+
+
 def k8_cells(K, p, spec, net, trajs, ctls, keypoints):
     """The flat cells path C hands K8 (captured from grow_predictions)."""
     from knode_cosserat_tpu_torch.training.loss import grow_predictions
@@ -2101,6 +2295,7 @@ def main() -> int:
     tt = phase_train_timings(K, dev, name_power, data[0])
     t78 = phase_k7_k8_timings(K, dev, name_power, data[0])
     path_d = phase_model_based(K, dev, name_power)
+    path_e = phase_fine_rod_and_hardware(K, dev, name_power, errs)
     k7_launches = asm["launches"] + mpc["launches"]
 
     # bounds at the timed shapes (float32, hidden 512, 28 inputs, N=10)
@@ -2121,7 +2316,7 @@ def main() -> int:
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:93",
          "launches": (serve["K2"] + serve["K3"] + train["K2"] + train["K3"]
                       + multi["K2"] + multi["K3"] + clis["K2"] + clis["K3"]
-                      + path_d["K2"] + k7_launches
+                      + path_d["K2"] + path_e["K2"] + k7_launches
                       + fused["launches"]),
          "max_abs_err": k1_err, "ms": ms["K1"][0], "plain_ms": ms["K1"][1],
          **row(k1_bound)},
@@ -2135,7 +2330,7 @@ def main() -> int:
          "route": "cuda", "source": src + "step.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_step.py:57",
          "launches": (serve["K2"] + train["K2"] + multi["K2"] + clis["K2"]
-                      + path_d["K2"]),
+                      + path_d["K2"] + path_e["K2"]),
          "max_abs_err": max(errs[("K2", torch.float32)]
                             + errs[("K2", torch.float64)]),
          "ms": ms["K2"][0], "plain_ms": ms["K2"][1], **row(k2_bound)},
@@ -2143,7 +2338,8 @@ def main() -> int:
                  "a cluster of 8 blocks per run, redesigned)",
          "route": "cuda", "source": src + "train.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_train.py:345",
-         "launches": train["K4"] + multi["K4"] + wide["K4"] + clis["K4"],
+         "launches": (train["K4"] + multi["K4"] + wide["K4"] + clis["K4"]
+                      + path_e["K4"]),
          "max_abs_err": max(errs["K4"]),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          **row((k4["bound_ms"], k4["bound_by"]))},

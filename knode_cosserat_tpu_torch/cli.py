@@ -15,6 +15,9 @@
                      (training/sysid.py; --assembly M: per-rod, from the
                      end plate)
   design             Fisher-optimal input design for sysid
+  replicate          the physical workflow from synthetic hardware: teleop
+                     SIL -> firmware PID -> rosbag -> prepare -> estimate
+                     -> train-real (hw/sil.py)
 
 Run as ``python -m knode_cosserat_tpu_torch <cmd> ...``. Arguments,
 defaults, files and printouts are those of the JAX package's commands of
@@ -29,8 +32,11 @@ package outside its 64-bit mode. The noise of ``--noise_traj`` /
 float32 on the card; an explicit ``--dtype float64`` runs on the card (the
 H100 has float64; the JAX command pins the CPU for it because the TPU has
 none). design's start is drawn from a ``torch.Generator`` seeded with 0.
-The JAX package's replicate and bench commands are not ported yet
-(ROADMAP.md, Queue 1, item 3).
+``simulate --segments S`` rolls out by multiple shooting
+(core/multiple_shooting.py). ``replicate --dtype`` is the rods' precision
+(float32 by default; the training runs in float32). The JAX package's
+``bench`` command is not ported: it runs the benchmark's own file, and
+waits for the port's first benchmark.
 """
 from __future__ import annotations
 
@@ -155,7 +161,9 @@ def cmd_simulate(args):
     checkpoint (either package's), saved as traj (T, N, 50) and controls.
     ``--fast`` on the card solves each step in kernel K2 (with the net when
     ``--model`` is given); on the CPU it takes K2's plain FD-Newton loop,
-    as the JAX command takes its XLA loop there. Returns traj (numpy)."""
+    as the JAX command takes its XLA loop there. ``--segments S`` solves
+    each step by multiple shooting over S segments. Returns traj
+    (numpy)."""
     import torch
 
     from .controls import calc_controls
@@ -183,10 +191,6 @@ def cmd_simulate(args):
         raise SystemExit("simulate: --segments and --fast pick different "
                          "solvers (multiple shooting vs the fused kernel "
                          "rollout); drop one")
-    if args.segments:
-        raise NotImplementedError(
-            "--segments: multiple shooting (simulate_scan_ms) is not ported "
-            "yet; see ROADMAP.md, Queue 1, item 1")
     cuda = p.device.type == "cuda"
     if args.model:
         ckpt, meta = load_checkpoint(args.model)
@@ -198,6 +202,11 @@ def cmd_simulate(args):
         # Newton solve per launch, the net inlined) on the card
         impl = "mega" if (args.fast and cuda) else "scan"
         traj = rollout_with_nn(p, controls, spec, net, impl=impl)
+    elif args.segments:
+        # parallel-in-space Newton (multiple shooting): the fine-rod
+        # (N >> 100) path; see core/multiple_shooting.py
+        from .core.multiple_shooting import simulate_scan_ms
+        traj = simulate_scan_ms(p, controls, args.segments).traj
     elif args.fast:
         from .core.fast_rollout import make_fast_rollout
         roll = make_fast_rollout(p, impl="mega" if cuda else "plain")
@@ -280,14 +289,13 @@ def cmd_multitrain(args) -> dict:
 
 
 def cmd_graphs(args):
+    """The cross-seed table of the eval records; ``--tipx`` also writes the
+    tip-X generalization figures (needs matplotlib). Returns the table."""
     from .evaluation.metrics import pose_mse, tip_dtw
     from .evaluation.tables import EvalRecord, aggregate_seeds, format_table
 
-    if args.tipx:
-        raise NotImplementedError(
-            "--tipx: the tip-X figures (viz.tip_generalization_plot) are "
-            "not wired into graphs yet; see ROADMAP.md, Queue 1, item 3")
     records = []
+    evals, labels = set(), set()
     for fname in sorted(os.listdir(args.evals_dir)):
         if not fname.endswith(".npz"):
             continue
@@ -297,12 +305,32 @@ def cmd_graphs(args):
         evall = evall.replace("physics_original_", "").replace(
             "physics_", "").replace("_", " ")
         label = label.replace("_", " ")
+        evals.add(evall)
+        labels.add(label)
         records.append(EvalRecord(
             label=label, eval_name=evall,
             dtw=tip_dtw(d["predicted"], d["reference"]),
             mse=pose_mse(d["predicted"], d["reference"])))
     table = format_table(aggregate_seeds(records))
     print(table)
+
+    if args.tipx:
+        # tip-X generalization figures (physics_multigraphs.py:186-231);
+        # mods/datas inferred from the trained-cell record labels
+        from .viz.visualizer import tip_generalization_plot
+        mods, datas = set(), set()
+        for label in labels:
+            if label.startswith("baseline"):
+                mods.add(label.split(" ", 1)[1])
+            else:
+                parts = label.split(" ")
+                datas.add(" ".join(parts[:-2]))
+        for evall in sorted(evals):
+            out = os.path.join(args.figs_dir,
+                               f"tipx_{evall.replace(' ', '_')}.png")
+            tip_generalization_plot(args.evals_dir, evall, sorted(mods),
+                                    sorted(datas), save=out)
+            print(f"saved {out}")
     return table
 
 
@@ -449,6 +477,28 @@ def cmd_train_real(args):
                                      "loss": res.loss_history})
     print(f"saved {args.save_path} (final loss {res.loss_history[-1]:.3e})")
     return res
+
+
+def cmd_replicate(args) -> dict:
+    """One command, the whole physical workflow, no hardware: teleop
+    joystick experiment -> C++ firmware PID -> simulated winch plant ->
+    rosbag recording -> bag ingestion -> state estimation -> KNODE
+    training (hw/sil.py::replicate_workflow). Returns its summary."""
+    import torch
+
+    from .hw.sil import replicate_workflow
+
+    summary = replicate_workflow(
+        args.out_dir, experiment=args.experiment, parameter=args.parameter,
+        mod=args.mod, epochs=args.epochs, hidden=args.layers,
+        trim=args.trim, train_len=args.train_len, seed=args.seed,
+        settle=args.settle, tail=args.tail, noise_traj=args.noise_traj,
+        device=default_device(args.device),
+        dtype=getattr(torch, args.dtype))
+    print(f"replicate complete: model {summary['model']} "
+          f"(loss {summary['loss_initial']:.3e} -> "
+          f"{summary['loss_final']:.3e}, ingest DTW {summary['dtw']:.4f})")
+    return summary
 
 
 def coerce_traj_layout(t, N, layout="auto"):
@@ -663,7 +713,8 @@ def main(argv=None):
     sp.add_argument("--nodes", type=int, default=10,
                     help="rod node count N (default 10)")
     sp.add_argument("--segments", type=int, default=0,
-                    help="multiple shooting: not ported (raises)")
+                    help="multiple shooting over this many rod segments "
+                         "(divides nodes - 1; 0 = single shooting)")
     sp.add_argument("--fast", action="store_true",
                     help="the whole Newton step per launch of kernel K2 on "
                          "the card; composes with --model for hybrid "
@@ -697,7 +748,7 @@ def main(argv=None):
     sp = sub.add_parser("graphs", help="aggregate eval records")
     sp.add_argument("--evals_dir", type=str, default="evals")
     sp.add_argument("--tipx", action="store_true",
-                    help="tip-X figures: not ported (raises)")
+                    help="also write tip-X generalization figures")
     sp.add_argument("--figs_dir", type=str, default="figures")
     sp.set_defaults(fn=cmd_graphs)
 
@@ -825,6 +876,32 @@ def main(argv=None):
                     default="auto", help="see sysid --dtype")
     sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
     sp.set_defaults(fn=cmd_design)
+
+    sp = sub.add_parser(
+        "replicate",
+        help="full physical workflow from synthetic hardware: teleop SIL "
+             "-> firmware PID -> rosbag -> prepare -> estimate -> "
+             "train-real, one command")
+    sp.add_argument("--out_dir", type=str, default="runs/replicate")
+    sp.add_argument("--experiment", type=str, default="sine",
+                    choices=["step_x", "step_y", "sine", "random"],
+                    help="joystick experiment (motor_joy_teleop:60-109)")
+    sp.add_argument("--parameter", type=int, default=0,
+                    help="experiment variant 0-15 (trigger/bumper bits)")
+    sp.add_argument("--mod", type=str, default="nsw",
+                    help="faulted physics the KNODE residual must correct")
+    sp.add_argument("--epochs", type=int, default=30)
+    sp.add_argument("--layers", type=int, default=32)
+    sp.add_argument("--trim", type=int, default=5)
+    sp.add_argument("--train_len", type=int, default=40)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--settle", type=float, default=1.0)
+    sp.add_argument("--tail", type=float, default=1.0)
+    sp.add_argument("--noise_traj", type=float, default=0.0)
+    sp.add_argument("--dtype", type=str, default="float32",
+                    help="the rods' precision (the training runs float32)")
+    sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
+    sp.set_defaults(fn=cmd_replicate)
 
     args = ap.parse_args(argv)
     return args.fn(args)

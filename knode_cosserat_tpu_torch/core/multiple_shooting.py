@@ -1,28 +1,49 @@
-"""The shared damped-Newton loop of the coupled solves.
+"""Parallel-in-space Newton: multiple shooting over rod segments.
 
-PyTorch counterpart of three functions of
-``knode_cosserat_tpu/core/multiple_shooting.py``: ``_newton_loop`` (the
-backtracking line search and the Levenberg-Marquardt stall ladder),
-``_lm_damped_solve`` and ``_newton_dense``. The assembly solver
-(core/assembly.py) drives them. The multiple-shooting solvers of that
-module (``ms_solve_step``, ``simulate_scan_ms``) are not ported yet
-(ROADMAP.md, Queue 1, item 1).
+PyTorch counterpart of ``knode_cosserat_tpu/core/multiple_shooting.py``.
+The spatial sweep is a sequential recurrence over N-1 nodes; multiple
+shooting splits the rod into S segments of m = (N-1)/S steps, promotes the
+S-1 interior segment-start states to unknowns and solves for
 
-Unlike the rod-batched ``core/shooting.newton_solve``, these drive ONE
-system X (U,); the residual function broadcasts over leading axes, so the
-line search's candidates take one residual call. The loop decides on the
-host each iteration (one synchronisation per iteration on a CUDA device).
+    X = [ G (6),  y_seg1 (19), ..., y_seg(S-1) (19) ]
+
+with the residual stacking state continuity at every interior boundary and
+the tip force/moment boundary condition. The S segment sweeps run as ONE
+loop of m steps over a width-S batch axis (the JAX package's vmap), so the
+sequential depth drops S-fold. The converged solution satisfies the same
+discrete equations as single shooting, so trajectories match
+core/stepper.simulate_scan to Newton precision.
+
+The damped-Newton loop (``_newton_loop``: the backtracking line search and
+the Levenberg-Marquardt stall ladder) is shared with the assembly solver
+(core/assembly.py); it drives ONE system X (U,). The residual broadcasts
+over leading axes, so the line search's candidates take one residual call.
+The loop decides on the host each iteration (one synchronisation per
+iteration on a CUDA device). Two direction producers use it here:
+``_structured_direction`` (the block-bidiagonal elimination: per-segment
+19x19 tangents, an affine prefix, one 6x6 solve) and the dense LU of
+``_newton_dense``.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from ..ops.linalg import solve_small
-from .shooting import NewtonStats
+from .params import RodParams
+from .rhs import rhs
+from .shooting import NewtonStats, block_jacobian
+from .spatial import base_state
+from .stepper import SimOutput, initial_state, tendon_forces
 
-__all__ = ["jacobian", "_newton_loop", "_lm_damped_solve", "_newton_dense"]
+__all__ = ["ms_solve_step", "simulate_scan_ms", "jacobian", "_newton_loop",
+           "_lm_damped_solve", "_newton_dense"]
+
+# from this many interior boundaries up the structured direction takes the
+# log-depth (doubling) prefix of its affine maps, as the JAX package takes
+# its associative scan
+_DOUBLING_FROM = 32
 
 
 def jacobian(fn: Callable[[torch.Tensor], torch.Tensor],
@@ -100,3 +121,231 @@ def _newton_dense(residual_fn, X0, tol, max_iter, **kw):
         return _lm_damped_solve(jacobian(residual_fn, X), r, lam, eye)
 
     return _newton_loop(residual_fn, direction, X0, tol, max_iter, **kw)
+
+
+# ------------------------------------------------------- multiple shooting
+
+def _segment_sweeps(p: RodParams, starts, yh_segs, zh_segs, tf, nn_fn,
+                    nn_history, want_states: bool = True):
+    """All S segment sweeps at once: starts (..., S, 19), yh_segs
+    (S, m, 19), zh_segs (S, m, 6) -> (y_nodes (..., S, m, 19),
+    z (..., S, m, 6), ends (..., S, 19)); one loop of m steps over the
+    width-S batch. want_states=False returns (None, None, ends)."""
+    y = starts
+    ys, zs = [], []
+    for j in range(yh_segs.shape[1]):
+        dy, zj = rhs(p, y, yh_segs[:, j], zh_segs[:, j], tf, nn_fn,
+                     nn_history)
+        y = y + p.ds * dy
+        if want_states:
+            ys.append(y)
+            zs.append(zj)
+    if not want_states:
+        return None, None, y
+    return torch.stack(ys, dim=-2), torch.stack(zs, dim=-2), y
+
+
+def _starts(p: RodParams, X, S):
+    """X (..., 6 + 19(S-1)) -> (G, Yb (..., S-1, 19), starts (..., S, 19))."""
+    G = X[..., :6]
+    Yb = X[..., 6:].reshape(X.shape[:-1] + (S - 1, 19))
+    return G, Yb, torch.cat([base_state(p, G).unsqueeze(-2), Yb], dim=-2)
+
+
+def _ms_residual(p: RodParams, X, yh_segs, zh_segs, tf, S, nn_fn,
+                 nn_history):
+    """Stacked residual [continuity (19*(S-1)), tip force/moment (6)] of
+    X (..., 6 + 19(S-1))."""
+    _, Yb, starts = _starts(p, X, S)
+    _, _, ends = _segment_sweeps(p, starts, yh_segs, zh_segs, tf, nn_fn,
+                                 nn_history, want_states=False)
+    cont = (ends[..., :-1, :] - Yb).reshape(X.shape[:-1] + (-1,))
+    tip = torch.cat([p.F_tip - ends[..., -1, 7:10],
+                     p.M_tip - ends[..., -1, 10:13]], dim=-1)
+    return torch.cat([cont, tip], dim=-1)
+
+
+def _chain_prefix(Ap, bp, B):
+    """Sequential prefix of the affine maps x -> Ap_i x + bp_i from
+    (B, 0): Ms_i = Ap_i ... Ap_0 B (S-1, 19, 6), vs_i = the maps applied
+    in turn to 0 (S-1, 19)."""
+    M, v = B, torch.zeros_like(bp[0])
+    Ms, vs = [], []
+    for A_i, b_i in zip(Ap, bp):
+        M = A_i @ M
+        v = A_i @ v + b_i
+        Ms.append(M)
+        vs.append(v)
+    return torch.stack(Ms), torch.stack(vs)
+
+
+def _doubling_prefix(Ap, bp, B):
+    """The same prefix as :func:`_chain_prefix` in ceil(log2(S-1)) rounds
+    of batched products (Hillis-Steele): in round d every map i >= d is
+    composed after map i - d, (A, b)_i <- (A_i A_{i-d}, A_i b_{i-d} + b_i),
+    the inclusive prefix the JAX package takes by lax.associative_scan."""
+    A, b = Ap, bp
+    d = 1
+    while d < A.shape[0]:
+        A, b = (torch.cat([A[:d], A[d:] @ A[:-d]]),
+                torch.cat([b[:d], (A[d:] @ b[:-d].unsqueeze(-1)).squeeze(-1)
+                           + b[d:]]))
+        d *= 2
+    return A @ B, b
+
+
+def _structured_direction(p: RodParams, X, lam, yh_segs, zh_segs, tf, S,
+                          nn_fn, nn_history):
+    """Newton direction exploiting the block-BIDIAGONAL Jacobian.
+
+    Row structure of _ms_residual's Jacobian:
+      cont_i = e_i(s_i) - Yb_i   ->  [A_i on s_i,  -I on Yb_i]
+      tip    = t - C e_S(s_S)    ->  [-C A_S on s_S]
+    with s_1 = base_state(G) (the constant selector B with respect to G)
+    and s_i = Yb_{i-1}. Forward elimination turns the solve into an affine
+    prefix of 19x19 blocks plus ONE 6x6 reduced solve: dYb_i = M_i dG + v_i
+    with (M_i, v_i) = (A_i M_{i-1}, A_i v_{i-1} + r_i). The per-segment
+    tangents A_i (S, 19, 19) come from one replicated reverse pass over a
+    (19, S)-copy batch (shooting.block_jacobian). LM damping scales the -I
+    diagonal blocks by (1 + lam) and damps the reduced 6x6 system, as in
+    the JAX package.
+    """
+    dtype, device = X.dtype, X.device
+    _, Yb, starts = _starts(p, X, S)
+
+    def ends(s):
+        return _segment_sweeps(p, s, yh_segs, zh_segs, tf, nn_fn, nn_history,
+                               want_states=False)[2]
+
+    A = block_jacobian(ends, starts)            # (S, 19, 19)
+    with torch.no_grad():
+        e = ends(starts)                        # (S, 19)
+    r_cont = e[:-1] - Yb                        # (S-1, 19)
+    r_tip = torch.cat([p.F_tip - e[-1, 7:10], p.M_tip - e[-1, 10:13]])
+
+    B = torch.zeros((19, 6), dtype=dtype, device=device)
+    B[7:13] = torch.eye(6, dtype=dtype, device=device)
+    scale = 1.0 / (1.0 + lam)
+    prefix = _doubling_prefix if S - 1 >= _DOUBLING_FROM else _chain_prefix
+    Ms, vs = prefix(scale * A[:-1], scale * r_cont, B)
+    M_last, v_last = Ms[-1], vs[-1]
+
+    CA = A[-1, 7:13, :]                         # (6, 19)
+    K = CA @ M_last                             # (6, 6)
+    rhs6 = r_tip - CA @ v_last
+    D = torch.diagonal(K).abs().clamp_min(1.0)
+    dG = solve_small(K + lam * D * torch.eye(6, dtype=dtype, device=device),
+                     rhs6)
+    dYb = (Ms @ dG) + vs                        # (S-1, 19)
+    return torch.cat([dG, dYb.reshape(-1)])
+
+
+def _segments(p: RodParams, n_segments, mesh) -> int:
+    """The segment count S, checked: it divides N-1, and no mesh."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the segment axis over a device mesh (parallel/) is not "
+            "ported yet; see ROADMAP.md, Queue 1, item 4")
+    S = int(n_segments)
+    if S < 1 or (p.N - 1) % S:
+        raise ValueError(f"n_segments={S} must divide N-1={p.N - 1}")
+    return S
+
+
+def ms_solve_step(p: RodParams, yh, zh, tf, X0, n_segments: int,
+                  nn_fn=None, nn_history: bool = False,
+                  tol: float = 1e-10, max_iter: int = 50,
+                  solver: str = "structured", mesh=None,
+                  seq_axis: str = "seq"):
+    """Solve one BDF-2 step by multiple shooting.
+
+    Args:
+      yh/zh: (N, 19)/(N, 6) BDF-2 history; tf: (3,) tendon force.
+      X0: (6 + 19*(S-1),) warm start: [G_guess, boundary states].
+      solver: "structured" exploits the block-bidiagonal Jacobian (per
+        segment 19 tangents + a 6x6 reduced solve); "dense" materializes
+        the full (6+19(S-1))^2 Jacobian. The same converged roots.
+      mesh / seq_axis: the segment axis over a device mesh is not ported
+        (raises for a mesh).
+    Returns (y (N, 19), z_body (N-1, 6), X_solved, stats)."""
+    S = _segments(p, n_segments, mesh)
+    m = (p.N - 1) // S
+    if solver not in ("structured", "dense"):
+        raise ValueError(f"unknown solver {solver!r}")
+    yh_segs = yh[:-1].reshape(S, m, 19)
+    zh_segs = zh[:-1].reshape(S, m, 6)
+
+    def res(X):
+        return _ms_residual(p, X, yh_segs, zh_segs, tf, S, nn_fn, nn_history)
+
+    with torch.no_grad():
+        if solver == "structured":
+            X, stats = _newton_loop(
+                res, lambda X, r, lam: _structured_direction(
+                    p, X, lam, yh_segs, zh_segs, tf, S, nn_fn, nn_history),
+                X0, tol, max_iter)
+        else:
+            X, stats = _newton_dense(res, X0, tol, max_iter)
+        # the full rod state from the solved unknowns
+        _, _, starts = _starts(p, X, S)
+        ys, zs, _ = _segment_sweeps(p, starts, yh_segs, zh_segs, tf, nn_fn,
+                                    nn_history)
+    y = torch.cat([starts[:1], ys.reshape(p.N - 1, 19)], dim=0)
+    return y, zs.reshape(p.N - 1, 6), X, stats
+
+
+def simulate_scan_ms(
+    p: RodParams,
+    controls,
+    n_segments: int,
+    nn_fn: Optional[Callable] = None,
+    nn_history: bool = False,
+    tol: Optional[float] = None,
+    max_iter: int = 50,
+    solver: str = "structured",
+    mesh=None,
+    seq_axis: str = "seq",
+) -> SimOutput:
+    """Rollout over a (T, 4) tension schedule with the parallel-in-space
+    solver: the drop-in analogue of core/stepper.simulate_scan (the same
+    trajectory contract and quirks: [:-1] drop, frozen tip z, [y, z, yh,
+    zh] records) for fine rods. Records no autograd graph.
+
+    Warm starts: G extrapolates across time (2G - G_prev) like the
+    sequential path; the boundary-state unknowns start at the CURRENT
+    node states (the previous converged step)."""
+    if tol is None:
+        tol = 1e-16 if p.dtype == torch.float64 else 1e-10
+    S = _segments(p, n_segments, mesh)
+    m = (p.N - 1) // S
+    controls = torch.as_tensor(controls, dtype=p.dtype, device=p.device)
+    bidx = torch.arange(1, S, device=p.device) * m   # interior boundaries
+
+    y0, z0 = initial_state(p)
+    G0 = torch.zeros(6, dtype=p.dtype, device=p.device)
+    z_tip = z0[-1:]                     # frozen forever (see stepper.py)
+    y, z, y_prev, z_prev, G, G_prev = y0, z0, y0, z0, G0, G0
+    records = [torch.cat([y0, z0, y0, z0], dim=-1)]
+    Gs, iters, res, lm = [G0], [], [], []
+    for t in range(controls.shape[0] - 1):
+        yh = p.c1 * y + p.c2 * y_prev
+        zh = p.c1 * z + p.c2 * z_prev
+        tf = tendon_forces(p, controls[t])
+        X0 = torch.cat([2.0 * G - G_prev, y[bidx].reshape(-1)])
+        y_new, z_body, X, stats = ms_solve_step(
+            p, yh, zh, tf, X0, S, nn_fn, nn_history, tol, max_iter,
+            solver=solver, mesh=mesh, seq_axis=seq_axis)
+        z_new = torch.cat([z_body, z_tip], dim=0)
+        records.append(torch.cat([y_new, z_new, yh, zh], dim=-1))
+        Gs.append(X[:6])
+        iters.append(stats.iterations)
+        res.append(stats.residual_norm)
+        lm.append(stats.lm_retries)
+        y, z, y_prev, z_prev, G, G_prev = y_new, z_new, y, z, X[:6], G
+
+    zero_i = torch.zeros((), dtype=torch.int32, device=p.device)
+    zero_f = torch.zeros((), dtype=p.dtype, device=p.device)
+    return SimOutput(torch.stack(records), torch.stack(Gs),
+                     torch.stack([zero_i] + iters),
+                     torch.stack([zero_f] + res),
+                     torch.stack([zero_i] + lm))

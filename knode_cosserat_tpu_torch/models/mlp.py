@@ -47,8 +47,13 @@ class MLPSpec:
     dims: layer widths, e.g. (28, 512, 25) for the reference default.
     activation: name from ACTIVATIONS applied between Linear layers.
     history: 53-input variant using [y, yh, z, zh, tf] (cosserat_ode.py:173).
-    compute_dtype: kept for parity with the JAX spec; the port computes in
-      the weights' dtype and rejects any other value.
+    compute_dtype: optional matmul storage dtype ("bfloat16") for mixed
+      precision: each layer's inputs and weights are rounded to it, and the
+      product is taken in the caller's dtype (exact for bfloat16 operands,
+      summed in float32 or float64), as the JAX package's
+      ``jnp.dot(..., preferred_element_type=...)``; the bias add, the
+      activation, the output and the master weights stay in the caller's
+      dtype, and gradients land on the master weights.
     """
     dims: Tuple[int, ...] = (28, 512, 25)
     activation: str = "elu"
@@ -72,10 +77,6 @@ class KnodeMLP(nn.Module):
     def __init__(self, spec: MLPSpec, dtype=torch.float64, device=None):
         super().__init__()
         device = default_device(device)
-        if spec.compute_dtype is not None:
-            raise NotImplementedError(
-                "MLPSpec.compute_dtype (mixed-precision storage) is not "
-                "ported; build the net in the dtype it should compute in")
         self.spec = spec
         self.layers = nn.ModuleList(
             nn.Linear(din, dout, dtype=dtype, device=device)
@@ -99,12 +100,23 @@ def mlp_forward(spec: MLPSpec, weights, x: torch.Tensor) -> torch.Tensor:
     act = ACTIVATIONS[spec.activation]
     n = len(weights) // 2
     for i in range(n):
-        W, b = weights[2 * i], weights[2 * i + 1]
-        dt = torch.promote_types(x.dtype, W.dtype)
-        x = F.linear(x.to(dt), W.to(dt), b.to(dt))
+        x = _linear(spec, x, weights[2 * i], weights[2 * i + 1])
         if i < n - 1:
             x = act(x)
     return x
+
+
+def _linear(spec: MLPSpec, x, W, b):
+    """One layer's x W^T + b in the wider of the two dtypes; with
+    ``spec.compute_dtype`` the operands are first rounded to it (the
+    product of two bfloat16 numbers is exact in float32, so only the order
+    of summation differs from the JAX package's mixed-precision dot). The
+    caller keeps TF32 off on a CUDA device (chip_smoke.py does)."""
+    dt = torch.promote_types(x.dtype, W.dtype)
+    if spec.compute_dtype is None:
+        return F.linear(x.to(dt), W.to(dt), b.to(dt))
+    cd = getattr(torch, spec.compute_dtype)
+    return F.linear(x.to(cd).to(dt), W.to(cd).to(dt), b.to(dt))
 
 
 def init_mlp(spec: MLPSpec, generator: torch.Generator,
@@ -125,10 +137,11 @@ def init_mlp(spec: MLPSpec, generator: torch.Generator,
 
 
 def mlp_apply(spec: MLPSpec, params: KnodeMLP, x: torch.Tensor) -> torch.Tensor:
-    """Forward pass on (..., din) -> (..., dout)."""
+    """Forward pass on (..., din) -> (..., dout) under ``spec`` (its
+    compute_dtype included, as the JAX package's mlp_apply takes it)."""
     if params.spec.dims != spec.dims or params.spec.activation != spec.activation:
         raise ValueError(f"net built for {params.spec}, called as {spec}")
-    return params(x)
+    return mlp_forward(spec, list(params.parameters()), x)
 
 
 def bind(spec: MLPSpec, params: KnodeMLP) -> Callable[[torch.Tensor],
@@ -223,8 +236,7 @@ class StackedMLP(nn.Module):
         for g in range(G):
             h = groups[g]
             for i, (W, b) in enumerate(layers):
-                dt = torch.promote_types(h.dtype, W.dtype)
-                h = F.linear(h.to(dt), W[g].to(dt), b[g].to(dt))
+                h = _linear(self.spec, h, W[g], b[g])
                 if i < len(layers) - 1:
                     h = act(h)
             outs.append(h)

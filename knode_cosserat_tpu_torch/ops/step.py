@@ -14,7 +14,10 @@ z (B,N-1,6), r2 (B,), iters (B,) int32). ``nn_params`` is one net for all
 rods or a StackedMLP of B nets, net b for rod b (the JAX package's vmap of
 the step kernel over per-cell params, as the eval tables run it). A CPU
 tensor runs :func:`step_reference`, a CUDA tensor launches the kernel (or
-raises). ``iters`` counts each rod's own Newton iterations (on the TPU it was one
+raises). A spec with a ``compute_dtype`` (mixed precision): the kernel
+computes the net in the weights' dtype, as the JAX TPU kernel does (it
+reads only the spec's dims and activation), while the plain version
+applies the casts, as JAX's XLA path does. ``iters`` counts each rod's own Newton iterations (on the TPU it was one
 count per block of rods); compare it only through its maximum.
 """
 from __future__ import annotations

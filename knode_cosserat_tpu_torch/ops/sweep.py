@@ -10,7 +10,10 @@ design note is in those files.
 fn(G (B,6), yh (B,N,19), zh (B,N,6), tf (B,3), nn_params|None) ->
 res (B,6) [, y (B,N,19), z (B,N-1,6)]. The device of ``G`` picks the
 path: a CPU tensor runs :func:`sweep_reference`, a CUDA tensor launches the
-kernel (or raises); nothing falls back from one to the other.
+kernel (or raises); nothing falls back from one to the other. A spec with
+a ``compute_dtype`` (mixed precision): the kernel computes the net in the
+weights' dtype, as the JAX TPU kernel does, while the plain version applies
+the casts, as JAX's XLA path does.
 """
 from __future__ import annotations
 

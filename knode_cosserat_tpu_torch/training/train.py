@@ -67,7 +67,8 @@ class TrainConfig:
     log_every: int = 10
     checkpoint_every: int = 500             # physics_train.py:386
     dtype: str = "float32"
-    # mixed-precision storage of the net: not ported (ROADMAP); must be None
+    # the net's matmul storage dtype ("bfloat16"; MLPSpec.compute_dtype):
+    # the fused trainers decline it, "auto" takes the plain epoch loop
     nn_dtype: Optional[str] = None
     # the epoch chunks (train_knode, and grid_train's K5 for "auto" / "on"
     # / "plain" / "off"):
@@ -433,10 +434,6 @@ def train_knode(
         raise NotImplementedError(
             "mesh: sharded training (parallel/mesh.py) is not ported yet; "
             "see ROADMAP.md, Queue 1, item 4")
-    if cfg.nn_dtype is not None:
-        raise NotImplementedError(
-            "cfg.nn_dtype: mixed-precision nets are not ported yet; see "
-            "ROADMAP.md, Queue 1, item 2")
     spec = cfg.spec()
     dtype = getattr(torch, cfg.dtype)
     device = p_mod.device

@@ -1,4 +1,10 @@
-"""Utilities: rollout and training health (health.py)."""
+"""Utilities: normalization, metrics logging, profiling, and rollout and
+training health."""
+from .data_processing import denormalize_data, normalize_data
 from .health import GuardedTraining, RolloutReport, check_rollout
+from .logging import MetricsLogger
+from .profiling import Timer, annotate, timed, trace
 
-__all__ = ["GuardedTraining", "RolloutReport", "check_rollout"]
+__all__ = ["normalize_data", "denormalize_data", "MetricsLogger", "Timer",
+           "annotate", "timed", "trace", "GuardedTraining", "RolloutReport",
+           "check_rollout"]

@@ -4,10 +4,13 @@ tests/test_torch_{realworld,cli_train,energy_io,diff_rollout,mpc,sysid,
 online}.py (whose assertions hold the bars printed here). One line per
 module: the largest error and its bar.
 
-    JAX_PLATFORMS=cpu python scripts/torch_parity_report.py [model]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_report.py [model|solvers]
 
 ``model`` reports the model-based modules only (the differentiable rod,
-the planner, system identification, online adaptation).
+the planner, system identification, online adaptation); ``solvers`` the
+fine-rod and reference solvers, the dd reductions, the mixed-precision
+net and the SIL recording (tests/test_torch_{multiple_shooting,
+reference_solver,dd,mixed_precision,sil}.py).
 """
 import os
 import sys
@@ -321,9 +324,73 @@ def main():
                         np.load(d + "/sj.npz")["traj"]), 1e-7)
 
 
+def solvers():
+    """core/multiple_shooting, core/reference_solver, ops/dd, the bf16
+    net and the SIL recording against the JAX package."""
+    from knode_cosserat_tpu.controls import calc_controls
+    from knode_cosserat_tpu.core import multiple_shooting as jms
+    from knode_cosserat_tpu.core import reference_solver as jrs
+    from knode_cosserat_tpu.hw import sil as jsil
+    from knode_cosserat_tpu.models import mlp as jmlp
+    from knode_cosserat_tpu.ops import dd as jdd
+    from knode_cosserat_tpu_torch.core import multiple_shooting as tms
+    from knode_cosserat_tpu_torch.core import reference_solver as trs
+    from knode_cosserat_tpu_torch.hw import sil as tsil
+    from knode_cosserat_tpu_torch.models.mlp import MLPSpec, params_from_jax
+    from knode_cosserat_tpu_torch.ops import dd as tdd
+
+    jrod, trod = J.make_rod(N=17), K.make_rod(N=17, device="cpu")
+    ctl = calc_controls("sine", 0.5, float(trod.del_t), 12)
+    for solver in ("structured", "dense"):
+        err = max(absd(tms.simulate_scan_ms(trod, ctl, S, tol=1e-24,
+                                            solver=solver).traj.numpy(),
+                       jms.simulate_scan_ms(jrod, jnp.asarray(ctl), S,
+                                            tol=1e-24, solver=solver).traj)
+                  for S in (2, 4, 8))
+        report(f"simulate_scan_ms {solver} N=17 S=2/4/8, max abs", err,
+               1e-10)
+    jrod, trod = J.make_rod(N=10), K.make_rod(N=10, device="cpu")
+    ctl = calc_controls("sine", 0.5, float(trod.del_t), 8)
+    for method in ("euler", "rk4"):
+        report(f"simulate_fsolve {method} N=10, RMSE",
+               rmse(trs.simulate_fsolve(trod, ctl, method=method),
+                    jrs.simulate_fsolve(jrod, ctl, method=method)), 1e-9)
+    rng = np.random.default_rng(0)
+    U, _ = np.linalg.qr(rng.normal(size=(500, 7)))
+    V, _ = np.linalg.qr(rng.normal(size=(7, 7)))
+    J32 = ((U * np.logspace(0, -6, 7)) @ V.T).astype(np.float32)
+    g_t = tdd.dd_to_float64(*tdd.dd_gram(torch.from_numpy(J32)))
+    g_j = jdd.dd_to_float64(*jdd.dd_gram(jnp.asarray(J32)))
+    report("dd_gram (500 x 7, f32), max abs vs JAX", absd(g_t, g_j), 0.0)
+    J64 = torch.from_numpy(J32).double()
+    report("sysid's f64 Gram vs JAX dd_gram, max abs",
+           absd((J64.T @ J64).numpy(), g_j), 1e-14)
+    jspec = jmlp.MLPSpec.for_knode(64, compute_dtype="bfloat16")
+    params = jmlp.init_mlp(jspec, jax.random.PRNGKey(0), jnp.float32)
+    x = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (256, 28),
+                                     jnp.float32))
+    want = np.asarray(jmlp.mlp_apply(jspec, params, jnp.asarray(x)))
+    net = params_from_jax(params, MLPSpec.for_knode(
+        64, compute_dtype="bfloat16"), device="cpu")
+    got = net(torch.tensor(x)).detach().numpy()
+    report("bf16 mlp_apply (f32 caller), max rel to max",
+           absd(got, want) / np.abs(want).max(), 1e-6)
+    vs = tsil.run_sil_experiment(tsil.joy_for("step_x", 1), settle=0.3,
+                                 tail=0.7)
+    with tempfile.TemporaryDirectory() as d:
+        a = tsil.export_bag(vs, d + "/t.bag",
+                            rod=K.apply_mod(None, device="cpu"))
+        b = jsil.export_bag(vs, d + "/j.bag", rod=J.apply_mod(None))
+    report("SIL truth rollout (step_x), max abs", absd(a["traj"], b["traj"]),
+           1e-9)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["model"]:
         model_based()
+    elif sys.argv[1:] == ["solvers"]:
+        solvers()
     else:
         main()
         model_based()
+        solvers()

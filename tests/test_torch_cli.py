@@ -56,13 +56,8 @@ def test_multitrain_then_graphs(tiny, tmp_path, capsys):
 def test_unported_options_raise(tiny, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="Queue 1, item 4$"):
         cli.main(["multitrain", "--mesh", "1,1,1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="viz"):
-        cli.main(["graphs", "--tipx", "--evals_dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="Queue 1, item 4$"):
         cli.main(["train", "sine", "0.5", "--mesh", "1,1,1", "--device",
-                  "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1$"):
-        cli.main(["simulate", "--segments", "3", "--steps", "3", "--device",
                   "cpu"])
     for extra in (["--model", "m.npz"], ["--fast"]):
         with pytest.raises(SystemExit, match="--segments"):
@@ -75,10 +70,91 @@ def test_unported_options_raise(tiny, tmp_path, monkeypatch):
     for argv in (["train", "sine", "0.5"], ["simulate", "--steps", "3"],
                  ["prepare", missing], ["playback", missing],
                  ["estimate", "x", "--data_dir", missing],
-                 ["train-real", "--data_dir", missing]):
+                 ["train-real", "--data_dir", missing],
+                 ["replicate", "--out_dir", missing]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(argv)
     assert os.listdir(tmp_path) == []
+
+
+def test_graphs_tipx_writes_figures(tmp_path, capsys):
+    """graphs --tipx: one tip-X figure per eval schedule, from records in
+    evaluate_cells' naming (a trained cell and the no-NN baseline)."""
+    pytest.importorskip("matplotlib")
+    evals, figs = tmp_path / "evals", tmp_path / "figs"
+    evals.mkdir()
+    rng = np.random.RandomState(0)
+    ref = rng.randn(6, 10, 25)
+    for label in ("sine_0.5_nsw_0", "baseline_nsw"):
+        for sched in ("sine_1.5", "step_1.5"):
+            np.savez(evals / f"physics_{sched}+{label}.npz",
+                     tensions=np.ones((6, 4)), reference=ref,
+                     predicted=ref + 0.01 * rng.randn(6, 10, 25))
+    table = cli.main(["graphs", "--tipx", "--evals_dir", str(evals),
+                      "--figs_dir", str(figs)])
+    printed = capsys.readouterr().out
+    assert table in printed
+    assert sorted(os.listdir(figs)) == ["tipx_sine_1.5.png",
+                                        "tipx_step_1.5.png"]
+    assert f"saved {figs / 'tipx_sine_1.5.png'}" in printed
+
+
+def test_simulate_segments_matches_the_jax_command(monkeypatch, capsys,
+                                                   tmp_path):
+    """simulate --segments 3 at N=10 (multiple shooting, float64 on the
+    CPU) writes the trajectory the JAX command writes, within 1e-10."""
+    want_path, got_path = tmp_path / "jax.npz", tmp_path / "port.npz"
+    argv = ["simulate", "--segments", "3", "--steps", "8", "--arg", "0.5"]
+    _jax_cli(monkeypatch, argv + ["--save", str(want_path)], capsys)
+    traj = cli.main(argv + ["--dtype", "float64", "--device", "cpu",
+                            "--save", str(got_path)])
+    assert f"saved {got_path}: traj (8, 10, 50)" in capsys.readouterr().out
+    want, got = np.load(want_path), np.load(got_path)
+    assert want["traj"].dtype == got["traj"].dtype == np.float64
+    np.testing.assert_array_equal(got["controls"], want["controls"])
+    assert np.abs(got["traj"] - want["traj"]).max() < 1e-10
+    np.testing.assert_array_equal(traj, got["traj"])
+
+
+def test_replicate_matches_the_jax_command(monkeypatch, capsys, tmp_path):
+    """replicate at its smallest working size (a step experiment, short
+    settle and tail, 3 epochs of an 8-unit net) with float64 rods on the
+    CPU against the JAX command under its 64-bit mode: the same files, the
+    same telemetry, the ingest DTW within 1e-9 relative and the estimated
+    states within 1e-10. The nets start from different random draws (the
+    port's torch.Generator, JAX's PRNG), so the losses are held to 2e-2
+    relative (the untrained nets' share of the nsw rod's loss); each
+    falls."""
+    argv = ["replicate", "--experiment", "step_x", "--parameter", "1",
+            "--settle", "0.3", "--tail", "0.7", "--epochs", "3",
+            "--layers", "8", "--trim", "2", "--train_len", "12"]
+    jdir, kdir = tmp_path / "jax", tmp_path / "port"
+    want_out = _jax_cli(monkeypatch, argv + ["--out_dir", str(jdir)], capsys)
+    got = cli.main(argv + ["--out_dir", str(kdir), "--dtype", "float64",
+                           "--device", "cpu"])
+    printed = capsys.readouterr().out
+    names = ["step_x_1.bag", "step_x_1.npz", "step_x_1_estimated.npz",
+             "step_x_1_model.npz"]
+    assert sorted(os.listdir(kdir)) == sorted(os.listdir(jdir)) == names
+    assert "replicate complete: model" in printed and "replicate complete" \
+        in want_out
+    jn = _numbers(want_out.split("replicate complete")[1])
+    # "(loss L0 -> L1, ingest DTW d)" of the JAX line
+    l0, l1, dtw = jn[-3], jn[-2], jn[-1]
+    assert abs(got["dtw"] - dtw) <= 1e-4           # printed with 4 decimals
+    jprep = np.load(jdir / "step_x_1.npz")
+    kprep = np.load(kdir / "step_x_1.npz")
+    np.testing.assert_array_equal(kprep["controls"], jprep["controls"])
+    assert np.abs(kprep["traj"] - jprep["traj"]).max() < 1e-9
+    est_w = np.load(jdir / "step_x_1_estimated.npz")["traj"]
+    est_g = np.load(kdir / "step_x_1_estimated.npz")["traj"]
+    assert est_g.shape == est_w.shape and est_g.shape[1:] == (25, 10)
+    assert np.abs(est_g - est_w).max() < 1e-10
+    np.testing.assert_allclose([got["loss_initial"], got["loss_final"]],
+                               [l0, l1], rtol=2e-2)
+    assert got["loss_final"] < got["loss_initial"] and l1 < l0
+    assert sorted(got["seconds"]) == ["estimate", "prepare", "record",
+                                      "train"]
 
 
 def test_simulate_assembly(tmp_path, capsys):

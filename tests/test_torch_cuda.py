@@ -778,3 +778,57 @@ def test_planner_roots_run_on_k2(dev, hybrid):
             for root in ("k2", "newton"))
     np.testing.assert_allclose(a.cost_history.cpu().numpy(),
                                b.cost_history.cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("history", [False, True])
+def test_step_kernel_bf16_spec_computes_the_net_in_f32(dev, history):
+    """A spec with compute_dtype="bfloat16": K2 computes the net in the
+    weights' float32, as the JAX TPU kernel does, so it matches its plain
+    version with the compute dtype dropped."""
+    p = K.experimental_rod(N=10, dtype=torch.float32, device=dev)
+    G, yh, zh, tf = _inputs(p, 45, 1, dev)
+    G = torch.zeros_like(G)
+    spec16 = K.MLPSpec.for_knode(64, history=history,
+                                 compute_dtype="bfloat16")
+    net16 = K.init_mlp(spec16, torch.Generator().manual_seed(0),
+                       torch.float32, dev)
+    with torch.no_grad():
+        for t in net16.parameters():
+            t.mul_(1e-2)
+    spec, net = _net(history, torch.float32, dev, 1e-2)
+    net.load_state_dict(net16.state_dict())
+    with torch.no_grad():
+        got = kstep.make_step_kernel(p, spec16, tol=1e-13)(G, yh, zh, tf,
+                                                            net16)
+        want = kstep.step_reference(p, G, yh, zh, tf, net, tol=1e-13)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+
+
+def test_fine_rod_and_reference_solvers_on_the_card(dev):
+    """simulate_scan_ms (structured and dense) and simulate_fsolve with the
+    residual on the card, float64, against physics-only K2 rollouts."""
+    from knode_cosserat_tpu_torch.controls import calc_controls
+    from knode_cosserat_tpu_torch.core.multiple_shooting import \
+        simulate_scan_ms
+    from knode_cosserat_tpu_torch.core.reference_solver import \
+        simulate_fsolve
+
+    for N, S in ((13, 4), (10, None)):
+        p = K.experimental_rod(N=N, dtype=torch.float64, device=dev)
+        ctl = torch.tensor(calc_controls("sine", 1.0, float(p.del_t), 6),
+                           dtype=torch.float64, device=dev)
+        with torch.no_grad():
+            ref = make_fast_rollout(p, None, tol=1e-20, impl="mega")(
+                ctl[None])[0][0]
+        if S is None:
+            got = torch.from_numpy(simulate_fsolve(p, ctl.cpu().numpy()))
+            rmse = float(((got - ref.cpu()) ** 2).mean().sqrt())
+            assert rmse < 1e-7, rmse
+            continue
+        for solver in ("structured", "dense"):
+            o = simulate_scan_ms(p, ctl, S, tol=1e-20, solver=solver)
+            assert o.traj.device == ref.device
+            rel = float((o.traj - ref).abs().max() / ref.abs().max())
+            assert rel < 1e-9, (solver, rel)

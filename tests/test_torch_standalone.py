@@ -81,6 +81,26 @@ SCRIPT = textwrap.dedent("""
     assert ad.update() is not None
     assert calls == [], calls
     assert _build._LIB is None
+
+    # the fine-rod and reference solvers, the dd reductions, mixed
+    # precision, the utilities and the hardware side import without jax;
+    # importing the hardware side builds nothing and imports no ROS
+    from knode_cosserat_tpu_torch import hw, utils
+    from knode_cosserat_tpu_torch.core import reference_solver
+    from knode_cosserat_tpu_torch.hw import bridge, ros_adapter, sil, teleop
+    from knode_cosserat_tpu_torch.ops import dd
+    assert calls == [] and bridge._lib is None, calls
+    assert "rospy" not in sys.modules
+    ms = multiple_shooting.simulate_scan_ms(p, torch.full((3, 4), 5.0), 5)
+    assert bool(torch.isfinite(ms.traj).all())
+    hi, lo = dd.dd_gram(torch.ones(3, 2))
+    assert float(dd.dd_to_float64(hi, lo)[0, 0]) == 3.0
+    mp = K.init_mlp(K.MLPSpec.for_knode(8, compute_dtype="bfloat16"),
+                    torch.Generator().manual_seed(0), torch.float32, "cpu")
+    assert mp(torch.ones(2, 28)).dtype == torch.float32
+    with utils.Timer().phase("x"):
+        pass
+    assert calls == [], calls
     print("STANDALONE_OK")
 """)
 

@@ -138,6 +138,7 @@ def test_fused_routing_refusals():
     p = K.apply_mod(None, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1, item 4$"):
         ktrain.train_knode(p, None, None, ktrain.TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="mixed-precision"):
-        ktrain.train_knode(p, None, None,
-                           ktrain.TrainConfig(nn_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="does not support"):
+        ktrain.train_knode(p, np.zeros((1, 3, 10, 25)), np.zeros((1, 3, 4)),
+                           ktrain.TrainConfig(nn_dtype="bfloat16",
+                                              fused="on"))
