@@ -52,8 +52,8 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      directory, each timed on the synchronised host clock):
      ``train sine sine 0.5 1.0 --mod nsw --epochs CLI_EPOCHS`` (K4; K2 in
      its validations); ``simulate --model <that checkpoint> --fast`` (K2
-     with the net) against ``simulate --model`` (the plain scan), 100
-     steps, the first 50 within ROLLOUT_F32; where the host has pandas,
+     with the net) against ``simulate --model`` (the plain scan),
+     CLI_MODEL_STEPS steps within ROLLOUT_F32; where the host has pandas,
      ``prepare`` and ``estimate`` of tests/fixtures/sil_step_1100;
      ``simulate --fast`` (physics-only K2) at two sine periods, 230 steps
      each, saved as ``prepare``'s files of the sinesine preset (the repo
@@ -81,7 +81,7 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      the plain coupled Newton at T=21, and the CLI's simulate-assembly
      (20 steps, its .npz checked).
  15. the plate-pose MPC path (B), counted: make_assembly_planner(fused=
-     True, w_du=0), horizon 8, MPC_B_ITERS (20) iterations, on a 1 cm sway
+     True, w_du=0), horizon 8, MPC_B_ITERS (10) iterations, on a 1 cm sway
      and 0.1 mm lift (the cost must fall); the float64 gradient of its
      first cost through K7's roots against the plain Newton's (rtol 1e-6).
  16. K8 (the fused next segment) against its plain version on path C's
@@ -106,7 +106,7 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      for every kernel) beside the kernel's device time by torch.profiler
      (``device_ms``).
  19. the single-rod MPC, identification and online path (D), counted:
-     make_planner on experimental_rod(N=10), f32, horizon 10, 25
+     make_planner on experimental_rod(N=10), f32, horizon 10, MPC_D_ITERS
      iterations, physics only and with for_knode(512) (the cost must
      fall; K2 launches == (iterations + 2) x horizon: one rollout an
      iteration, the final rollout and the final cost's; the implicit
@@ -120,8 +120,8 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      falling; an OnlineAdapter fed 100 K2-rollout frames of the true rod
      (the window loss under physics, a certified handoff, update() in ms).
  20. the fine-rod, reference-solver, mixed-precision and hardware path (E),
-     counted: simulate_scan_ms on experimental_rod(N=40), float64, 20 steps
-     (S=3 and S=13 structured, S=3 dense) and simulate_fsolve at N=10,
+     counted: simulate_scan_ms on experimental_rod(N=40), float64, E_STEPS
+     steps (S=3 and S=13 structured, S=3 dense) and simulate_fsolve at N=10,
      each held to a physics-only K2 rollout of the same rod (1e-9 of the
      trajectory's largest entry; RMSE 1e-7); K2 with a bf16-spec net
      against its plain version with the compute dtype dropped;
@@ -131,6 +131,20 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      the same loop; the CLI's replicate at its defaults (the C++ firmware
      built with the host g++; the bag, estimate and model files, a finite
      DTW, a falling loss, K4 launched).
+ 21. nets of any depth and the parallel stack: K3, K2 and K8 with a 3-layer
+     (28, 512, 512, 25) elu and a 4-layer (53, 512, 512, 512, 25) tanh
+     history net against their plain versions (float64 and float32, phase
+     3's, 4's and 16's shapes; K2 with four deep nets stacked, bit for bit
+     against single launches); counted: deep-net rollouts on K2 and on the
+     FD-Newton loop over K3, ``simulate --model <3-layer checkpoint>
+     --fast`` against the plain scan, and fused training steps on K8;
+     K1, K3, K2 (beside the two-layer K2) and K8 timed with the 3-layer
+     net at phase 18's shapes, with their bounds; then a
+     world of one on the card (NCCL, init_distributed, make_mesh(1, 1, 1)):
+     grid_train(mesh=) (K5 counted, bit for bit the unsharded grid),
+     train_knode(mesh=) against the plain loop (K2 counted in its
+     validation), simulate_scan_ms(mesh=) and simulate_scan_ms_halo at
+     D = 1 against simulate_scan_ms.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -190,7 +204,7 @@ WIDE_HIDDEN = 8192                # the JAX bench's wide trainer shape
 # (s) and length (train-real's trim of 100 + its train_len of 120 + 10),
 # and the bar on the estimated velocities (tests/test_realworld.py:78)
 CLI_EPOCHS = 400
-CLI_MODEL_STEPS, CLI_MODEL_HELD = 100, 50
+CLI_MODEL_STEPS, CLI_MODEL_HELD = 50, 50
 CLI_PERIODS = (1.0, 3.0)
 CLI_SIM_STEPS = 230
 EST_VEL_BAR = 0.05
@@ -223,20 +237,22 @@ MPC_GRAD_RTOL = 1e-6              # IFT gradient, K7's roots vs plain (f64)
 # the cost climbs for the 40 iterations (measured on the CPU with the
 # plain solver: 4.0e-5 -> 6.4e-5; with w_du = 0, 4.0e-5 -> 4.1e-8)
 MPC_MOVE = (0.01, 0.0, 1e-4)
-# path B's Adam iterations: the JAX default 40, cut to 20 to keep the
-# script near half its time limit (the plan is ~2 s an iteration on the
-# card, the eager IFT backward most of it)
-MPC_B_ITERS = 20
+# path B's Adam iterations: the JAX default 40, cut to 10 to keep the
+# script inside its time limit (the plan is 1.5-2.5 s an iteration on the
+# card, the eager IFT backward most of it, and the host's speed varies
+# 1.4x between calls)
+MPC_B_ITERS = 10
 # K8 against its plain version, (rtol, atol): f64 to rounding; f32, where
 # the net's 512-term sums run in another order (measured ~5e-7 on
 # y_grown ~ 2 on the first chip run)
 K8_TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}
 # path D: the single-rod planner's horizon and Adam iterations (the JAX
-# defaults are 60 / 80; cut to keep the phase near two minutes), and a
+# defaults are 60 / 80; cut to keep the phase near a minute and a half),
+# and a
 # reachable schedule whose tip track is the target (every tendon its own
 # ramp, so no tension's gradient vanishes by symmetry)
 MPC_D_HORIZON = 10
-MPC_D_ITERS = 25
+MPC_D_ITERS = 12
 MPC_D_SCHEDULE = np.stack([np.linspace(a, b, MPC_D_HORIZON) for a, b in
                            ((2.0, 12.0), (3.0, 5.0), (6.0, 4.0), (1.0, 2.0))],
                           axis=1)
@@ -246,7 +262,7 @@ ONLINE_FRAMES = 100               # path D: the online adapter's stream
 # (max |a - b| over the trajectory's largest entry), the fsolve rollout's
 # bar (the goldens' RMSE, tests/test_parity.py:26-36), the bf16 trainer's
 # epochs and validation length
-E_N, E_STEPS, E_REL = 40, 20, 1e-9
+E_N, E_STEPS, E_REL = 40, 10, 1e-9
 E_FSOLVE_RMSE = 1e-7
 E_EPOCHS, E_EVAL_LEN = 200, 20
 FUSED_STEPS = 200                 # path C: fused vs plain training steps
@@ -1869,7 +1885,7 @@ def phase_model_based(K, dev, name_power):
 
 def phase_fine_rod_and_hardware(K, dev, name_power, errs):
     """Path E, counted: multiple shooting (N=40, S=3 and 13 structured, S=3
-    dense) and the MINPACK rollout (N=10), float64, 20 steps each, held to
+    dense) and the MINPACK rollout (N=10), float64, E_STEPS steps each, held to
     physics-only K2 rollouts of the same rods; K2 with a bf16-spec net
     against its plain version with the compute dtype dropped;
     train_knode(nn_dtype="bfloat16") on the plain epoch loop with K2
@@ -2255,6 +2271,441 @@ def phase_k7_k8_timings(K, dev, name_power, small):
     return out
 
 
+# ---------------------------------------- phase 21: deep nets, parallel
+
+# the deep nets of phase 21: K1 in its layer-table form (any depth), at
+# the published width and the JAX package's deep kernel tests' shapes
+# (tests/test_pallas_kernels.py:26-32: a 28-input and a 53-input history
+# net), each with a 512-wide middle layer
+DEEP_SPECS = (((28, 512, 512, 25), "elu"), ((53, 512, 512, 512, 25), "tanh"))
+DEEP_K2_RODS = 256                # the timed K2 batch (as phase 18's)
+
+
+def make_deep_net(K, dims, activation, dtype, dev, scale=1.0, seed=SEED):
+    spec = K.MLPSpec(dims=tuple(dims), activation=activation,
+                     history=dims[0] == 53)
+    net = K.init_mlp(spec, torch.Generator().manual_seed(seed), dtype, dev)
+    with torch.no_grad():
+        for t in net.parameters():
+            t.mul_(scale)
+    return spec, net
+
+
+def deep_node_flops(dims):
+    """One hybrid RHS node with a net of any depth: its products, its
+    activations and the physics."""
+    return (sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+            + sum(dims[1:-1]) + PHYS_FLOPS)
+
+
+def phase_deep_kernels(K, dev, errs):
+    """K3, K2 and K8 with nets of three and four layers (DEEP_SPECS)
+    against their plain versions, float64 and float32: K3 at phase 3's
+    shapes (300 lanes, N = 10 and 40, Euler and RK4), K2 at phase 4's (300
+    rods, N = 10, one BDF-2 step from a perturbed history, both solvers to
+    their floor), K2 with four deep nets stacked (one per rod, the
+    multitrain eval's form) against its plain version and against single
+    launches bit for bit, and K8 at phase 16's cells (232 and 1,904)."""
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    from knode_cosserat_tpu_torch.ops import step as kstep
+    from knode_cosserat_tpu_torch.ops import sweep as ksweep
+
+    B = 300
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        for dims, act in DEEP_SPECS:
+            for N in (10, 40):
+                p = K.experimental_rod(N=N, device=dev).to(dtype=dtype)
+                G, yh, zh, tf = on(dev, dtype, *history_inputs(
+                    p, B, SEED + N))
+                spec, net = make_deep_net(K, dims, act, dtype, dev, 0.1)
+                plan = ksweep.launch_plan(dtype, dims[0], dims[1:-1], "euler")
+                for method in ("euler", "rk4"):
+                    k = ksweep.make_sweep_kernel(p, spec, method=method)
+                    with torch.no_grad():
+                        got = k(G, yh, zh, tf, net)
+                        want = ksweep.sweep_reference(p, G, yh, zh, tf, net,
+                                                      method)
+                    torch.cuda.synchronize()
+                    parts = []
+                    for nm, a, b in zip(("res", "y", "z"), got, want):
+                        ok, e = close(a, b, *SWEEP_TOL[dtype])
+                        parts.append(f"{nm} {e:.3e}")
+                        errs.setdefault(("K3 deep", dtype), []).append(e)
+                        if not ok:
+                            raise AssertionError(
+                                f"K3 deep {dims} {act} {name} N={N} {method}:"
+                                f" {nm} max err {e:.3e} beyond "
+                                f"{SWEEP_TOL[dtype]}")
+                    log(f"[deep K3] {name} N={N:2d} {dims} {act} {method:5s} "
+                        f"ok (staged {plan.staged}, smem {plan.smem_bytes} B)"
+                        f"  " + "  ".join(parts))
+        for (dims, act), method in zip(DEEP_SPECS * 2,
+                                       ("euler", "euler", "rk4", "rk4")):
+            p = K.experimental_rod(N=10, device=dev).to(dtype=dtype)
+            G, yh, zh, tf = on(dev, dtype, *history_inputs(p, B, SEED + 70))
+            G = torch.zeros_like(G)
+            spec, net = make_deep_net(K, dims, act, dtype, dev, 1e-2)
+            tol = 1e-18 if dtype == torch.float64 else 1e-13
+            k = kstep.make_step_kernel(p, spec, tol=tol, max_iter=30,
+                                       method=method)
+            with torch.no_grad():
+                got = k(G, yh, zh, tf, net)
+                want = kstep.step_reference(p, G, yh, zh, tf, net, tol=tol,
+                                            max_iter=30, method=method)
+            torch.cuda.synchronize()
+            parts = []
+            for nm, a, b in zip(("G", "y", "z", "r2"), got[:4], want[:4]):
+                if dtype == torch.float64:
+                    ok, e = close(a, b, *STEP_F64)
+                elif nm in STEP_F32_ATOL:
+                    ok, e = close(a, b, 0.0, STEP_F32_ATOL[nm])
+                else:
+                    ok, e = close(a, b, float("inf"), 0.0)
+                parts.append(f"{nm} {e:.3e}")
+                errs.setdefault(("K2 deep", dtype), []).append(e)
+                if not ok:
+                    raise AssertionError(f"K2 deep {dims} {act} {name} "
+                                         f"{method}: {nm} max err {e:.3e}")
+            log(f"[deep K2] {name} N=10 {dims} {act} {method:5s} ok  "
+                + "  ".join(parts) + f"  iters max {int(got[4].max())} "
+                f"(plain {int(want[4].max())})")
+    rod = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+    nets = [make_deep_net(K, DEEP_SPECS[0][0], DEEP_SPECS[0][1],
+                          torch.float32, dev, 1e-2, seed=g)[1]
+            for g in range(4)]
+    check_step_per_rod(K, dev, errs, rod, nets, "four deep nets "
+                       f"{DEEP_SPECS[0][0]}")
+    small = bench_data(dev)
+    for (label, p, cfg, _, trajs, ctls), (dims, act) in zip(
+            k8_cases(K, dev, small), DEEP_SPECS):
+        for dtype in (torch.float64, torch.float32):
+            pd = K.apply_mod("nsw", dtype=dtype, device=dev)
+            spec, nd = make_deep_net(K, dims, act, dtype, dev)
+            cells = [c.to(dtype) for c in k8_cells(
+                K, pd, spec, nd, trajs.to(dtype), ctls.to(dtype),
+                cfg.keypoints)]
+            W = [t for wb in nd.weights() for t in wb]
+            with torch.no_grad():
+                got = kseg.make_fused_next_segment(pd, spec)(nd, *cells)
+                want = kseg.next_segment_reference(pd, spec, *cells, *W)
+            torch.cuda.synchronize()
+            parts, ok = [], True
+            for nm, a, b in zip(("y_grown", "z"), got, want):
+                o, e = close(a, b, *K8_TOL[dtype])
+                ok = ok and o
+                parts.append(f"{nm} {e:.3e}")
+                errs.setdefault(("K8 deep", dtype), []).append(e)
+            log(f"[deep K8] {label}, {dims} {act} {str(dtype)[6:]}: max err "
+                f"vs plain " + "  ".join(parts) + f" (rtol, atol "
+                f"{K8_TOL[dtype]})")
+            if not ok:
+                raise AssertionError(f"K8 deep {label} {dims} {dtype} beyond "
+                                     f"{K8_TOL[dtype]}")
+
+
+def deep_timings(K, dev, name_power, small):
+    """The deep net DEEP_SPECS[0] at phase 18's timed shapes, f32: K1 (one
+    node, 1,792 lanes) and K3 (N = 10, 1,792 lanes) as a sweep, K2 at
+    DEEP_K2_RODS rods, N = 10 (weights x1e-3, with the two-layer
+    for_knode(512) beside it in the same process), K8 at bench_data.npz's
+    232 cells: kernel (the wrapper's call, CUDA events), plain version and
+    bound each."""
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    from knode_cosserat_tpu_torch.ops.step import (make_step_kernel,
+                                                   step_reference)
+    from knode_cosserat_tpu_torch.ops.sweep import (make_sweep_kernel,
+                                                    sweep_reference)
+    tag, dt, out, R = f"[{name_power}]", torch.float32, {}, DEEP_K2_RODS
+    dims, act = DEEP_SPECS[0]
+    n_w = lambda d: sum(a * b + b for a, b in zip(d[:-1], d[1:]))
+    spec, net = make_deep_net(K, dims, act, dt, dev)
+    for name, N in (("K1", 2), ("K3", 10)):
+        p = K.experimental_rod(N=N, device=dev).to(dtype=dt)
+        G, yh, zh, tf = on(dev, dt, *history_inputs(p, R * 7, SEED))
+        k = make_sweep_kernel(p, spec, want_rod=False)
+        with torch.no_grad():
+            k_ms = timed(lambda: k(G, yh, zh, tf, net), 20)
+            plain = timed(lambda: sweep_reference(p, G, yh, zh, tf, net,
+                                                  want_rod=False), 3)
+        b_ms, b_by = bound(R * 7 * (N - 1) * deep_node_flops(dims),
+                           4 * (n_w(dims) + R * 7 * (6 + N * 25 + 3 + 6)))
+        out[name] = dict(ms=k_ms, plain_ms=plain, bound_ms=b_ms,
+                         bound_by=b_by)
+        log(f"[time] {name} deep {dims} f32, {R * 7} lanes x {N - 1} node(s):"
+            f" kernel {k_ms:.4f} ms, plain {plain:.3f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}) {tag}")
+    p = K.experimental_rod(N=10, device=dev).to(dtype=dt)
+    G, yh, zh, tf = on(dev, dt, *history_inputs(p, R, SEED))
+    G = torch.zeros_like(G)
+    for label, d, a in (("K2", dims, act), ("K2 two-layer",
+                                             (28, HIDDEN, 25), "elu")):
+        spec2, net2 = make_deep_net(K, d, a, dt, dev, 1e-3)
+        k2 = make_step_kernel(p, spec2, tol=1e-10, max_iter=20)
+        with torch.no_grad():
+            k_ms = timed(lambda: k2(G, yh, zh, tf, net2), 20)
+            plain = timed(lambda: step_reference(p, G, yh, zh, tf, net2,
+                                                 tol=1e-10, max_iter=20), 3)
+            iters = k2(G, yh, zh, tf, net2)[4]
+        sweeps = int((2 + 7 * iters.long()).sum())
+        b_ms, b_by = bound(sweeps * (p.N - 1) * deep_node_flops(d),
+                           4 * (n_w(d) + R * (6 + p.N * 25 + 3 + 6
+                                              + p.N * 19 + (p.N - 1) * 6
+                                              + 2)))
+        out[label] = dict(ms=k_ms, plain_ms=plain, bound_ms=b_ms,
+                          bound_by=b_by, sweeps=sweeps)
+        log(f"[time] K2 step N=10, {R} rods, {d} f32: kernel {k_ms:.4f} ms, "
+            f"plain {plain:.3f} ms, bound {b_ms:.6f} ms ({b_by}; {sweeps} "
+            f"sweeps, iters max {int(iters.max())}) {tag}")
+    p, cfg, _ = train_setup(K, dev)
+    cells = k8_cells(K, p, spec, net, small[0].float(), small[1].float(),
+                     cfg.keypoints)
+    W = [t.detach() for wb in net.weights() for t in wb]
+    fn = kseg.make_fused_next_segment(p, spec)
+    with torch.no_grad():
+        k_ms = timed(lambda: fn(net, *cells), 50)
+        plain = timed(lambda: kseg.next_segment_reference(p, spec, *cells,
+                                                          *W), 50)
+    B = cells[0].shape[0]
+    b_ms, b_by = bound(B * deep_node_flops(dims),
+                       4 * (n_w(dims) + B * (19 + 19 + 6 + 3 + 19 + 6)))
+    out["K8"] = dict(ms=k_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+    log(f"[time] K8 deep {dims} f32, {B} cells: kernel {k_ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}) {tag}")
+    return out
+
+
+DEEP_ROLL_RODS, DEEP_ROLL_STEPS = 8, 20     # the deep serving rollouts
+DEEP_TRAIN_STEPS = 20                       # the deep fused training steps
+# the parallel stack on the card: train_knode(mesh=) against the plain
+# loop (f32 losses, the JAX test's bar), its epochs and validation length,
+# the grid, and the segment-sharded rollouts (N - 1 = 39 = 3 x 13)
+PAR_LOSS_RTOL, PAR_EPOCHS, PAR_EVAL_LEN = 1e-4, 200, 20
+PAR_GRID_EPOCHS = 40
+PAR_MS_STEPS, PAR_MS_REL = 10, 1e-9
+
+
+def phase_deep_paths(K, dev, name_power):
+    """The deep nets on the main paths, counted: make_fast_rollout of
+    DEEP_ROLL_RODS rods x DEEP_ROLL_STEPS steps with DEEP_SPECS[0] (weights
+    x1e-3) on impl "mega" (K2) and "sweep" (the FD-Newton loop over K3)
+    against impl "plain" (ROLLOUT_F32); ``simulate --model <a 3-layer
+    checkpoint> --fast`` through the CLI's function (K2) against ``simulate
+    --model`` (the plain scan) over CLI_MODEL_HELD steps (ROLLOUT_F32);
+    DEEP_TRAIN_STEPS make_train_step(use_pallas=True) steps with
+    DEEP_SPECS[1] (K8) against as many plain steps (FUSED_LOSS_RTOL).
+    Returns the launch counts."""
+    import copy
+    import tempfile
+
+    from knode_cosserat_tpu_torch import cli
+    from knode_cosserat_tpu_torch.core.fast_rollout import make_fast_rollout
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    from knode_cosserat_tpu_torch.ops import step as kstep
+    from knode_cosserat_tpu_torch.ops import sweep as ksweep
+    from knode_cosserat_tpu_torch.training.checkpoint import save_checkpoint
+    from knode_cosserat_tpu_torch.training.train import (_net_tree,
+                                                         make_optimizer,
+                                                         make_train_step)
+
+    dt = torch.float32
+    p = K.experimental_rod(N=10, dtype=dt, device=dev)
+    spec, net = make_deep_net(K, *DEEP_SPECS[0], dt, dev, 1e-3)
+    ctl = torch.tensor(sine_tensions(p, DEEP_ROLL_RODS, DEEP_ROLL_STEPS),
+                       device=dev)
+    kstep.LAUNCHES = ksweep.LAUNCHES = kseg.LAUNCHES = 0
+    # each solve to the f32 floor (phase 5's setting: no solver stops at
+    # its own point inside a looser tolerance), forward differences
+    trajs = {impl: make_fast_rollout(p, spec, tol=1e-13, max_iter=30,
+                                     impl=impl, fd_order=1)(ctl, net)[0]
+             for impl in ("mega", "sweep", "plain")}
+    torch.cuda.synchronize()
+    launches = {"K2": kstep.LAUNCHES, "K3": ksweep.LAUNCHES}
+    for impl in ("mega", "sweep"):
+        ok, e = close(trajs[impl], trajs["plain"], *ROLLOUT_F32)
+        log(f"[deep] rollout {DEEP_ROLL_RODS} rods x {DEEP_ROLL_STEPS} steps "
+            f"{spec.dims} f32, impl {impl} vs plain: max err {e:.3e} (bar "
+            f"rtol/atol {ROLLOUT_F32})")
+        if not ok:
+            raise AssertionError(f"deep rollout {impl} vs plain: {e:.3e}")
+    with tempfile.TemporaryDirectory(prefix="knode_deep_") as d:
+        ckpt = os.path.join(d, "deep")
+        save_checkpoint(ckpt, {"params": _net_tree(net)},
+                        meta={"train": {"activation": DEEP_SPECS[0][1]}})
+        out = {}
+        kstep.LAUNCHES = 0
+        for label, extra in (("--fast", ["--fast"]), ("scan", [])):
+            argv = ["simulate", "--model", ckpt, "--steps",
+                    str(CLI_MODEL_HELD), "--save",
+                    os.path.join(d, f"sim{len(out)}.npz"), *extra]
+            log(f"[deep] python -m knode_cosserat_tpu_torch {' '.join(argv)}")
+            t0 = time.perf_counter()
+            out[label] = torch.tensor(cli.main(argv))
+            log(f"[time] cli simulate --model <3-layer> {label}: "
+                f"{time.perf_counter() - t0:.2f} s [{name_power}]")
+            if label == "--fast":
+                launches["K2 cli"] = kstep.LAUNCHES
+    ok, e = close(out["--fast"], out["scan"], *ROLLOUT_F32)
+    log(f"[deep] simulate --model <3-layer {DEEP_SPECS[0][0]}> --fast vs "
+        f"--model {tuple(out['scan'].shape)}: max err {e:.3e} (bar rtol/atol "
+        f"{ROLLOUT_F32}); K2 launches {launches['K2 cli']}")
+    if not ok or launches["K2 cli"] != CLI_MODEL_HELD - 1:
+        raise AssertionError(f"deep simulate --fast: err {e:.3e}, K2 "
+                             f"launches {launches['K2 cli']}")
+    launches["K2"] += launches.pop("K2 cli")
+    small = bench_data(dev)
+    p = K.apply_mod("nsw", dtype=dt, device=dev)
+    spec, net = make_deep_net(K, *DEEP_SPECS[1], dt, dev)
+    from knode_cosserat_tpu_torch.training.loss import DEFAULT_KEYPOINTS_REAL
+    cfg = K.TrainConfig(history=True, keypoints=DEFAULT_KEYPOINTS_REAL)
+    trajs, ctls = small[0].float(), small[1].float()
+    losses = {}
+    kseg.LAUNCHES = 0
+    for fused in (True, False):
+        nt = copy.deepcopy(net)
+        step, _ = make_train_step(p, spec, make_optimizer(cfg, nt),
+                                  cfg.keypoints, cfg.clamp_weights,
+                                  use_pallas=fused)
+        losses[fused] = torch.stack([step(nt, trajs, ctls)
+                                     for _ in range(DEEP_TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    launches["K8"] = kseg.LAUNCHES
+    ok, e = close(losses[True], losses[False], FUSED_LOSS_RTOL, 0.0)
+    log(f"[deep] {DEEP_TRAIN_STEPS} make_train_step(use_pallas=True) steps "
+        f"{spec.dims} {spec.activation} on bench_data.npz vs plain: losses "
+        f"{float(losses[True][0]):.4e} -> {float(losses[True][-1]):.4e}, max "
+        f"err {e:.3e} (rtol {FUSED_LOSS_RTOL}); K8 launches "
+        f"{launches['K8']}")
+    if not ok or launches["K8"] != DEEP_TRAIN_STEPS:
+        raise AssertionError(f"deep fused steps: err {e:.3e}, K8 launches "
+                             f"{launches['K8']}")
+    log(f"[deep] main-path launches with deep nets: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a deep-net path missed a kernel: {launches}")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel(K, dev, name_power):
+    """The parallel stack on the card, counted. One H100 hosts a world of
+    one: NCCL refuses two ranks on one device, and gloo on CUDA tensors
+    does only broadcast and all_reduce, so the world of two is held in the
+    CPU tests (tests/test_torch_parallel.py). Here: init_distributed from
+    an in-script MASTER_ADDR / MASTER_PORT (NCCL) and make_mesh(1, 1, 1);
+    grid_train(mesh=) over 8 runs (2 seeds x MODS) x 232 cells
+    (bench_data.npz's trajectories, made on the card), for_knode(512),
+    PAR_GRID_EPOCHS epochs, counting K5, every cell bit for bit the
+    unsharded grid's; train_knode(mesh=) at for_knode(512), PAR_EPOCHS
+    epochs with one validation (K2 counted) against the unsharded plain
+    loop (fused="off"), losses at PAR_LOSS_RTOL; simulate_scan_ms(mesh=)
+    and simulate_scan_ms_halo at D = 1 on experimental_rod(N=40), S = 3,
+    float64, PAR_MS_STEPS steps, against simulate_scan_ms within PAR_MS_REL
+    of the trajectory's largest entry; then destroy_process_group."""
+    import torch.distributed as dist
+
+    from knode_cosserat_tpu_torch.core.multiple_shooting import (
+        simulate_scan_ms)
+    from knode_cosserat_tpu_torch.ops import step as kstep
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+    from knode_cosserat_tpu_torch.parallel import (build_grid, grid_train,
+                                                   init_distributed,
+                                                   make_mesh, process_summary,
+                                                   simulate_scan_ms_halo)
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    if not init_distributed():
+        raise AssertionError("init_distributed did not start the group")
+    mesh = make_mesh(1, 1, 1)
+    log(f"[parallel] {process_summary()}; {mesh}")
+    out = {}
+    try:
+        ref = K.apply_mod(None, dtype=torch.float32, device=dev)
+        cells = build_grid(["sine sine 0.5 1.0"], MODS, 2)
+        cfg = K.TrainConfig(hidden=HIDDEN, epochs=PAR_GRID_EPOCHS)
+        # each grid makes its data (a plain scan) as a user's call does
+        ktrain.GRID_LAUNCHES = 0
+        t0 = time.perf_counter()
+        sharded = grid_train(cells, cfg, reference_rod=ref, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["K5"] = ktrain.GRID_LAUNCHES
+        one = grid_train(cells, cfg, reference_rod=ref)
+        same = (np.array_equal(sharded.loss_history, one.loss_history)
+                and all(torch.equal(a, b) for x, y in zip(sharded.params,
+                                                          one.params)
+                        for a, b in zip(x.parameters(), y.parameters())))
+        C = 2 * 29 * len(cfg.keypoints)
+        log(f"[parallel] grid_train(mesh=) {len(cells)} runs x {C} cells, "
+            f"hidden {HIDDEN}, {PAR_GRID_EPOCHS} epochs: {wall:.2f} s "
+            f"(training {sharded.train_seconds:.3f} s, the rest the data on "
+            f"the plain scan), K5 launches {out['K5']}; every cell == the "
+            f"unsharded grid's bit for bit: {same} [{name_power}]")
+        if not same or out["K5"] == 0:
+            raise AssertionError(f"grid_train(mesh=): same {same}, K5 "
+                                 f"launches {out['K5']}")
+
+        trajs, ctls = K.make_training_data(ref, [("sine", 0.5),
+                                                 ("sine", 1.0)], train_len=30)
+        vc, vt = K.make_validation_reference(ref, ("sine", 1.25),
+                                             PAR_EVAL_LEN)
+        p_mod = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+        runs = {}
+        # the plain loop without its validations (they do not move the
+        # losses)
+        for label, m, fused, val in (("mesh", mesh, "auto", (vc, vt)),
+                                     ("plain", None, "off", (None, None))):
+            cfg = K.TrainConfig(hidden=HIDDEN, epochs=PAR_EPOCHS,
+                                eval_every=PAR_EPOCHS, eval_len=PAR_EVAL_LEN,
+                                fused=fused)
+            kstep.LAUNCHES = ktrain.LAUNCHES = 0
+            t0 = time.perf_counter()
+            runs[label] = K.train_knode(p_mod, trajs, ctls, cfg, *val,
+                                        log=None, mesh=m)
+            torch.cuda.synchronize()
+            if label == "mesh":
+                out["K2"] = kstep.LAUNCHES
+                k4 = ktrain.LAUNCHES
+                log(f"[time] train_knode(mesh=) for_knode(512), "
+                    f"{PAR_EPOCHS} epochs + validation: "
+                    f"{time.perf_counter() - t0:.2f} s [{name_power}]")
+        a, b = (torch.tensor(runs[k].loss_history) for k in ("mesh", "plain"))
+        ok, e = close(a, b, PAR_LOSS_RTOL, 0.0)
+        log(f"[parallel] train_knode(mesh=) vs the plain loop: losses "
+            f"{float(a[0]):.4e} -> {float(a[-1]):.4e}, max err {e:.3e} "
+            f"(rtol {PAR_LOSS_RTOL}); DTW {runs['mesh'].dtw_history}; K2 "
+            f"launches {out['K2']} (want "
+            f"{PAR_EVAL_LEN - 1}), K4 {k4} (declined under a mesh)")
+        if not ok or out["K2"] != PAR_EVAL_LEN - 1 or k4:
+            raise AssertionError(f"train_knode(mesh=): err {e:.3e}, K2 "
+                                 f"{out['K2']}, K4 {k4}")
+
+        p = K.experimental_rod(N=E_N, device=dev).to(dtype=torch.float64)
+        ctl = torch.tensor(sine_tensions(p, 1, PAR_MS_STEPS)[0], device=dev)
+        want = simulate_scan_ms(p, ctl, 3).traj
+        got = {"simulate_scan_ms(mesh=)": simulate_scan_ms(p, ctl, 3,
+                                                            mesh=mesh).traj,
+               "simulate_scan_ms_halo": simulate_scan_ms_halo(p, ctl, 3,
+                                                              mesh).traj}
+        scale = float(want.abs().max())
+        for label, t in got.items():
+            rel = float((t - want).abs().max()) / scale
+            log(f"[parallel] {label} D=1, N={E_N}, S=3, f64, "
+                f"{PAR_MS_STEPS} steps: max err / max |traj| {rel:.3e} "
+                f"(bar {PAR_MS_REL})")
+            if not rel <= PAR_MS_REL:
+                raise AssertionError(f"{label}: {rel:.3e}")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -2296,6 +2747,10 @@ def main() -> int:
     t78 = phase_k7_k8_timings(K, dev, name_power, data[0])
     path_d = phase_model_based(K, dev, name_power)
     path_e = phase_fine_rod_and_hardware(K, dev, name_power, errs)
+    phase_deep_kernels(K, dev, errs)
+    deep = phase_deep_paths(K, dev, name_power)
+    deep_ms = deep_timings(K, dev, name_power, data[0])
+    par = phase_parallel(K, dev, name_power)
     k7_launches = asm["launches"] + mpc["launches"]
 
     # bounds at the timed shapes (float32, hidden 512, 28 inputs, N=10)
@@ -2306,9 +2761,14 @@ def main() -> int:
                      w_bytes + 4 * R * 7 * (6 + 190 + 60 + 3 + 6))
     k2_bound = ms["K2_bound"]
     src = "knode_cosserat_tpu_torch/csrc/"
-    k3_err = max(errs[("K3", torch.float32)] + errs[("K3", torch.float64)])
+    k3_err = max(errs[("K3", torch.float32)] + errs[("K3", torch.float64)]
+                 + errs[("K3 deep", torch.float32)]
+                 + errs[("K3 deep", torch.float64)])
     k1_err = max(k3_err, ms["K1_err"])
     row = lambda b: {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+    # the 3-layer net (28, 512, 512, 25) at the same shapes (deep_timings)
+    deep_row = lambda d: {"deep_ms": d["ms"], "deep_plain_ms": d["plain_ms"],
+                          "deep_bound_ms": d["bound_ms"]}
     kernels = [
         {"name": "K1 rhs_rows (hybrid per-node RHS, inlined in K2/K3/K7/K8; "
                  "rhs_node_coop redesigned)",
@@ -2317,23 +2777,30 @@ def main() -> int:
          "launches": (serve["K2"] + serve["K3"] + train["K2"] + train["K3"]
                       + multi["K2"] + multi["K3"] + clis["K2"] + clis["K3"]
                       + path_d["K2"] + path_e["K2"] + k7_launches
-                      + fused["launches"]),
+                      + fused["launches"] + deep["K2"] + deep["K3"]
+                      + deep["K8"] + par["K2"]),
          "max_abs_err": k1_err, "ms": ms["K1"][0], "plain_ms": ms["K1"][1],
-         **row(k1_bound)},
+         **row(k1_bound), **deep_row(deep_ms["K1"])},
         {"name": "K3 sweep (hybrid: one warp per lane, redesigned)",
          "route": "cuda", "source": src + "sweep.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_sweep.py:201",
-         "launches": serve["K3"] + train["K3"] + multi["K3"] + clis["K3"],
+         "launches": (serve["K3"] + train["K3"] + multi["K3"] + clis["K3"]
+                      + deep["K3"]),
          "max_abs_err": k3_err,
-         "ms": ms["K3"][0], "plain_ms": ms["K3"][1], **row(k3_bound)},
+         "ms": ms["K3"][0], "plain_ms": ms["K3"][1], **row(k3_bound),
+         **deep_row(deep_ms["K3"])},
         {"name": "K2 step (256 rods; one block per rod, redesigned)",
          "route": "cuda", "source": src + "step.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_step.py:57",
          "launches": (serve["K2"] + train["K2"] + multi["K2"] + clis["K2"]
-                      + path_d["K2"] + path_e["K2"]),
+                      + path_d["K2"] + path_e["K2"] + deep["K2"]
+                      + par["K2"]),
          "max_abs_err": max(errs[("K2", torch.float32)]
-                            + errs[("K2", torch.float64)]),
-         "ms": ms["K2"][0], "plain_ms": ms["K2"][1], **row(k2_bound)},
+                            + errs[("K2", torch.float64)]
+                            + errs[("K2 deep", torch.float32)]
+                            + errs[("K2 deep", torch.float64)]),
+         "ms": ms["K2"][0], "plain_ms": ms["K2"][1], **row(k2_bound),
+         **deep_row(deep_ms["K2"])},
         {"name": "K4 train (whole training run, 200-epoch chunk, 232 cells; "
                  "a cluster of 8 blocks per run, redesigned)",
          "route": "cuda", "source": src + "train.cu",
@@ -2347,7 +2814,7 @@ def main() -> int:
                  "redesigned kernel, a cluster per run)",
          "route": "cuda", "source": src + "train.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_train.py:692",
-         "launches": multi["K5"], "max_abs_err": max(errs["K5"]),
+         "launches": multi["K5"] + par["K5"], "max_abs_err": max(errs["K5"]),
          "ms": tt["K5"]["ms"], "plain_ms": tt["K5"]["plain_ms"],
          **row((tt["K5"]["bound_ms"], tt["K5"]["bound_by"]))},
         {"name": f"K6 train wide (hidden {WIDE_HIDDEN}, 1904 cells, 200 "
@@ -2369,12 +2836,15 @@ def main() -> int:
                  "warp per cell over rhs_node_coop, redesigned)",
          "route": "cuda", "source": src + "next_segment.cu",
          "replaces": "knode_cosserat_tpu/ops/pallas_rhs.py:65",
-         "launches": fused["launches"],
+         "launches": fused["launches"] + deep["K8"],
          "max_abs_err": max(errs[("K8", torch.float32)]
-                            + errs[("K8", torch.float64)]),
+                            + errs[("K8", torch.float64)]
+                            + errs[("K8 deep", torch.float32)]
+                            + errs[("K8 deep", torch.float64)]),
          "ms": t78["K8 232"]["ms"], "device_ms": t78["K8 232"]["device_ms"],
          "plain_ms": t78["K8 232"]["plain_ms"],
-         **row((t78["K8 232"]["bound_ms"], t78["K8 232"]["bound_by"]))},
+         **row((t78["K8 232"]["bound_ms"], t78["K8 232"]["bound_by"])),
+         **deep_row(deep_ms["K8"])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,11 @@ The model-based side differentiates through the implicit rod
 single-rod planner control/mpc.py, whose forward roots are K2 launches on
 the card, system identification training/sysid.py (the CLI's ``sysid`` and
 ``design``), and online adaptation training/online.py with
-utils/health.py.
+utils/health.py. The parallel stack (parallel/: a ("data", "seq",
+"model") mesh over torch.distributed, sharded train_knode and grids,
+segment sharding and the halo-exchange multiple-shooting solver) runs one
+rank per device, started with torchrun; the rod kernels take KNODE nets of
+any depth up to eight layers.
 
 Importing the package builds and loads nothing: the kernel modules
 (ops/sweep.py, ops/step.py, ops/train.py, ops/train_wide.py,

@@ -36,7 +36,12 @@ none). design's start is drawn from a ``torch.Generator`` seeded with 0.
 (core/multiple_shooting.py). ``replicate --dtype`` is the rods' precision
 (float32 by default; the training runs in float32). The JAX package's
 ``bench`` command is not ported: it runs the benchmark's own file, and
-waits for the port's first benchmark.
+waits for the port's first benchmark. ``train --mesh`` and ``multitrain
+--mesh d,s,m`` run over a ("data", "seq", "model") mesh of every rank of
+the process group (parallel/mesh.py): start one rank per card with
+``torchrun --nproc_per_node <cards>`` (NCCL), or CPU ranks with
+``--device cpu`` (gloo); without a launcher the mesh is a world of one.
+Only rank 0 prints and writes files.
 """
 from __future__ import annotations
 
@@ -47,6 +52,30 @@ import time
 import numpy as np
 
 from .device import default_device
+
+
+def _parse_mesh(spec, device=None):
+    """'data,seq,model' -> a parallel.mesh.Mesh over the process group that
+    torchrun's environment describes, or a world of one on ``device``
+    without one (None passes through)."""
+    if not spec:
+        return None
+    from .parallel import init_distributed, make_mesh
+    try:
+        d, s, m = (int(x) for x in spec.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh {spec!r}: expected data,seq,model, e.g. "
+                         "2,1,1") from None
+    init_distributed()
+    return make_mesh(data=d, seq=s, model=m, devices=device)
+
+
+def _writer(mesh) -> bool:
+    """Whether this process prints and writes files: no mesh, or rank 0."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
 
 # the study's grid and schedules (knode_cosserat_tpu/cli.py:cmd_multitrain)
 DATAS = {False: ["sine sine 0.5 1.0", "sine sine random 0.5 1.0 0.0"],
@@ -95,7 +124,8 @@ def _add_train_args(sp):
     sp.add_argument("--resume", type=str, default=None,
                     help="checkpoint to resume from")
     sp.add_argument("--mesh", type=str, default=None,
-                    help="multi-chip mesh: not ported (raises)")
+                    help='multi-chip mesh "data,seq,model", e.g. "4,2,1" '
+                         '(one rank per device: torchrun)')
     sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
 
 
@@ -113,11 +143,8 @@ def cmd_train(args):
     from .training.checkpoint import save_checkpoint
     from .training.train import TrainConfig, _net_tree, train_knode
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharded training waits for torch.distributed; see "
-            "ROADMAP.md, Queue 1, item 4")
-    device = default_device(args.device)
+    mesh = _parse_mesh(args.mesh, args.device)
+    device = mesh.device if mesh is not None else default_device(args.device)
     specs = parse_traj_specs(args.control_type_arg)
     validation = args.validation or ("sine 0.1" if args.original
                                      else "sine 1.25")
@@ -144,15 +171,17 @@ def cmd_train(args):
     if args.eval:
         vc, vr = make_validation_reference(ref, (vkind, float(varg)))
     path = os.path.join(args.save_dir, cfg.short_name())
+    writer = _writer(mesh)
     res = train_knode(p_mod, trajs, ctls, cfg.train, vc, vr, eval_rod=p_mod,
-                      resume_from=args.resume, checkpoint_path=path)
-
-    save_checkpoint(path, {
-        "params": _net_tree(res.best_params if args.eval else res.params),
-        "loss": res.loss_history,
-        "dtw": res.dtw_history,
-    }, meta=cfg.to_dict())
-    print(f"saved {path}.npz (best DTW {res.best_dtw})")
+                      resume_from=args.resume, checkpoint_path=path,
+                      mesh=mesh, log=print if writer else None)
+    if writer:
+        save_checkpoint(path, {
+            "params": _net_tree(res.best_params if args.eval else res.params),
+            "loss": res.loss_history,
+            "dtw": res.dtw_history,
+        }, meta=cfg.to_dict())
+        print(f"saved {path}.npz (best DTW {res.best_dtw})")
     return res
 
 
@@ -169,7 +198,7 @@ def cmd_simulate(args):
     from .controls import calc_controls
     from .core.params import apply_mod
     from .core.stepper import simulate
-    from .models.mlp import MLPSpec, params_from_jax
+    from .models.mlp import params_from_jax, spec_from_params
     from .training.checkpoint import load_checkpoint
     from .training.train import rollout_with_nn
 
@@ -194,8 +223,10 @@ def cmd_simulate(args):
     cuda = p.device.type == "cuda"
     if args.model:
         ckpt, meta = load_checkpoint(args.model)
-        hidden = meta.get("train", {}).get("hidden", 512)
-        spec = MLPSpec.for_knode(int(hidden))
+        # the net's widths from its weights (any depth; 53 inputs: the
+        # history form), its activation from the training's metadata
+        spec = spec_from_params(
+            ckpt["params"], meta.get("train", {}).get("activation", "elu"))
         net = params_from_jax(ckpt["params"], spec, dtype=p.dtype,
                               device=p.device)
         # --model --fast composes: the hybrid rollout rides K2 (the whole
@@ -245,34 +276,34 @@ def cmd_multitrain(args) -> dict:
     from .training.checkpoint import save_checkpoint
     from .training.train import TrainConfig, _net_tree
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the sharded grid waits for torch.distributed; see "
-            "ROADMAP.md, Queue 1, item 4")
+    mesh = _parse_mesh(args.mesh, args.device)
+    writer = _writer(mesh)
     cells = build_grid(DATAS[args.original], MODS, args.n_seeds)
     cfg = TrainConfig(epochs=args.epochs, hidden=args.layers,
                       dtype=args.dtype)
     # the rods in the run's dtype: the JAX CLI's are float32 unless
     # KNODE_X64 turns on JAX's 64-bit mode
     ref = apply_mod(None, original=args.original,
-                    dtype=getattr(torch, args.dtype), device=args.device)
+                    dtype=getattr(torch, args.dtype),
+                    device=mesh.device if mesh is not None else args.device)
     cuda = ref.device.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(ref.device)) if cuda else (
         lambda: None)
     t0 = time.perf_counter()
     res = grid_train(cells, cfg, reference_rod=ref, train_len=TRAIN_LEN,
-                     original=args.original,
-                     log=print if args.verbose else None)
+                     original=args.original, mesh=mesh,
+                     log=print if args.verbose and writer else None)
     sync()
     t1 = time.perf_counter()
-    os.makedirs(args.save_dir, exist_ok=True)
-    for cell, net in zip(res.cells, res.params):
-        name = (f"{cell.data}_{cell.mod}_{cell.seed}").replace(" ", "-")
-        save_checkpoint(os.path.join(args.save_dir, name),
-                        {"params": _net_tree(net)})
+    if writer:
+        os.makedirs(args.save_dir, exist_ok=True)
+        for cell, net in zip(res.cells, res.params):
+            name = (f"{cell.data}_{cell.mod}_{cell.seed}").replace(" ", "-")
+            save_checkpoint(os.path.join(args.save_dir, name),
+                            {"params": _net_tree(net)})
     t2 = time.perf_counter()
     records = None
-    if args.eval:
+    if args.eval and writer:
         records = evaluate_cells(res.cells, res.params, res.spec,
                                  EVAL_SETS[args.original], reference_rod=ref,
                                  eval_len=EVAL_LEN, original=args.original,
@@ -282,7 +313,8 @@ def cmd_multitrain(args) -> dict:
     t3 = time.perf_counter()
     phases = (f"phases: datagen+train {t1 - t0:.1f}s, save {t2 - t1:.1f}s"
               + (f", eval {t3 - t2:.1f}s" if args.eval else ""))
-    print(phases)
+    if writer:
+        print(phases)
     return {"result": res, "records": records,
             "seconds": {"datagen+train": t1 - t0, "save": t2 - t1,
                         "eval": t3 - t2}}
@@ -741,7 +773,9 @@ def main(argv=None):
     sp.add_argument("--evals_dir", type=str, default="evals")
     sp.add_argument("--dtype", type=str, default="float32")
     sp.add_argument("--mesh", type=str, default=None,
-                    help="multi-chip mesh: not ported (raises)")
+                    help='multi-chip mesh "data,seq,model": the grid axis '
+                         'splits over "data" (one rank per device: '
+                         'torchrun)')
     sp.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
     sp.set_defaults(fn=cmd_multitrain)
 

@@ -16,13 +16,21 @@ core/stepper.simulate_scan to Newton precision.
 
 The damped-Newton loop (``_newton_loop``: the backtracking line search and
 the Levenberg-Marquardt stall ladder) is shared with the assembly solver
-(core/assembly.py); it drives ONE system X (U,). The residual broadcasts
-over leading axes, so the line search's candidates take one residual call.
-The loop decides on the host each iteration (one synchronisation per
-iteration on a CUDA device). Two direction producers use it here:
-``_structured_direction`` (the block-bidiagonal elimination: per-segment
-19x19 tangents, an affine prefix, one 6x6 solve) and the dense LU of
-``_newton_dense``.
+(core/assembly.py) and the halo solver (parallel/spatial.py); it drives ONE
+system X (U,). The residual broadcasts over leading axes, so the line
+search's candidates take one residual call. The loop decides on the host
+each iteration (one synchronisation per iteration on a CUDA device). Two
+direction producers use it here: ``_structured_direction`` (the
+block-bidiagonal elimination: per-segment 19x19 tangents, an affine
+prefix, one 6x6 solve) and the dense LU of ``_newton_dense``.
+
+Over a device mesh (``mesh=``, parallel/mesh.py) the segment sweeps split
+over its "seq" ranks: each rank sweeps its S/D segments, the segment ends
+and the per-segment tangents are gathered, and the small algebra (the
+19x19 prefix, the 6x6 solve, the dense LU) runs replicated on every rank,
+which is what the JAX package's sharding constraints make GSPMD do. The
+halo-exchange design that keeps only O(D) operators on the wire is
+parallel/spatial.simulate_scan_ms_halo.
 """
 from __future__ import annotations
 
@@ -38,7 +46,8 @@ from .spatial import base_state
 from .stepper import SimOutput, initial_state, tendon_forces
 
 __all__ = ["ms_solve_step", "simulate_scan_ms", "jacobian", "_newton_loop",
-           "_lm_damped_solve", "_newton_dense"]
+           "_lm_damped_solve", "_newton_dense", "_chain_prefix",
+           "_segment_sweeps"]
 
 # from this many interior boundaries up the structured direction takes the
 # log-depth (doubling) prefix of its affine maps, as the JAX package takes
@@ -63,9 +72,13 @@ def jacobian(fn: Callable[[torch.Tensor], torch.Tensor],
     return g
 
 
+def _sumsq(r):
+    return (r * r).sum(-1)
+
+
 def _newton_loop(residual_fn, direction_fn, X0, tol, max_iter,
                  max_backtracks=6, lm_lambda0=1e-4, lm_growth=30.0,
-                 max_escalations=4):
+                 max_escalations=4, sumsq=_sumsq):
     """Damped Newton with a backtracking line search and an LM stall ladder.
 
     ``direction_fn(X, r, lam) -> dX`` gives the (LM-damped) Newton
@@ -74,14 +87,16 @@ def _newton_loop(residual_fn, direction_fn, X0, tol, max_iter,
     one taken; a stall holds X and sets lam = max(lam * lm_growth,
     lm_lambda0), a success resets lam to 0; a non-finite dX falls back
     to -r; the loop runs while r2 > tol, it < max_iter and
-    fails <= max_escalations. Returns (X, NewtonStats) with scalar stats.
+    fails <= max_escalations. ``sumsq(r)`` is r2 over r's last axis (the
+    halo solver's sums over every rank's rows). Returns (X, NewtonStats)
+    with scalar stats.
     """
     dtype, device = X0.dtype, X0.device
     alphas = (0.5 ** torch.arange(max_backtracks + 1, dtype=torch.float64)
               ).to(device=device, dtype=dtype)
     X = X0
     r = residual_fn(X)
-    r2 = (r * r).sum()
+    r2 = sumsq(r)
     it = lam = fails = retries = 0
     while bool(r2 > tol) and it < max_iter and fails <= max_escalations:
         dX = direction_fn(X, r, lam)
@@ -89,7 +104,7 @@ def _newton_loop(residual_fn, direction_fn, X0, tol, max_iter,
             dX = -r
         X_cand = X + alphas[:, None] * dX
         r_cand = residual_fn(X_cand)
-        r2_cand = (r_cand * r_cand).sum(-1)
+        r2_cand = sumsq(r_cand)
         improves = r2_cand < r2
         if bool(improves.any()):
             k = int(improves.int().argmax())    # the first (largest) alpha
@@ -145,6 +160,62 @@ def _segment_sweeps(p: RodParams, starts, yh_segs, zh_segs, tf, nn_fn,
     return torch.stack(ys, dim=-2), torch.stack(zs, dim=-2), y
 
 
+class _Split:
+    """The segment axis over ``mesh[axis]``: this rank sweeps segments
+    [lo, hi), and ``gather`` puts the ranks' pieces of a per-segment
+    tensor back together along ``dim``."""
+
+    def __init__(self, mesh, axis: str, S: int):
+        from ..parallel.mesh import P, Placement
+
+        if axis not in getattr(mesh, "shape", {}):
+            raise ValueError(f"the mesh {mesh!r} has no axis {axis!r}")
+        D = mesh.shape[axis]
+        if S % D:
+            raise ValueError(f"n_segments={S} must divide over the "
+                             f"{axis}={D} mesh axis")
+        self.place = lambda dim: Placement(mesh, P(*(None,) * dim, axis))
+        own = self.place(0).span(S)
+        self.lo, self.hi = own.start, own.stop
+
+    def gather(self, t, dim: int):
+        return self.place(dim % t.ndim).gather(t)
+
+
+def _ends(p: RodParams, starts, yh_segs, zh_segs, tf, nn_fn, nn_history,
+          split: _Split | None):
+    """The S segments' end states (..., S, 19): every sweep here, or this
+    rank's under a split, gathered."""
+    if split is None:
+        return _segment_sweeps(p, starts, yh_segs, zh_segs, tf, nn_fn,
+                               nn_history, want_states=False)[2]
+    lo, hi = split.lo, split.hi
+    e = _segment_sweeps(p, starts[..., lo:hi, :], yh_segs[lo:hi],
+                        zh_segs[lo:hi], tf, nn_fn, nn_history,
+                        want_states=False)[2]
+    return split.gather(e, -2)
+
+
+def _tangents(p: RodParams, starts, yh_segs, zh_segs, tf, nn_fn, nn_history,
+              split: _Split | None):
+    """(A (S, 19, 19), e (S, 19)): each segment's end and its tangent with
+    respect to the segment's start, from one replicated reverse pass
+    (shooting.block_jacobian) over the segments this rank sweeps, gathered
+    under a split."""
+    lo, hi = (0, starts.shape[-2]) if split is None else (split.lo, split.hi)
+
+    def ends(s):
+        return _segment_sweeps(p, s, yh_segs[lo:hi], zh_segs[lo:hi], tf,
+                               nn_fn, nn_history, want_states=False)[2]
+
+    A = block_jacobian(ends, starts[lo:hi])
+    with torch.no_grad():
+        e = ends(starts[lo:hi])
+    if split is not None:
+        A, e = split.gather(A, 0), split.gather(e, 0)
+    return A, e
+
+
 def _starts(p: RodParams, X, S):
     """X (..., 6 + 19(S-1)) -> (G, Yb (..., S-1, 19), starts (..., S, 19))."""
     G = X[..., :6]
@@ -153,12 +224,11 @@ def _starts(p: RodParams, X, S):
 
 
 def _ms_residual(p: RodParams, X, yh_segs, zh_segs, tf, S, nn_fn,
-                 nn_history):
+                 nn_history, split: _Split | None = None):
     """Stacked residual [continuity (19*(S-1)), tip force/moment (6)] of
     X (..., 6 + 19(S-1))."""
     _, Yb, starts = _starts(p, X, S)
-    _, _, ends = _segment_sweeps(p, starts, yh_segs, zh_segs, tf, nn_fn,
-                                 nn_history, want_states=False)
+    ends = _ends(p, starts, yh_segs, zh_segs, tf, nn_fn, nn_history, split)
     cont = (ends[..., :-1, :] - Yb).reshape(X.shape[:-1] + (-1,))
     tip = torch.cat([p.F_tip - ends[..., -1, 7:10],
                      p.M_tip - ends[..., -1, 10:13]], dim=-1)
@@ -195,7 +265,7 @@ def _doubling_prefix(Ap, bp, B):
 
 
 def _structured_direction(p: RodParams, X, lam, yh_segs, zh_segs, tf, S,
-                          nn_fn, nn_history):
+                          nn_fn, nn_history, split: _Split | None = None):
     """Newton direction exploiting the block-BIDIAGONAL Jacobian.
 
     Row structure of _ms_residual's Jacobian:
@@ -208,18 +278,13 @@ def _structured_direction(p: RodParams, X, lam, yh_segs, zh_segs, tf, S,
     tangents A_i (S, 19, 19) come from one replicated reverse pass over a
     (19, S)-copy batch (shooting.block_jacobian). LM damping scales the -I
     diagonal blocks by (1 + lam) and damps the reduced 6x6 system, as in
-    the JAX package.
+    the JAX package. Under a split the tangents come from each rank's
+    segments, gathered (_tangents), and the rest runs replicated.
     """
     dtype, device = X.dtype, X.device
     _, Yb, starts = _starts(p, X, S)
-
-    def ends(s):
-        return _segment_sweeps(p, s, yh_segs, zh_segs, tf, nn_fn, nn_history,
-                               want_states=False)[2]
-
-    A = block_jacobian(ends, starts)            # (S, 19, 19)
-    with torch.no_grad():
-        e = ends(starts)                        # (S, 19)
+    A, e = _tangents(p, starts, yh_segs, zh_segs, tf, nn_fn, nn_history,
+                     split)                     # (S, 19, 19), (S, 19)
     r_cont = e[:-1] - Yb                        # (S-1, 19)
     r_tip = torch.cat([p.F_tip - e[-1, 7:10], p.M_tip - e[-1, 10:13]])
 
@@ -240,12 +305,33 @@ def _structured_direction(p: RodParams, X, lam, yh_segs, zh_segs, tf, S,
     return torch.cat([dG, dYb.reshape(-1)])
 
 
-def _segments(p: RodParams, n_segments, mesh) -> int:
-    """The segment count S, checked: it divides N-1, and no mesh."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the segment axis over a device mesh (parallel/) is not "
-            "ported yet; see ROADMAP.md, Queue 1, item 4")
+def _dense_from_tangents(A, S: int):
+    """The dense Jacobian of _ms_residual assembled from the segment
+    tangents A (S, 19, 19), its block rows as _structured_direction writes
+    them: continuity row j is A_j on segment j's start (through the
+    selector B of G for j = 0) and -I on Yb_{j+1}; the tip row is
+    -A_{S-1}[7:13] on the last segment's start."""
+    dtype, device = A.dtype, A.device
+    U = 6 + 19 * (S - 1)
+    J = torch.zeros((U, U), dtype=dtype, device=device)
+    eye = torch.eye(19, dtype=dtype, device=device)
+
+    def start_cols(j, rows, block):
+        if j == 0:
+            J[rows, :6] += block[:, 7:13]          # s_0 = base_state(G)
+        else:
+            J[rows, 6 + 19 * (j - 1):6 + 19 * j] += block
+
+    for j in range(S - 1):
+        rows = slice(19 * j, 19 * (j + 1))
+        start_cols(j, rows, A[j])
+        J[rows, 6 + 19 * j:6 + 19 * (j + 1)] -= eye
+    start_cols(S - 1, slice(19 * (S - 1), U), -A[S - 1, 7:13])
+    return J
+
+
+def _segments(p: RodParams, n_segments) -> int:
+    """The segment count S, checked: it divides N-1."""
     S = int(n_segments)
     if S < 1 or (p.N - 1) % S:
         raise ValueError(f"n_segments={S} must divide N-1={p.N - 1}")
@@ -265,31 +351,54 @@ def ms_solve_step(p: RodParams, yh, zh, tf, X0, n_segments: int,
       solver: "structured" exploits the block-bidiagonal Jacobian (per
         segment 19 tangents + a 6x6 reduced solve); "dense" materializes
         the full (6+19(S-1))^2 Jacobian. The same converged roots.
-      mesh / seq_axis: the segment axis over a device mesh is not ported
-        (raises for a mesh).
+      mesh / seq_axis: a parallel.mesh.Mesh whose ``seq_axis`` the segment
+        sweeps split over (S must divide over it); the tangents and ends
+        are gathered and the rest runs replicated, so every rank returns
+        the whole solution. The dense solver then assembles its Jacobian
+        from the gathered tangents.
     Returns (y (N, 19), z_body (N-1, 6), X_solved, stats)."""
-    S = _segments(p, n_segments, mesh)
+    S = _segments(p, n_segments)
     m = (p.N - 1) // S
     if solver not in ("structured", "dense"):
         raise ValueError(f"unknown solver {solver!r}")
+    split = None if mesh is None else _Split(mesh, seq_axis, S)
     yh_segs = yh[:-1].reshape(S, m, 19)
     zh_segs = zh[:-1].reshape(S, m, 6)
 
     def res(X):
-        return _ms_residual(p, X, yh_segs, zh_segs, tf, S, nn_fn, nn_history)
+        return _ms_residual(p, X, yh_segs, zh_segs, tf, S, nn_fn, nn_history,
+                            split)
 
     with torch.no_grad():
         if solver == "structured":
             X, stats = _newton_loop(
                 res, lambda X, r, lam: _structured_direction(
-                    p, X, lam, yh_segs, zh_segs, tf, S, nn_fn, nn_history),
+                    p, X, lam, yh_segs, zh_segs, tf, S, nn_fn, nn_history,
+                    split),
                 X0, tol, max_iter)
-        else:
+        elif split is None:
             X, stats = _newton_dense(res, X0, tol, max_iter)
+        else:
+            eye = torch.eye(X0.shape[-1], dtype=X0.dtype, device=X0.device)
+
+            def dense_direction(X, r, lam):
+                _, _, starts = _starts(p, X, S)
+                A, _ = _tangents(p, starts, yh_segs, zh_segs, tf, nn_fn,
+                                 nn_history, split)
+                return _lm_damped_solve(_dense_from_tangents(A, S), r, lam,
+                                        eye)
+
+            X, stats = _newton_loop(res, dense_direction, X0, tol, max_iter)
         # the full rod state from the solved unknowns
         _, _, starts = _starts(p, X, S)
-        ys, zs, _ = _segment_sweeps(p, starts, yh_segs, zh_segs, tf, nn_fn,
-                                    nn_history)
+        if split is None:
+            ys, zs, _ = _segment_sweeps(p, starts, yh_segs, zh_segs, tf,
+                                        nn_fn, nn_history)
+        else:
+            lo, hi = split.lo, split.hi
+            ys, zs, _ = _segment_sweeps(p, starts[lo:hi], yh_segs[lo:hi],
+                                        zh_segs[lo:hi], tf, nn_fn, nn_history)
+            ys, zs = split.gather(ys, 0), split.gather(zs, 0)
     y = torch.cat([starts[:1], ys.reshape(p.N - 1, 19)], dim=0)
     return y, zs.reshape(p.N - 1, 6), X, stats
 
@@ -313,10 +422,11 @@ def simulate_scan_ms(
 
     Warm starts: G extrapolates across time (2G - G_prev) like the
     sequential path; the boundary-state unknowns start at the CURRENT
-    node states (the previous converged step)."""
+    node states (the previous converged step). mesh / seq_axis: see
+    :func:`ms_solve_step`."""
     if tol is None:
         tol = 1e-16 if p.dtype == torch.float64 else 1e-10
-    S = _segments(p, n_segments, mesh)
+    S = _segments(p, n_segments)
     m = (p.N - 1) // S
     controls = torch.as_tensor(controls, dtype=p.dtype, device=p.device)
     bidx = torch.arange(1, S, device=p.device) * m   # interior boundaries

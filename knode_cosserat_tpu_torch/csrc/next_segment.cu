@@ -65,15 +65,26 @@ __device__ __forceinline__ NetView<T, true> stage_net_async(const Mlp<T>& m,
   return NetView<T, true>{W1t, b1, W2, b2, H, m.act};
 }
 
-template <typename T, int NNIN, bool SMEM>
+template <typename T, int NNIN, int NETM>
 __global__ void __launch_bounds__(kMaxWarps * WARP)
-    next_segment_kernel(const RodConsts<T> rc, const Mlp<T> mlp, int B,
+    next_segment_kernel(const RodConsts<T> rc,
+                        const typename NetOf<T, NETM>::In nin, int B,
                         const T* __restrict__ y, const T* __restrict__ yh,
                         const T* __restrict__ zh, const T* __restrict__ tf,
                         T* __restrict__ y_grown, T* __restrict__ z_out) {
   extern __shared__ double smem_d[];
-  NetView<T, SMEM> net{mlp.W1, mlp.b1, mlp.W2, mlp.b2, mlp.hidden, mlp.act};
-  if constexpr (SMEM) net = stage_net_async<T, NNIN>(mlp, (T*)smem_d);
+  typename NetOf<T, NETM>::View net{};
+  T* buf = nullptr;
+  if constexpr (NETM == NET_DEEP) {
+    unsigned char* sm = reinterpret_cast<unsigned char*>(smem_d);
+    net = deep_view<T>(nin, sm, 0);
+    buf = deep_scratch<T>(nin, sm, threadIdx.x / WARP);
+  } else if constexpr (NETM == NET_SMEM) {
+    net = stage_net_async<T, NNIN>(nin, (T*)smem_d);
+  } else {
+    net = NetView<T, false>{nin.W1, nin.b1, nin.W2, nin.b2, nin.hidden,
+                            nin.act};
+  }
   const int C = blockDim.x / WARP;
   const bool writer = threadIdx.x % WARP == 0;
   for (int b = blockIdx.x * C + threadIdx.x / WARP; b < B;
@@ -83,8 +94,8 @@ __global__ void __launch_bounds__(kMaxWarps * WARP)
     for (int i = 0; i < 19; ++i) yl[i] = y[19 * (size_t)b + i];
 #pragma unroll
     for (int i = 0; i < 3; ++i) tfl[i] = tf[3 * (size_t)b + i];
-    rhs_node_coop<T, NNIN, SMEM>(rc, net, yl, yh + 19 * (size_t)b,
-                                 zh + 6 * (size_t)b, tfl, dy, z, nullptr);
+    rhs_node_coop<T, NNIN>(rc, net, yl, yh + 19 * (size_t)b,
+                           zh + 6 * (size_t)b, tfl, dy, z, nullptr, buf);
     if (writer) {
 #pragma unroll
       for (int i = 0; i < 19; ++i)
@@ -96,26 +107,30 @@ __global__ void __launch_bounds__(kMaxWarps * WARP)
 }
 
 template <typename T, int NNIN>
-int launch(const RodConstsHost* h, const Mlp<T>& mlp, int B, const void* y,
-           const void* yh, const void* zh, const void* tf, void* yg, void* z,
-           int threads, int blocks, int smem, int staged,
-           cudaStream_t stream) {
-  const size_t need = staged ? net_smem_bytes<T>(NNIN, mlp.hidden) : 0;
-  if (threads % WARP || threads > kMaxWarps * WARP || blocks <= 0 ||
-      (size_t)smem != need)
+int launch(const RodConstsHost* h, const Mlp<T>& mlp,
+           const NetTableHost* deep, int B, const void* y, const void* yh,
+           const void* zh, const void* tf, void* yg, void* z, int threads,
+           int blocks, int smem, int staged, cudaStream_t stream) {
+  if (threads % WARP || threads > kMaxWarps * WARP || blocks <= 0)
     return (int)cudaErrorInvalidValue;
+  if (deep) {             // a net of three layers or more
+    if ((size_t)smem != deep_smem_bytes<T>(*deep, threads / WARP) ||
+        staged != deep->staged)
+      return (int)cudaErrorInvalidValue;
+    auto kern = next_segment_kernel<T, NNIN, NET_DEEP>;
+    if (const int e = allow_smem(kern, smem)) return e;
+    kern<<<blocks, threads, smem, stream>>>(
+        cast_consts<T>(*h), *deep, B, (const T*)y, (const T*)yh,
+        (const T*)zh, (const T*)tf, (T*)yg, (T*)z);
+    return 0;
+  }
+  const size_t need = staged ? net_smem_bytes<T>(NNIN, mlp.hidden) : 0;
+  if ((size_t)smem != need) return (int)cudaErrorInvalidValue;
   void (*kern)(const RodConsts<T>, const Mlp<T>, int, const T*, const T*,
                const T*, const T*, T*, T*) =
-      staged ? next_segment_kernel<T, NNIN, true>
-             : next_segment_kernel<T, NNIN, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) {
-      cudaGetLastError();   // the error is returned, not left behind
-      return (int)e;
-    }
-  }
+      staged ? next_segment_kernel<T, NNIN, NET_SMEM>
+             : next_segment_kernel<T, NNIN, NET_GLOBAL>;
+  if (const int e = allow_smem(kern, smem)) return e;
   kern<<<blocks, threads, smem, stream>>>(
       cast_consts<T>(*h), mlp, B, (const T*)y, (const T*)yh, (const T*)zh,
       (const T*)tf, (T*)yg, (T*)z);
@@ -125,18 +140,19 @@ int launch(const RodConstsHost* h, const Mlp<T>& mlp, int B, const void* y,
 template <typename T>
 int launch_t(int nn_in, int act, int B, const RodConstsHost* h,
              const void* W1, const void* b1, const void* W2, const void* b2,
-             int hidden, const void* y, const void* yh, const void* zh,
-             const void* tf, void* yg, void* z, int threads, int blocks,
-             int smem, int staged, cudaStream_t stream) {
+             int hidden, const NetTableHost* deep, const void* y,
+             const void* yh, const void* zh, const void* tf, void* yg,
+             void* z, int threads, int blocks, int smem, int staged,
+             cudaStream_t stream) {
   const Mlp<T> mlp{(const T*)W1, (const T*)b1, (const T*)W2, (const T*)b2,
                    hidden, act};
   switch (nn_in) {
     case 28:
-      return launch<T, 28>(h, mlp, B, y, yh, zh, tf, yg, z, threads, blocks,
-                           smem, staged, stream);
+      return launch<T, 28>(h, mlp, deep, B, y, yh, zh, tf, yg, z, threads,
+                           blocks, smem, staged, stream);
     case 53:
-      return launch<T, 53>(h, mlp, B, y, yh, zh, tf, yg, z, threads, blocks,
-                           smem, staged, stream);
+      return launch<T, 53>(h, mlp, deep, B, y, yh, zh, tf, yg, z, threads,
+                           blocks, smem, staged, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -147,26 +163,30 @@ int launch_t(int nn_in, int act, int B, const RodConstsHost* h,
 // C entry point (bound with ctypes in ops/_build.py). Pointers are device
 // pointers of contiguous tensors of the working type: y, yh (B, 19),
 // zh (B, 6), tf (B, 3) -> yg (B, 19), z (B, 6); the net (28 or 53 inputs)
-// as in rhs_rows.cuh. threads, blocks, smem and staged come from
-// ops/next_segment.py::launch_plan and are checked against the kernel's
-// own shape. Returns the first CUDA error of the shared-memory attribute
-// or the launch, 0 on success.
+// as in rhs_rows.cuh: two layers as W1, b1, W2, b2 and hidden with `deep`
+// null, three or more as the layer table `deep` (a host pointer). threads,
+// blocks, smem and staged come from ops/next_segment.py::launch_plan and
+// are checked against the kernel's own shape. Returns the first CUDA
+// error of the shared-memory attribute or the launch, 0 on success.
 extern "C" int knode_next_segment(int is_f64, int nn_in, int act, int B,
                                   const RodConstsHost* consts, const void* W1,
                                   const void* b1, const void* W2,
-                                  const void* b2, int hidden, const void* y,
+                                  const void* b2, int hidden,
+                                  const NetTableHost* deep, const void* y,
                                   const void* yh, const void* zh,
                                   const void* tf, void* yg, void* z,
                                   int threads, int blocks, int smem,
                                   int staged, void* stream) {
-  if (B <= 0 || hidden <= 0 || !W1) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || (deep ? !deep_table_ok(*deep, nn_in)
+                      : (hidden <= 0 || !W1)))
+    return (int)cudaErrorInvalidValue;
   const int bad =
       is_f64 ? launch_t<double>(nn_in, act, B, consts, W1, b1, W2, b2, hidden,
-                                y, yh, zh, tf, yg, z, threads, blocks, smem,
-                                staged, (cudaStream_t)stream)
+                                deep, y, yh, zh, tf, yg, z, threads, blocks,
+                                smem, staged, (cudaStream_t)stream)
              : launch_t<float>(nn_in, act, B, consts, W1, b1, W2, b2, hidden,
-                               y, yh, zh, tf, yg, z, threads, blocks, smem,
-                               staged, (cudaStream_t)stream);
+                               deep, y, yh, zh, tf, yg, z, threads, blocks,
+                               smem, staged, (cudaStream_t)stream);
   if (bad) return bad;
   return (int)cudaGetLastError();
 }

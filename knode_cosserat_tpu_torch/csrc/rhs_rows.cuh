@@ -372,46 +372,13 @@ __device__ __forceinline__ NetView<T, SMEM> net_view(const Mlp<T>& m, T* s) {
   else return NetView<T, false>{m.W1, m.b1, m.W2, m.b2, m.hidden, m.act};
 }
 
-// out (25) = W2 act(W1 x + b1), over the calling warp or, with `red`,
-// the whole block: thread u of the group takes the units u, u+2S, ... and
-// u+S, u+3S, ... (S the group's size, two at a time for two independent
-// FMA chains) and sums its share of each output in unit order; a
-// butterfly of xor shuffles adds a warp's 32 partial sums; with `red` (a
-// shared scratch of (warps + 1) x 25) each warp's sums then go to shared
-// memory and are added warp by warp. The order is fixed by H and the
-// group's size alone, and every thread of the group ends with the same
-// bits. Units past H (a ragged last tile) are masked. Every thread of the
-// group must call it.
-template <typename T, int NNIN, bool SMEM>
-__device__ __forceinline__ void mlp_coop(const NetView<T, SMEM>& net,
-                                         const T* x, T* out, T* red) {
-  const int S = red ? (int)blockDim.x : WARP;
-  const int s = red ? (int)threadIdx.x : (int)(threadIdx.x & (WARP - 1));
-  const int H = net.H;
-  T acc[25];
-#pragma unroll
-  for (int j = 0; j < 25; ++j) acc[j] = T(0);
-  for (int k = s; k < H; k += 2 * S) {
-    const int k2 = k + S;
-    const bool two = k2 < H;
-    const int kb = two ? k2 : k;
-    T a = T(0), a2 = T(0);
-#pragma unroll
-    for (int i = 0; i < NNIN; ++i) {
-      a += w1_at<T, NNIN, SMEM>(net, k, i) * x[i];
-      a2 += w1_at<T, NNIN, SMEM>(net, kb, i) * x[i];
-    }
-    a = activate(a + ldw<SMEM>(net.b1 + k), net.act);
-#pragma unroll
-    for (int j = 0; j < 25; ++j)
-      acc[j] += ldw<SMEM>(net.W2 + (size_t)j * H + k) * a;
-    if (two) {
-      a2 = activate(a2 + ldw<SMEM>(net.b1 + k2), net.act);
-#pragma unroll
-      for (int j = 0; j < 25; ++j)
-        acc[j] += ldw<SMEM>(net.W2 + (size_t)j * H + k2) * a2;
-    }
-  }
+// out (25) = the group's 25 partial sums added up: a butterfly of xor
+// shuffles adds a warp's 32; with `red` (a shared scratch of (warps + 1) x
+// 25) each warp's sums then go to shared memory and are added warp by
+// warp. The order is fixed by the group's size alone, and every thread of
+// the group ends with the same bits.
+template <typename T>
+__device__ __forceinline__ void group_sum25(T* acc, T* out, T* red) {
 #pragma unroll
   for (int m = WARP / 2; m > 0; m >>= 1) {
 #pragma unroll
@@ -439,23 +406,358 @@ __device__ __forceinline__ void mlp_coop(const NetView<T, SMEM>& net,
   for (int j = 0; j < 25; ++j) out[j] = acc[j];
 }
 
+// out (25) = W2 act(W1 x + b1), over the calling warp or, with `red`,
+// the whole block: thread u of the group takes the units u, u+2S, ... and
+// u+S, u+3S, ... (S the group's size, two at a time for two independent
+// FMA chains) and sums its share of each output in unit order, then
+// group_sum25 adds the shares. The order is fixed by H and the group's
+// size alone. Units past H (a ragged last tile) are masked. Every thread
+// of the group must call it.
+template <typename T, int NNIN, bool SMEM>
+__device__ __forceinline__ void mlp_coop(const NetView<T, SMEM>& net,
+                                         const T* x, T* out, T* red,
+                                         T* /*buf: deep nets only*/) {
+  const int S = red ? (int)blockDim.x : WARP;
+  const int s = red ? (int)threadIdx.x : (int)(threadIdx.x & (WARP - 1));
+  const int H = net.H;
+  T acc[25];
+#pragma unroll
+  for (int j = 0; j < 25; ++j) acc[j] = T(0);
+  for (int k = s; k < H; k += 2 * S) {
+    const int k2 = k + S;
+    const bool two = k2 < H;
+    const int kb = two ? k2 : k;
+    T a = T(0), a2 = T(0);
+#pragma unroll
+    for (int i = 0; i < NNIN; ++i) {
+      a += w1_at<T, NNIN, SMEM>(net, k, i) * x[i];
+      a2 += w1_at<T, NNIN, SMEM>(net, kb, i) * x[i];
+    }
+    a = activate(a + ldw<SMEM>(net.b1 + k), net.act);
+#pragma unroll
+    for (int j = 0; j < 25; ++j)
+      acc[j] += ldw<SMEM>(net.W2 + (size_t)j * H + k) * a;
+    if (two) {
+      a2 = activate(a2 + ldw<SMEM>(net.b1 + k2), net.act);
+#pragma unroll
+      for (int j = 0; j < 25; ++j)
+        acc[j] += ldw<SMEM>(net.W2 + (size_t)j * H + k2) * a2;
+    }
+  }
+  group_sum25(acc, out, red);
+}
+
+// ------------------------------------------------- nets of any depth
+// The JAX kernels take a KNODE net of any depth (ops/pallas_sweep.py's
+// dims loop); this is K1's form for three layers or more. The two-layer
+// net keeps NetView and mlp_coop above, unchanged.
+//
+// The host passes the net as a layer table (NetTableHost, mirrored by
+// ops/_build.py): layer l maps dims[l] inputs to dims[l+1] outputs, W[l]
+// (dims[l+1], dims[l]) and b[l] in nn.Linear's layout. At the start of a
+// block, deep_view writes the table the lanes read (DeepLayer, one per
+// layer, at the head of the dynamic shared memory) and, when the whole net
+// fits beside the scratch (`staged`, decided by the launch plans), copies
+// the net into shared memory: each hidden layer transposed to (din,
+// dout+1), so a warp's threads read neighbouring words, the output layer
+// as it is. Otherwise every layer is read in place from global memory: a
+// 512 x 512 middle layer is 1 MiB in float32 and no block can stage it.
+//
+// mlp_coop over a DeepView: layer 0 reads the lane's inputs from
+// registers, thread s of the group (a warp, or the block with `red`)
+// computing the units s, s+S, ... Every later layer reads the previous
+// row from the lane's scratch `buf` (two rows of maxw, the widest hidden
+// layer: one read, one written) in blocks of 32 units per warp
+// (layer_blocks): lane s multiplies inputs s, s+32, ... into 32 partial
+// sums, one per unit of the block, so the warp reads each weight row as
+// consecutive words (coalesced from global memory, conflict-free from the
+// staged transpose), and a transposing butterfly (31 shuffles) leaves the
+// sum of unit k0+s on lane s. A __syncwarp (a __syncthreads over the
+// block) separates the layers, since each unit of the next layer needs the
+// whole previous row. The last hidden layer's units are not stored: each
+// thread adds its unit into its 25 partial outputs at once, and
+// group_sum25 adds the shares, as the two-layer form does. The order of
+// every sum is fixed by the widths and the group's size, so a lane's bits
+// do not depend on the batch.
+constexpr int MAX_LAYERS = 8;
+
+struct NetTableHost {
+  const void* W[MAX_LAYERS];
+  const void* b[MAX_LAYERS];
+  int dims[MAX_LAYERS + 1];
+  int n_layers, act, staged, maxw;
+};
+
+// One layer as the lanes read it: the weight of output o, input i at
+// W[o * so + i * si] (generic pointers: shared or global memory).
+struct DeepLayer {
+  const void* W;
+  const void* b;
+  int so, si, din, dout;
+};
+static_assert(sizeof(DeepLayer) == 32, "ops/sweep.py::DEEP_TABLE_BYTES");
+constexpr int DEEP_TABLE_BYTES = MAX_LAYERS * (int)sizeof(DeepLayer);
+
+template <typename T>
+struct DeepView {
+  const DeepLayer* lay;
+  int n, act, maxw;
+};
+
+// Elements of layers [0, upto) in the staged layout: a hidden layer
+// din x (dout + 1) + dout, the output layer dout x din + dout.
+__host__ __device__ inline size_t deep_net_elems(const int* dims, int L,
+                                                 int upto) {
+  size_t e = 0;
+  for (int l = 0; l < upto; ++l) {
+    const size_t din = dims[l], dout = dims[l + 1];
+    e += (l < L - 1 ? din * (dout + 1) : dout * din) + dout;
+  }
+  return e;
+}
+
+// Bytes of the staged net, rounded up to 8 (ops/sweep.py::deep_net_bytes).
+template <typename T>
+__host__ __device__ inline size_t deep_net_bytes(const int* dims, int L) {
+  return (deep_net_elems(dims, L, L) * sizeof(T) + 7) & ~(size_t)7;
+}
+
+// The dynamic shared memory a deep net takes ahead of anything else the
+// kernel keeps there: the layer table, the staged net (if staged) and
+// `groups` lanes' activation scratch of 2 x maxw.
+template <typename T>
+__host__ __device__ inline size_t deep_smem_bytes(const NetTableHost& t,
+                                                  int groups) {
+  return DEEP_TABLE_BYTES +
+         (t.staged ? deep_net_bytes<T>(t.dims, t.n_layers) : 0) +
+         (size_t)groups * 2 * t.maxw * sizeof(T);
+}
+
+// The host's checks of a table: 3..MAX_LAYERS layers, nn_in inputs, 25
+// outputs, every pointer set, and maxw the widest hidden layer a lane
+// keeps (layers 0 .. L-3 write the scratch).
+inline bool deep_table_ok(const NetTableHost& t, int nn_in) {
+  const int L = t.n_layers;
+  if (L < 3 || L > MAX_LAYERS || t.dims[0] != nn_in || t.dims[L] != 25)
+    return false;
+  int w = 0;
+  for (int l = 0; l < L; ++l) {
+    if (!t.W[l] || !t.b[l] || t.dims[l + 1] <= 0) return false;
+    if (l < L - 2 && t.dims[l + 1] > w) w = t.dims[l + 1];
+  }
+  return t.maxw == w;
+}
+
+// The block's view of its net (every thread of the block must call it):
+// the layer table written, the net staged when t.staged, a barrier. `net`
+// picks one net of a stack of nets (K2's one net per rod): each layer's
+// pointers move on by `net` times that layer's size.
+template <typename T>
+__device__ __forceinline__ DeepView<T> deep_view(const NetTableHost& t,
+                                                 unsigned char* smem,
+                                                 size_t net) {
+  DeepLayer* lay = reinterpret_cast<DeepLayer*>(smem);
+  T* staged = reinterpret_cast<T*>(smem + DEEP_TABLE_BYTES);
+  const int L = t.n_layers;
+  for (int l = 0; l < L; ++l) {
+    const int din = t.dims[l], dout = t.dims[l + 1];
+    const bool last = l == L - 1;
+    const T* W = static_cast<const T*>(t.W[l]) + net * din * dout;
+    const T* b = static_cast<const T*>(t.b[l]) + net * dout;
+    if (!t.staged) {
+      if (threadIdx.x == 0) lay[l] = DeepLayer{W, b, din, 1, din, dout};
+      continue;
+    }
+    T* Ws = staged + deep_net_elems(t.dims, L, l);
+    T* bs = Ws + (size_t)din * (last ? dout : dout + 1);
+    if (last) {
+      for (int e = threadIdx.x; e < din * dout; e += blockDim.x)
+        Ws[e] = W[e];
+    } else {
+      for (int e = threadIdx.x; e < din * dout; e += blockDim.x) {
+        const int k = e / din, i = e - k * din;
+        Ws[(size_t)i * (dout + 1) + k] = W[e];
+      }
+    }
+    for (int e = threadIdx.x; e < dout; e += blockDim.x) bs[e] = b[e];
+    if (threadIdx.x == 0)
+      lay[l] = last ? DeepLayer{Ws, bs, din, 1, din, dout}
+                    : DeepLayer{Ws, bs, 1, dout + 1, din, dout};
+  }
+  __syncthreads();
+  return DeepView<T>{lay, L, t.act, t.maxw};
+}
+
+// The lane's activation scratch of group g (after the table and the net).
+template <typename T>
+__device__ __forceinline__ T* deep_scratch(const NetTableHost& t,
+                                           unsigned char* smem, int g) {
+  T* s = reinterpret_cast<T*>(
+      smem + DEEP_TABLE_BYTES +
+      (t.staged ? deep_net_bytes<T>(t.dims, t.n_layers) : 0));
+  return s + (size_t)g * 2 * t.maxw;
+}
+
+__device__ __forceinline__ void group_sync(const void* red) {
+  if (red) __syncthreads();
+  else __syncwarp();
+}
+
+// On return, lane s of the warp holds in acc[0] the sum over the warp's
+// lanes of their acc[s]: recursive halving, each step keeping half of the
+// vector and adding the partner lane's other half (16 + 8 + 4 + 2 + 1
+// shuffles).
+template <typename T>
+__device__ __forceinline__ T warp_transpose_sum32(T* acc) {
+  const int lane = threadIdx.x & (WARP - 1);
+#pragma unroll
+  for (int m = WARP / 2; m > 0; m >>= 1) {
+    const bool upper = lane & m;
+#pragma unroll
+    for (int j = 0; j < m; ++j) {
+      const T send = upper ? acc[j] : acc[j + m];
+      const T keep = upper ? acc[j + m] : acc[j];
+      acc[j] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+    }
+  }
+  return acc[0];
+}
+
+// The dot products of a layer over `cur` (its din inputs, shared memory),
+// warp w of the group's nw warps taking the blocks of 32 units w, w+nw,
+// ...: f(k, v) on lane s for the unit k = k0 + s < dout of each block, v
+// its dot product. Every lane of the warp must call it. Indices past din
+// or dout read an in-bounds weight (times a zero input, or into a sum
+// that no lane keeps).
+template <typename T, typename F>
+__device__ __forceinline__ void layer_blocks(const DeepLayer& ly,
+                                             const T* cur, int nw, int w,
+                                             F&& f) {
+  const int s = threadIdx.x & (WARP - 1);
+  const T* W = static_cast<const T*>(ly.W);
+  for (int k0 = WARP * w; k0 < ly.dout; k0 += WARP * nw) {
+    T acc[WARP];
+#pragma unroll
+    for (int u = 0; u < WARP; ++u) acc[u] = T(0);
+    for (int i0 = 0; i0 < ly.din; i0 += WARP) {
+      const int i = i0 + s;
+      const T h = i < ly.din ? cur[i] : T(0);
+      const T* wi = W + (size_t)min(i, ly.din - 1) * ly.si;
+#pragma unroll
+      for (int u = 0; u < WARP; ++u)
+        acc[u] += wi[(size_t)min(k0 + u, ly.dout - 1) * ly.so] * h;
+    }
+    const T v = warp_transpose_sum32(acc);
+    if (k0 + s < ly.dout) f(k0 + s, v);
+  }
+}
+
+template <typename T, int NNIN>
+__device__ __forceinline__ void mlp_coop(const DeepView<T>& net, const T* x,
+                                         T* out, T* red, T* buf) {
+  const int S = red ? (int)blockDim.x : WARP;
+  const int s = red ? (int)threadIdx.x : (int)(threadIdx.x & (WARP - 1));
+  const int nw = S / WARP, w = s / WARP;
+  const int L = net.n;
+  T* cur = buf;
+  T* nxt = buf + net.maxw;
+  group_sync(red);             // the group's reads of the last call are done
+  {
+    const DeepLayer& ly = net.lay[0];
+    const T* W = static_cast<const T*>(ly.W);
+    const T* b = static_cast<const T*>(ly.b);
+    for (int k = s; k < ly.dout; k += S) {
+      T a = T(0);
+#pragma unroll
+      for (int i = 0; i < NNIN; ++i)
+        a += W[(size_t)k * ly.so + (size_t)i * ly.si] * x[i];
+      cur[k] = activate(a + b[k], net.act);
+    }
+  }
+  group_sync(red);
+  for (int l = 1; l < L - 2; ++l) {
+    const T* b = static_cast<const T*>(net.lay[l].b);
+    layer_blocks(net.lay[l], cur, nw, w, [&](int k, T v) {
+      nxt[k] = activate(v + b[k], net.act);
+    });
+    group_sync(red);
+    T* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  const DeepLayer& lo = net.lay[L - 1];
+  const T* bh = static_cast<const T*>(net.lay[L - 2].b);
+  const T* Wo = static_cast<const T*>(lo.W);
+  T acc[25];
+#pragma unroll
+  for (int j = 0; j < 25; ++j) acc[j] = T(0);
+  layer_blocks(net.lay[L - 2], cur, nw, w, [&](int k, T v) {
+    const T a = activate(v + bh[k], net.act);
+#pragma unroll
+    for (int j = 0; j < 25; ++j)
+      acc[j] += Wo[(size_t)j * lo.so + (size_t)k * lo.si] * a;
+  });
+  group_sum25(acc, out, red);
+}
+
+// How a kernel holds its net: the two-layer NetView in place
+// (NET_GLOBAL) or staged (NET_SMEM), or a net of any depth (NET_DEEP).
+// In: the kernel's argument; View: what the lanes read.
+enum NetMode { NET_GLOBAL = 0, NET_SMEM = 1, NET_DEEP = 2 };
+
+template <typename T, int NETM>
+struct NetOf {
+  using In = Mlp<T>;
+  using View = NetView<T, NETM == NET_SMEM>;
+};
+template <typename T>
+struct NetOf<T, NET_DEEP> {
+  using In = NetTableHost;
+  using View = DeepView<T>;
+};
+
+// Sets a kernel's dynamic shared memory limit where it needs more than
+// the default 48 KB; returns the CUDA error (cleared), 0 on success.
+template <typename Kern>
+inline int allow_smem(Kern kern, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // the error is returned, not left behind
+    return (int)e;
+  }
+  return 0;
+}
+
+// The last layer's bias b[i] (the 25 outputs).
+template <typename T, bool SMEM>
+__device__ __forceinline__ T out_bias(const NetView<T, SMEM>& net, int i) {
+  return ldw<SMEM>(net.b2 + i);
+}
+template <typename T>
+__device__ __forceinline__ T out_bias(const DeepView<T>& net, int i) {
+  return static_cast<const T*>(net.lay[net.n - 1].b)[i];
+}
+
 // rhs_node's function, evaluated by a warp (red null) or by the whole
 // block (red: mlp_coop's scratch) for one lane: every thread passes the
-// same y, yh, zh, tf and gets the same dy, z.
-template <typename T, int NNIN, bool SMEM>
+// same y, yh, zh, tf and gets the same dy, z. Net: a two-layer NetView, or
+// a DeepView with `buf` the lane's activation scratch (2 x maxw).
+template <typename T, int NNIN, typename Net>
 __device__ __forceinline__ void rhs_node_coop(const RodConsts<T>& rc,
-                                              const NetView<T, SMEM>& net,
-                                              const T* y, const T* yh,
-                                              const T* zh, const T* tf, T* dy,
-                                              T* z, T* red) {
+                                              const Net& net, const T* y,
+                                              const T* yh, const T* zh,
+                                              const T* tf, T* dy, T* z,
+                                              T* red, T* buf) {
   rhs_node<T, 0>(rc, Mlp<T>{}, y, yh, zh, tf, dy, z);
   T x[NNIN], out[25];
   net_inputs<T, NNIN>(y, yh, z, zh, tf, x);
-  mlp_coop<T, NNIN, SMEM>(net, x, out, red);
+  mlp_coop<T, NNIN>(net, x, out, red, buf);
 #pragma unroll
-  for (int i = 0; i < 19; ++i) dy[i] += out[i] + ldw<SMEM>(net.b2 + i);
+  for (int i = 0; i < 19; ++i) dy[i] += out[i] + out_bias(net, i);
 #pragma unroll
-  for (int i = 0; i < 6; ++i) z[i] += out[19 + i] + ldw<SMEM>(net.b2 + 19 + i);
+  for (int i = 0; i < 6; ++i) z[i] += out[19 + i] + out_bias(net, 19 + i);
 }
 
 // One spatial step at node j with the right-hand side rhs(y, yh, zh, tf,
@@ -544,15 +846,15 @@ __device__ __forceinline__ void tip_residual(const RodConsts<T>& rc,
 // r and, where yo is not null, the rod, y (N, 19) to yo and z (N-1, 6) to
 // zo, written by the thread with `writer` set. NNIN > 0: the calling
 // warp's 32 threads (red null) or the whole block (red: mlp_coop's
-// scratch) run it together (rhs_node_coop), each with the same arguments;
-// NNIN == 0: one thread (rhs_node).
-template <typename T, int NNIN, bool RK4, bool SMEM>
+// scratch) run it together (rhs_node_coop), each with the same arguments,
+// `buf` the lane's activation scratch when Net is a DeepView (else
+// unused); NNIN == 0: one thread (rhs_node).
+template <typename T, int NNIN, bool RK4, typename Net>
 __device__ __forceinline__ void sweep_lane(const RodConsts<T>& rc,
-                                           const NetView<T, SMEM>& net,
-                                           int N, const T* G, const T* yhb,
-                                           const T* zhb, const T* tf, T* r,
-                                           T* yo, T* zo, bool writer,
-                                           T* red) {
+                                           const Net& net, int N, const T* G,
+                                           const T* yhb, const T* zhb,
+                                           const T* tf, T* r, T* yo, T* zo,
+                                           bool writer, T* red, T* buf) {
   T y[19], z[6];
   base_node(rc, G, y);
   if (yo && writer) {
@@ -567,8 +869,8 @@ __device__ __forceinline__ void sweep_lane(const RodConsts<T>& rc,
           rc.ds,
           [&](const T* a, const T* ah, const T* azh, const T* atf, T* dy,
               T* az) {
-            rhs_node_coop<T, NNIN, SMEM>(rc, net, a, ah, azh, atf, dy, az,
-                                         red);
+            rhs_node_coop<T, NNIN>(rc, net, a, ah, azh, atf, dy, az, red,
+                                   buf);
           },
           y, yh_j, zh_j, tf, z);
     } else {

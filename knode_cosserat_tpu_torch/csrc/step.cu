@@ -230,21 +230,26 @@ constexpr int step_threads() {
 // Thread t: rod (t / (STEP_LANES * GS)) of the block, lane (t / GS) %
 // STEP_LANES, GS threads per lane. The lane's first thread writes its
 // results; lane 0's first thread is the rod's leader.
-template <typename T, int NNIN, bool RK4, bool SMEM>
+template <typename T, int NNIN, bool RK4, int NETM>
 __global__ void __launch_bounds__(step_threads<NNIN>())
-    step_kernel(const RodConsts<T> rc, const Mlp<T> mlp_arg,
-                const NewtonArgs na, int B, int N, int per_rod,
-                size_t w_bytes, const T* __restrict__ G_in,
-                const T* __restrict__ yh, const T* __restrict__ zh,
-                const T* __restrict__ tf, T* __restrict__ G_out,
-                T* __restrict__ y_out, T* __restrict__ z_out,
-                T* __restrict__ r2_out, int* __restrict__ iters) {
+    step_kernel(const RodConsts<T> rc,
+                const typename NetOf<T, NETM>::In nin, const NewtonArgs na,
+                int B, int N, int per_rod, size_t w_bytes,
+                const T* __restrict__ G_in, const T* __restrict__ yh,
+                const T* __restrict__ zh, const T* __restrict__ tf,
+                T* __restrict__ G_out, T* __restrict__ y_out,
+                T* __restrict__ z_out, T* __restrict__ r2_out,
+                int* __restrict__ iters) {
   constexpr int GS = NNIN ? WARP : 1;
   constexpr int RPB = NNIN ? 1 : STEP_PHYS_RODS;
   extern __shared__ double smem_d[];
-  NetView<T, SMEM> net{};
-  if constexpr (NNIN > 0) {
-    Mlp<T> m = mlp_arg;
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem_d);
+  typename NetOf<T, NETM>::View net{};
+  if constexpr (NNIN > 0 && NETM == NET_DEEP) {
+    // block b runs net b of the stack
+    net = deep_view<T>(nin, sm, per_rod ? blockIdx.x : 0);
+  } else if constexpr (NNIN > 0) {
+    Mlp<T> m = nin;
     if (per_rod) {           // block b runs net b of the stack
       const size_t h = (size_t)m.hidden, b = blockIdx.x;
       m.W1 += b * h * NNIN;
@@ -252,13 +257,20 @@ __global__ void __launch_bounds__(step_threads<NNIN>())
       m.W2 += b * h * 25;
       m.b2 += b * 25;
     }
-    net = net_view<T, NNIN, SMEM>(m, (T*)smem_d);
+    net = net_view<T, NNIN, NETM == NET_SMEM>(m, (T*)smem_d);
   }
-  RodState<T>* states =
-      reinterpret_cast<RodState<T>*>((unsigned char*)smem_d + w_bytes);
+  RodState<T>* states = reinterpret_cast<RodState<T>*>(sm + w_bytes);
 
   const int t = threadIdx.x;
   const int lane = (t / GS) % STEP_LANES;
+  // a deep net's activation scratch: the lane's own, and lane 0's for a
+  // phase the whole block runs
+  T* buf = nullptr;
+  T* buf_wide = nullptr;
+  if constexpr (NETM == NET_DEEP) {
+    buf = deep_scratch<T>(nin, sm, lane);
+    buf_wide = deep_scratch<T>(nin, sm, 0);
+  }
   const bool writer = t % GS == 0;
   const bool leader = writer && lane == 0;
   const int b = blockIdx.x * RPB + t / (STEP_LANES * GS);
@@ -313,11 +325,11 @@ __global__ void __launch_bounds__(step_threads<NNIN>())
       if (go) {
         const bool rec = ph == PH_RECORD;
         T r[6];
-        sweep_lane<T, NNIN, RK4, SMEM>(
+        sweep_lane<T, NNIN, RK4>(
             rc, net, N, Gc, yhb, zhb, tfb, r,
             rec ? y_out + bb * N * 19 : nullptr,
             rec ? z_out + bb * (N - 1) * 6 : nullptr, put,
-            wide ? &S.red[0][0] : nullptr);
+            wide ? &S.red[0][0] : nullptr, wide ? buf_wide : buf);
         if (put) {
 #pragma unroll
           for (int i = 0; i < 6; ++i) {
@@ -337,30 +349,40 @@ __global__ void __launch_bounds__(step_threads<NNIN>())
 
 template <typename T, int NNIN, bool RK4>
 static int launch(const RodConstsHost* h, const NewtonArgs& na,
-                  const Mlp<T>& mlp, int per_rod, int B, int N, const void* G,
-                  const void* yh, const void* zh, const void* tf,
-                  void* G_out, void* y, void* z, void* r2, void* iters,
-                  int threads, int smem, int staged, cudaStream_t stream) {
+                  const Mlp<T>& mlp, const NetTableHost* deep, int per_rod,
+                  int B, int N, const void* G, const void* yh, const void* zh,
+                  const void* tf, void* G_out, void* y, void* z, void* r2,
+                  void* iters, int threads, int smem, int staged,
+                  cudaStream_t stream) {
   constexpr int RPB = NNIN ? 1 : STEP_PHYS_RODS;
+  if (threads != step_threads<NNIN>() || (staged && !NNIN))
+    return (int)cudaErrorInvalidValue;
+  const int grid = (B + RPB - 1) / RPB;
+  if constexpr (NNIN > 0) {
+    if (deep) {           // a net of three layers or more
+      const size_t w_bytes = deep_smem_bytes<T>(*deep, STEP_LANES);
+      if ((size_t)smem != w_bytes + sizeof(RodState<T>) ||
+          staged != deep->staged)
+        return (int)cudaErrorInvalidValue;
+      auto kern = step_kernel<T, NNIN, RK4, NET_DEEP>;
+      if (const int e = allow_smem(kern, smem)) return e;
+      kern<<<grid, threads, smem, stream>>>(
+          cast_consts<T>(*h), *deep, na, B, N, per_rod, w_bytes,
+          (const T*)G, (const T*)yh, (const T*)zh, (const T*)tf, (T*)G_out,
+          (T*)y, (T*)z, (T*)r2, (int*)iters);
+      return 0;
+    }
+  }
   const size_t w_bytes = staged ? net_smem_bytes<T>(NNIN, mlp.hidden) : 0;
-  if (threads != step_threads<NNIN>() || (staged && !NNIN) ||
-      (size_t)smem != w_bytes + RPB * sizeof(RodState<T>))
+  if ((size_t)smem != w_bytes + RPB * sizeof(RodState<T>))
     return (int)cudaErrorInvalidValue;
   void (*kern)(const RodConsts<T>, const Mlp<T>, const NewtonArgs, int, int,
                int, size_t, const T*, const T*, const T*, const T*, T*, T*,
-               T*, T*, int*) = step_kernel<T, NNIN, RK4, false>;
+               T*, T*, int*) = step_kernel<T, NNIN, RK4, NET_GLOBAL>;
   if constexpr (NNIN > 0) {
-    if (staged) kern = step_kernel<T, NNIN, RK4, true>;
+    if (staged) kern = step_kernel<T, NNIN, RK4, NET_SMEM>;
   }
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) {
-      cudaGetLastError();   // the error is returned, not left behind
-      return (int)e;
-    }
-  }
-  const int grid = (B + RPB - 1) / RPB;
+  if (const int e = allow_smem(kern, smem)) return e;
   kern<<<grid, threads, smem, stream>>>(
       cast_consts<T>(*h), mlp, na, B, N, per_rod, w_bytes, (const T*)G,
       (const T*)yh, (const T*)zh, (const T*)tf, (T*)G_out, (T*)y, (T*)z,
@@ -370,16 +392,16 @@ static int launch(const RodConstsHost* h, const NewtonArgs& na,
 
 template <typename T, int NNIN>
 static int launch_m(int rk4, const RodConstsHost* h, const NewtonArgs& na,
-                    const Mlp<T>& mlp, int per_rod, int B, int N,
-                    const void* G, const void* yh, const void* zh,
-                    const void* tf, void* G_out, void* y, void* z, void* r2,
-                    void* iters, int threads, int smem, int staged,
-                    cudaStream_t stream) {
-  return rk4 ? launch<T, NNIN, true>(h, na, mlp, per_rod, B, N, G, yh, zh,
-                                     tf, G_out, y, z, r2, iters, threads,
+                    const Mlp<T>& mlp, const NetTableHost* deep, int per_rod,
+                    int B, int N, const void* G, const void* yh,
+                    const void* zh, const void* tf, void* G_out, void* y,
+                    void* z, void* r2, void* iters, int threads, int smem,
+                    int staged, cudaStream_t stream) {
+  return rk4 ? launch<T, NNIN, true>(h, na, mlp, deep, per_rod, B, N, G, yh,
+                                     zh, tf, G_out, y, z, r2, iters, threads,
                                      smem, staged, stream)
-             : launch<T, NNIN, false>(h, na, mlp, per_rod, B, N, G, yh, zh,
-                                      tf, G_out, y, z, r2, iters, threads,
+             : launch<T, NNIN, false>(h, na, mlp, deep, per_rod, B, N, G, yh,
+                                      zh, tf, G_out, y, z, r2, iters, threads,
                                       smem, staged, stream);
 }
 
@@ -387,32 +409,37 @@ template <typename T>
 static int launch_t(int nn_in, int rk4, const RodConstsHost* h,
                     const NewtonArgs& na, const void* W1, const void* b1,
                     const void* W2, const void* b2, int hidden, int act,
-                    int per_rod, int B, int N, const void* G, const void* yh,
-                    const void* zh, const void* tf, void* G_out, void* y,
-                    void* z, void* r2, void* iters, int threads, int smem,
-                    int staged, cudaStream_t stream) {
+                    const NetTableHost* deep, int per_rod, int B, int N,
+                    const void* G, const void* yh, const void* zh,
+                    const void* tf, void* G_out, void* y, void* z, void* r2,
+                    void* iters, int threads, int smem, int staged,
+                    cudaStream_t stream) {
   const Mlp<T> mlp{(const T*)W1, (const T*)b1, (const T*)W2, (const T*)b2,
                    hidden, act};
   switch (nn_in) {
     case 0:
-      return launch_m<T, 0>(rk4, h, na, mlp, 0, B, N, G, yh, zh, tf, G_out,
-                            y, z, r2, iters, threads, smem, staged, stream);
+      return launch_m<T, 0>(rk4, h, na, mlp, nullptr, 0, B, N, G, yh, zh, tf,
+                            G_out, y, z, r2, iters, threads, smem, staged,
+                            stream);
     case 28:
-      return launch_m<T, 28>(rk4, h, na, mlp, per_rod, B, N, G, yh, zh, tf,
-                             G_out, y, z, r2, iters, threads, smem, staged,
-                             stream);
+      return launch_m<T, 28>(rk4, h, na, mlp, deep, per_rod, B, N, G, yh, zh,
+                             tf, G_out, y, z, r2, iters, threads, smem,
+                             staged, stream);
     case 53:
-      return launch_m<T, 53>(rk4, h, na, mlp, per_rod, B, N, G, yh, zh, tf,
-                             G_out, y, z, r2, iters, threads, smem, staged,
-                             stream);
+      return launch_m<T, 53>(rk4, h, na, mlp, deep, per_rod, B, N, G, yh, zh,
+                             tf, G_out, y, z, r2, iters, threads, smem,
+                             staged, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // C entry point (bound with ctypes in ops/_build.py). Pointers are device
-// pointers of contiguous tensors. threads, smem and staged come from
-// ops/step.py::launch_plan and are checked against the kernel's own shape. Returns the first CUDA error of the shared-memory attribute
+// pointers of contiguous tensors. A two-layer net comes as W1, b1, W2, b2
+// and hidden with `deep` null; a net of three layers or more as the layer
+// table `deep` (a host pointer; W1 .. b2 unused). threads, smem and staged
+// come from ops/step.py::launch_plan and are checked against the kernel's
+// own shape. Returns the first CUDA error of the shared-memory attribute
 // or the launch, 0 on success.
 extern "C" int knode_step(int is_f64, int nn_in, int act, int rk4, int B,
                           int N, const RodConstsHost* consts, double tol,
@@ -421,22 +448,24 @@ extern "C" int knode_step(int is_f64, int nn_in, int act, int rk4, int B,
                           int max_escalations, const void* G, const void* yh,
                           const void* zh, const void* tf, const void* W1,
                           const void* b1, const void* W2, const void* b2,
-                          int hidden, int nn_per_rod, void* G_out, void* y,
-                          void* z, void* r2, void* iters, int threads,
-                          int smem, int staged, void* stream) {
-  if (B <= 0 || N < 2 || (nn_in && (!W1 || hidden <= 0)) || n_alphas > 62 ||
+                          int hidden, const NetTableHost* deep,
+                          int nn_per_rod, void* G_out, void* y, void* z,
+                          void* r2, void* iters, int threads, int smem,
+                          int staged, void* stream) {
+  if (B <= 0 || N < 2 || (nn_in && !deep && (!W1 || hidden <= 0)) ||
+      (deep && !deep_table_ok(*deep, nn_in)) || n_alphas > 62 ||
       (nn_per_rod && !nn_in))
     return (int)cudaErrorInvalidValue;
   const NewtonArgs na{tol, eps0, lm_lambda0, lm_growth, max_iter, n_alphas,
                       max_escalations};
   const int bad =
       is_f64 ? launch_t<double>(nn_in, rk4, consts, na, W1, b1, W2, b2,
-                                hidden, act, nn_per_rod, B, N, G, yh, zh, tf,
-                                G_out, y, z, r2, iters, threads, smem, staged,
-                                (cudaStream_t)stream)
+                                hidden, act, deep, nn_per_rod, B, N, G, yh,
+                                zh, tf, G_out, y, z, r2, iters, threads, smem,
+                                staged, (cudaStream_t)stream)
              : launch_t<float>(nn_in, rk4, consts, na, W1, b1, W2, b2, hidden,
-                               act, nn_per_rod, B, N, G, yh, zh, tf, G_out, y,
-                               z, r2, iters, threads, smem, staged,
+                               act, deep, nn_per_rod, B, N, G, yh, zh, tf,
+                               G_out, y, z, r2, iters, threads, smem, staged,
                                (cudaStream_t)stream);
   if (bad) return bad;
   return (int)cudaGetLastError();

@@ -22,6 +22,7 @@ from ..device import default_device
 __all__ = ["MLPSpec", "KnodeMLP", "StackedMLP", "init_mlp", "mlp_apply",
            "mlp_forward",
            "clamp_nonnegative", "count_params", "bind", "params_from_jax",
+           "spec_from_params",
            "stacked_params_from_jax", "ACTIVATIONS"]
 
 
@@ -164,12 +165,25 @@ def count_params(params: KnodeMLP) -> int:
     return sum(int(t.numel()) for t in params.parameters())
 
 
-def params_from_jax(params, spec: MLPSpec, dtype=None, device=None) -> KnodeMLP:
+def spec_from_params(params, activation: str = "elu") -> MLPSpec:
+    """The MLPSpec of the JAX package's params (a tuple of {"w" (dout, din),
+    "b"} per layer, any depth): the widths from the weights' shapes, the
+    history form when the net takes 53 inputs."""
+    dims = [int(np.shape(params[0]["w"])[1])]
+    dims += [int(np.shape(layer["w"])[0]) for layer in params]
+    return MLPSpec(dims=tuple(dims), activation=activation,
+                   history=dims[0] == 53)
+
+
+def params_from_jax(params, spec: MLPSpec | None = None, dtype=None,
+                    device=None) -> KnodeMLP:
     """The JAX package's params (a tuple of {"w" (dout, din), "b" (dout,)}
-    arrays) -> a KnodeMLP computing the same function. ``dtype`` defaults
-    to the arrays' dtype."""
+    arrays, any depth) -> a KnodeMLP computing the same function.
+    ``spec`` defaults to :func:`spec_from_params` (ELU); ``dtype`` to the
+    arrays' dtype."""
     ws = [torch.from_numpy(np.array(layer["w"])) for layer in params]
     bs = [torch.from_numpy(np.array(layer["b"])) for layer in params]
+    spec = spec or spec_from_params(params)
     dtype = dtype or ws[0].dtype
     net = KnodeMLP(spec, dtype=dtype, device=device)
     if len(ws) != len(net.layers):

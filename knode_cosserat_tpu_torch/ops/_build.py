@@ -23,8 +23,9 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["library", "RodConstsHost", "TrainArgs", "TrainPlanC", "WideArgs",
-           "WidePlanC", "build_info", "NVCC_FLAGS", "SOURCE_FLAGS"]
+__all__ = ["library", "RodConstsHost", "NetTableHost", "TrainArgs",
+           "TrainPlanC", "WideArgs", "WidePlanC", "build_info", "NVCC_FLAGS",
+           "SOURCE_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -62,6 +63,19 @@ class RodConstsHost(ctypes.Structure):
                 ("w0", ctypes.c_double * 3),
                 ("F_tip", ctypes.c_double * 3),
                 ("M_tip", ctypes.c_double * 3)]
+
+
+class NetTableHost(ctypes.Structure):
+    """Mirror of ``NetTableHost`` in csrc/rhs_rows.cuh: a KNODE net of three
+    layers or more as K1's deep form takes it (device pointers of each
+    layer's weight (dout, din) and bias, the widths, the activation code,
+    whether the kernel stages the net in shared memory, and the widest
+    hidden layer a lane keeps)."""
+    _fields_ = [("W", ctypes.c_void_p * 8),
+                ("b", ctypes.c_void_p * 8),
+                ("dims", ctypes.c_int * 9),
+                ("n_layers", ctypes.c_int), ("act", ctypes.c_int),
+                ("staged", ctypes.c_int), ("maxw", ctypes.c_int)]
 
 
 class TrainArgs(ctypes.Structure):
@@ -212,19 +226,20 @@ def _declare(k: _Kernels):
     k.knode_sweep = k.sweep.knode_sweep
     k.knode_step = k.step.knode_step
     k.knode_train = k.train.knode_train
+    table = ctypes.POINTER(NetTableHost)
     # knode_sweep(is_f64, nn_in, act, rk4, B, N, consts, G, yh, zh, tf,
-    #             W1, b1, W2, b2, hidden, res, y, z, threads, smem, staged,
-    #             stream)
+    #             W1, b1, W2, b2, hidden, deep, res, y, z, threads, smem,
+    #             staged, stream)
     k.knode_sweep.argtypes = [I, I, I, I, I, I, consts, P, P, P, P,
-                                P, P, P, P, I, P, P, P, I, I, I, P]
+                                P, P, P, P, I, table, P, P, P, I, I, I, P]
     k.knode_sweep.restype = I
     # knode_step(is_f64, nn_in, act, rk4, B, N, consts, tol, eps0, max_iter,
     #            n_alphas, lm_lambda0, lm_growth, max_escalations,
-    #            G, yh, zh, tf, W1, b1, W2, b2, hidden, nn_per_rod,
+    #            G, yh, zh, tf, W1, b1, W2, b2, hidden, deep, nn_per_rod,
     #            G_out, y, z, r2, iters, threads, smem, staged, stream)
     k.knode_step.argtypes = [I, I, I, I, I, I, consts, D, D, I,
                                I, D, D, I,
-                               P, P, P, P, P, P, P, P, I, I,
+                               P, P, P, P, P, P, P, P, I, table, I,
                                P, P, P, P, P, I, I, I, P]
     k.knode_step.restype = I
     plan = ctypes.POINTER(TrainPlanC)
@@ -256,9 +271,10 @@ def _declare(k: _Kernels):
                                  P, P, P, P, P, P, P, P, P, P, I, I, P]
     k.knode_assembly.restype = I
     # knode_next_segment(is_f64, nn_in, act, B, consts, W1, b1, W2, b2,
-    #                    hidden, y, yh, zh, tf, yg, z, threads, blocks, smem,
-    #                    staged, stream)
+    #                    hidden, deep, y, yh, zh, tf, yg, z, threads, blocks,
+    #                    smem, staged, stream)
     k.knode_next_segment = k.next_segment.knode_next_segment
     k.knode_next_segment.argtypes = [I, I, I, I, consts, P, P, P, P,
-                                     I, P, P, P, P, P, P, I, I, I, I, P]
+                                     I, table, P, P, P, P, P, P, I, I, I, I,
+                                     P]
     k.knode_next_segment.restype = I

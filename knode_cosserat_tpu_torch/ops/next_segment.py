@@ -29,8 +29,8 @@ from ..core.params import RodParams
 from ..core.spatial import next_segment_euler
 from ..models.mlp import ACTIVATIONS, MLPSpec
 from . import sweep as _sweep
-from .sweep import (_ACT_CODES, WARP, check_spec, net_smem_bytes, raise_on,
-                    rod_consts, stream_of)
+from .sweep import (_ACT_CODES, WARP, check_spec, deep_plan, net_smem_bytes,
+                    net_table, plan_hidden, raise_on, rod_consts, stream_of)
 
 __all__ = ["make_fused_next_segment", "next_segment_reference", "launch_plan",
            "SegmentPlan", "LAUNCHES"]
@@ -51,19 +51,25 @@ class SegmentPlan(NamedTuple):
     staged: bool
 
 
-def launch_plan(dtype: torch.dtype, nn_in: int, hidden: int,
+def launch_plan(dtype: torch.dtype, nn_in: int, hidden,
                 B: int) -> SegmentPlan:
     """K8's launch shape for B cells and a net of ``nn_in`` inputs and
-    ``hidden`` units: a warp per cell, 8 cells a block (fewer only when B
+    ``hidden`` units (an int: two layers; a tuple of the hidden widths:
+    three or more): a warp per cell, 8 cells a block (fewer only when B
     is), at most 132 blocks (one per SM; each warp then takes every
     (8 blocks)-th cell), so that each block's staging of the net serves as
     many cells as it can (on the H100, 232 cells: 0.0118 ms in 29 blocks,
     0.0179 in 116, PERF.md); the net staged in shared memory where it
-    fits in ops/sweep.py's SMEM_BUDGET, else read from global memory. A
-    cell's result does not depend on the plan."""
+    fits in ops/sweep.py's SMEM_BUDGET, else read from global memory (a
+    deep net also keeps its layer table and each warp's activation
+    scratch there: ops/sweep.py::deep_plan). A cell's result does not
+    depend on the plan."""
     if B < 1:
         raise ValueError(f"K8 needs at least one cell, got {B}")
     C = min(_MAX_WARPS, B)
+    if not isinstance(hidden, int):
+        smem, staged = deep_plan(dtype, (nn_in, *hidden, 25), C)
+        return SegmentPlan(C * WARP, min(_SMS, -(-B // C)), smem, staged)
     w = net_smem_bytes(dtype, nn_in, hidden)
     staged = w <= _sweep.SMEM_BUDGET
     return SegmentPlan(C * WARP, min(_SMS, -(-B // C)), w if staged else 0,
@@ -118,7 +124,8 @@ class _NextSegment(torch.autograd.Function):
 def make_fused_next_segment(p: RodParams, spec: MLPSpec):
     """The next-segment op for a concrete rod and net architecture (module
     docstring). On the card it takes the nets K1 takes (ops/sweep.py::
-    check_spec): 2 layers, 28 or 53 inputs, elu / tanh / relu / softplus."""
+    check_spec): 28 or 53 inputs, 25 outputs, two to eight layers, elu /
+    tanh / relu / softplus."""
     cache = {}
 
     def forward_fn(y, yh, zh, tf, weights):
@@ -164,12 +171,16 @@ def _launch(consts, spec, y, yh, zh, tf, weights):
     z = torch.empty((B, 6), dtype=y.dtype, device=y.device)
     if B == 0:
         return yg, z
-    plan = launch_plan(y.dtype, spec.dims[0], spec.dims[1], B)
+    plan = launch_plan(y.dtype, spec.dims[0], plan_hidden(spec), B)
+    table = net_table(spec, ws, plan.staged)
+    two = table is None
     with torch.cuda.device(y.device):
         code = library().knode_next_segment(
             int(y.dtype == torch.float64), spec.dims[0],
             _ACT_CODES[spec.activation], B, ctypes.byref(consts),
-            *(w.data_ptr() for w in ws), spec.dims[1], y.data_ptr(),
+            *((w.data_ptr() for w in ws) if two else (None,) * 4),
+            spec.dims[1] if two else 0,
+            None if two else ctypes.byref(table), y.data_ptr(),
             yh.data_ptr(), zh.data_ptr(), tf.data_ptr(), yg.data_ptr(),
             z.data_ptr(), plan.threads, plan.blocks, plan.smem_bytes,
             int(plan.staged), stream_of(y))

@@ -30,9 +30,9 @@ import torch
 from ..core.params import RodParams
 from ..models.mlp import MLPSpec
 from . import sweep as _sweep
-from .sweep import (WARP, check_inputs, check_spec, net_smem_bytes,
-                    raise_on, rod_consts, stream_of, sweep_reference,
-                    weight_args)
+from .sweep import (WARP, check_inputs, check_spec, deep_plan,
+                    net_smem_bytes, net_table, raise_on, rod_consts,
+                    stream_of, sweep_reference, weight_args)
 
 __all__ = ["make_step_kernel", "step_reference", "launch_plan", "StepPlan",
            "LAUNCHES"]
@@ -63,22 +63,27 @@ class StepPlan(NamedTuple):
     staged: bool
 
 
-def launch_plan(dtype: torch.dtype, nn_in: int, hidden: int,
+def launch_plan(dtype: torch.dtype, nn_in: int, hidden,
                 method: str) -> StepPlan:
     """K2's launch shape for a net of ``nn_in`` inputs (0: no net) and
-    ``hidden`` units. With the net: one block per rod, one warp per lane
+    ``hidden`` units (an int: two layers; a tuple of the hidden widths:
+    three or more). With the net: one block per rod, one warp per lane
     (7 lanes; a phase of one lane runs on the whole block), the rod's net
     staged in shared memory beside its solver state where both fit in
-    ops/sweep.py's SMEM_BUDGET, else the net read from global memory.
-    Without it: ``_PHYS_RODS`` rods per block, one thread per lane. It
-    depends on nothing else (not on the batch, nor on one net or one per
-    rod)."""
+    ops/sweep.py's SMEM_BUDGET, else the net read from global memory (a
+    deep net also keeps its layer table and each lane's activation
+    scratch there: ops/sweep.py::deep_plan). Without it: ``_PHYS_RODS``
+    rods per block, one thread per lane. It depends on nothing else (not
+    on the batch, nor on one net or one per rod)."""
     if method not in ("euler", "rk4"):
         raise ValueError(method)
     state = _STATE_BYTES[dtype]
     if nn_in == 0:
         return StepPlan(_LANES * _PHYS_RODS, _PHYS_RODS, _PHYS_RODS * state,
                         False)
+    if not isinstance(hidden, int):
+        smem, staged = deep_plan(dtype, (nn_in, *hidden, 25), _LANES, state)
+        return StepPlan(_LANES * WARP, 1, smem + state, staged)
     w = net_smem_bytes(dtype, nn_in, hidden)
     staged = w + state <= _sweep.SMEM_BUDGET
     return StepPlan(_LANES * WARP, 1, state + (w if staged else 0), staged)
@@ -151,16 +156,19 @@ def _launch(p, consts, spec, tol, max_iter, n_alphas, method, G, yh, zh, tf,
     iters = torch.empty((B,), dtype=torch.int32, device=G.device)
     if B == 0:
         return G_out, y, z, r2, iters
-    nn_in, act, W1, b1, W2, b2, hidden, per_rod = weight_args(spec, nn_params,
-                                                              G)
+    nn_in, act, W1, b1, W2, b2, hidden, per_rod, ws = weight_args(
+        spec, nn_params, G)
     plan = launch_plan(G.dtype, nn_in, hidden, method)
+    table = net_table(spec, ws, plan.staged) if nn_in else None
     with torch.cuda.device(G.device):
         code = library().knode_step(
             int(G.dtype == torch.float64), nn_in, act, int(method == "rk4"),
             B, N, ctypes.byref(consts), float(tol), fd1_eps(G.dtype),
             int(max_iter), int(n_alphas), _LM_LAMBDA0, _LM_GROWTH,
             _MAX_ESCALATIONS, G.data_ptr(), yh.data_ptr(), zh.data_ptr(),
-            tf.data_ptr(), W1, b1, W2, b2, hidden, per_rod, G_out.data_ptr(),
+            tf.data_ptr(), W1, b1, W2, b2, hidden if table is None else 0,
+            None if table is None else ctypes.byref(table), per_rod,
+            G_out.data_ptr(),
             y.data_ptr(), z.data_ptr(), r2.data_ptr(), iters.data_ptr(),
             plan.threads, plan.smem_bytes, int(plan.staged), stream_of(G))
     raise_on(code, "K2 step")

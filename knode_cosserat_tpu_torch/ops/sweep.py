@@ -10,7 +10,9 @@ design note is in those files.
 fn(G (B,6), yh (B,N,19), zh (B,N,6), tf (B,3), nn_params|None) ->
 res (B,6) [, y (B,N,19), z (B,N-1,6)]. The device of ``G`` picks the
 path: a CPU tensor runs :func:`sweep_reference`, a CUDA tensor launches the
-kernel (or raises); nothing falls back from one to the other. A spec with
+kernel (or raises); nothing falls back from one to the other. The net may
+have two to MAX_LAYERS layers: two take K1's two-layer form, three or more
+its layer-table form (``NetTableHost``, :func:`net_table`). A spec with
 a ``compute_dtype`` (mixed precision): the kernel computes the net in the
 weights' dtype, as the JAX TPU kernel does, while the plain version applies
 the casts, as JAX's XLA path does.
@@ -28,7 +30,9 @@ from ..core.spatial import integrate_euler, integrate_rk4, tip_residual
 from ..models.mlp import KnodeMLP, MLPSpec, StackedMLP
 
 __all__ = ["make_sweep_kernel", "sweep_reference", "launch_plan",
-           "net_smem_bytes", "SweepPlan", "LAUNCHES", "SMEM_BUDGET"]
+           "net_smem_bytes", "deep_net_bytes", "deep_smem_bytes",
+           "deep_plan", "net_table", "SweepPlan", "LAUNCHES", "SMEM_BUDGET",
+           "MAX_LAYERS"]
 
 #: K3 launches made by this module's wrapper since the count was last reset
 LAUNCHES = 0
@@ -39,6 +43,11 @@ SMEM_BUDGET = 232_448
 WARP = 32
 _SWEEP_WARPS = 8      # K3 with the net: lanes (one warp each) per block
 _PHYS_THREADS = 32    # K3 without it: one thread per lane
+#: the deepest net the kernels take (csrc/rhs_rows.cuh::MAX_LAYERS)
+MAX_LAYERS = 8
+# the layer table at the head of a deep net's shared memory: MAX_LAYERS
+# DeepLayer entries of 32 bytes (csrc/rhs_rows.cuh::DEEP_TABLE_BYTES)
+DEEP_TABLE_BYTES = 32 * MAX_LAYERS
 
 
 class SweepPlan(NamedTuple):
@@ -59,17 +68,68 @@ def net_smem_bytes(dtype: torch.dtype, nn_in: int, hidden: int) -> int:
     return -(-size * elems // 8) * 8
 
 
-def launch_plan(dtype: torch.dtype, nn_in: int, hidden: int,
+def _elem_bytes(dtype: torch.dtype) -> int:
+    return 8 if dtype == torch.float64 else 4
+
+
+def deep_net_bytes(dtype: torch.dtype, dims) -> int:
+    """Shared memory a staged net of three layers or more takes
+    (csrc/rhs_rows.cuh::deep_net_bytes): each hidden layer transposed to
+    (din, dout + 1) and its bias, the output layer (25, din) and its bias,
+    in ``dtype``, rounded up to 8 bytes."""
+    L = len(dims) - 1
+    elems = sum((din * (dout + 1) if l < L - 1 else dout * din) + dout
+                for l, (din, dout) in enumerate(zip(dims[:-1], dims[1:])))
+    return -(-_elem_bytes(dtype) * elems // 8) * 8
+
+
+def deep_maxw(dims) -> int:
+    """The widest hidden layer whose activations a lane keeps (the outputs
+    of layers 0 .. L-3; the last hidden layer goes straight into the
+    outputs)."""
+    return max(dims[1:-2])
+
+
+def deep_smem_bytes(dtype: torch.dtype, dims, groups: int,
+                    staged: bool) -> int:
+    """A deep net's dynamic shared memory (csrc/rhs_rows.cuh::
+    deep_smem_bytes): the layer table, the staged net when ``staged``, and
+    ``groups`` lanes' activation scratch of 2 x deep_maxw(dims) values."""
+    return (DEEP_TABLE_BYTES
+            + (deep_net_bytes(dtype, dims) if staged else 0)
+            + groups * 2 * deep_maxw(dims) * _elem_bytes(dtype))
+
+
+def deep_plan(dtype: torch.dtype, dims, groups: int, extra: int = 0):
+    """(smem_bytes, staged) of a deep net for a kernel whose block runs
+    ``groups`` lanes at once and keeps ``extra`` more bytes (K2's solver
+    state): the net staged where all of it fits in SMEM_BUDGET, else read
+    from global memory; raises when even the table and the scratch do not
+    fit (a hidden layer too wide for a lane's scratch)."""
+    for staged in (True, False):
+        smem = deep_smem_bytes(dtype, dims, groups, staged)
+        if smem + extra <= SMEM_BUDGET:
+            return smem, staged
+    raise ValueError(f"net {tuple(dims)}: its widest hidden layer does not "
+                     f"fit {groups} lanes' scratch in shared memory")
+
+
+def launch_plan(dtype: torch.dtype, nn_in: int, hidden,
                 method: str) -> SweepPlan:
     """K3's launch shape for a net of ``nn_in`` inputs (0: no net) and
-    ``hidden`` units: with the net one warp per lane, 8 lanes per block, the
-    net staged in shared memory where it fits in SMEM_BUDGET, else read
-    from global memory; without it one thread per lane. It depends on
-    nothing else (not on the batch)."""
+    ``hidden`` units (an int: two layers; a tuple of the hidden widths:
+    three layers or more): with the net one warp per lane, 8 lanes per
+    block, the net staged in shared memory where it fits in SMEM_BUDGET,
+    else read from global memory (a deep net also keeps its layer table
+    and each lane's activation scratch there: deep_plan); without it one
+    thread per lane. It depends on nothing else (not on the batch)."""
     if method not in ("euler", "rk4"):
         raise ValueError(method)
     if nn_in == 0:
         return SweepPlan(_PHYS_THREADS, _PHYS_THREADS, 0, False)
+    if not isinstance(hidden, int):
+        smem, staged = deep_plan(dtype, (nn_in, *hidden, 25), _SWEEP_WARPS)
+        return SweepPlan(_SWEEP_WARPS * WARP, _SWEEP_WARPS, smem, staged)
     w = net_smem_bytes(dtype, nn_in, hidden)
     staged = w <= SMEM_BUDGET
     return SweepPlan(_SWEEP_WARPS * WARP, _SWEEP_WARPS, w if staged else 0,
@@ -116,18 +176,27 @@ def rod_consts(p: RodParams) -> "ctypes.Structure":
 
 
 def check_spec(spec: MLPSpec | None):
-    """Raise unless the CUDA kernels take this net: two layers, 28 or 53
-    inputs, 25 outputs, a supported activation."""
+    """Raise unless the CUDA kernels take this net: 28 or 53 inputs, 25
+    outputs, two to MAX_LAYERS layers, a supported activation."""
     if spec is None:
         return
-    if len(spec.dims) != 3:
-        raise NotImplementedError(
-            f"the CUDA rod kernels take 2-layer KNODE nets; {spec.dims} has "
-            f"{len(spec.dims) - 1} (ROADMAP: deeper nets on CUDA)")
-    if spec.dims[0] != (53 if spec.history else 28) or spec.dims[2] != 25:
+    dims = spec.dims
+    if (len(dims) < 3 or dims[0] != (53 if spec.history else 28)
+            or dims[-1] != 25 or min(dims) < 1):
         raise ValueError(f"not a KNODE net: {spec}")
+    if len(dims) - 1 > MAX_LAYERS:
+        raise ValueError(f"{spec.dims}: the CUDA rod kernels take at most "
+                         f"{MAX_LAYERS} layers")
     if spec.activation not in _ACT_CODES:
         raise ValueError(f"activation {spec.activation!r} has no kernel form")
+
+
+def plan_hidden(spec: MLPSpec | None):
+    """The launch plans' ``hidden`` for a net: its width (two layers) or
+    the tuple of its hidden widths (three or more); 0 without a net."""
+    if spec is None:
+        return 0
+    return spec.dims[1] if len(spec.dims) == 3 else tuple(spec.dims[1:-1])
 
 
 def check_inputs(p: RodParams, G, yh, zh, tf):
@@ -148,12 +217,15 @@ def check_inputs(p: RodParams, G, yh, zh, tf):
 
 
 def weight_args(spec: MLPSpec | None, nn_params, like):
-    """(nn_in, act, W1, b1, W2, b2, hidden, per_rod) for the C entry points.
-    ``nn_params`` is one net for all rods (per_rod 0) or a StackedMLP with
-    one net per rod of ``like`` (per_rod 1: rod b reads net b, at b times
-    each tensor's per-net size)."""
+    """(nn_in, act, W1, b1, W2, b2, hidden, per_rod, weights) for the C
+    entry points. ``nn_params`` is one net for all rods (per_rod 0) or a
+    StackedMLP with one net per rod of ``like`` (per_rod 1: rod b reads
+    net b, at b times each tensor's per-net size). A net of three layers
+    or more gives null W1 .. b2 and ``hidden`` the tuple of its hidden
+    widths (plan_hidden); its layer table is :func:`net_table` of
+    ``weights``, the checked tensors."""
     if spec is None or nn_params is None:
-        return 0, 0, None, None, None, None, 0, 0
+        return 0, 0, None, None, None, None, 0, 0, []
     per_rod = int(isinstance(nn_params, StackedMLP))
     if per_rod and len(nn_params) != like.shape[0]:
         raise ValueError(f"{len(nn_params)} stacked nets for "
@@ -165,8 +237,33 @@ def weight_args(spec: MLPSpec | None, nn_params, like):
                              f"{like.dtype} on {like.device}")
         if not t.is_contiguous():
             raise ValueError("MLP weights must be contiguous")
-    return (spec.dims[0], _ACT_CODES[spec.activation],
-            *(t.data_ptr() for t in ts), spec.dims[1], per_rod)
+    ptrs = ([t.data_ptr() for t in ts] if len(spec.dims) == 3
+            else [None] * 4)
+    return (spec.dims[0], _ACT_CODES[spec.activation], *ptrs,
+            plan_hidden(spec), per_rod, ts)
+
+
+def net_table(spec: MLPSpec, weights, staged: bool):
+    """The layer table (``_build.NetTableHost``) of a net of three layers or
+    more, from its weight tensors (w, b, w, b, ...; per-net or stacked, as
+    the kernel reads them), for a launch whose plan says ``staged``; None
+    for a two-layer net (the C entries take it as W1 .. b2)."""
+    from ._build import NetTableHost
+
+    dims = spec.dims
+    if len(dims) == 3:
+        return None
+    t = NetTableHost()
+    t.n_layers = len(dims) - 1
+    t.act = _ACT_CODES[spec.activation]
+    t.staged = int(staged)
+    t.maxw = deep_maxw(dims)
+    for i, d in enumerate(dims):
+        t.dims[i] = d
+    for l in range(t.n_layers):
+        t.W[l] = weights[2 * l].data_ptr()
+        t.b[l] = weights[2 * l + 1].data_ptr()
+    return t
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -221,13 +318,17 @@ def _launch(p, consts, spec, method, want_rod, G, yh, zh, tf, nn_params):
         z = torch.empty((B, N - 1, 6), dtype=G.dtype, device=G.device)
     if B == 0:
         return (res, y, z) if want_rod else res
-    nn_in, act, W1, b1, W2, b2, hidden, _ = weight_args(spec, nn_params, G)
+    nn_in, act, W1, b1, W2, b2, hidden, _, ws = weight_args(spec, nn_params,
+                                                            G)
     plan = launch_plan(G.dtype, nn_in, hidden, method)
+    table = net_table(spec, ws, plan.staged) if nn_in else None
     with torch.cuda.device(G.device):
         code = library().knode_sweep(
             int(G.dtype == torch.float64), nn_in, act, int(method == "rk4"),
             B, N, ctypes.byref(consts), G.data_ptr(), yh.data_ptr(),
-            zh.data_ptr(), tf.data_ptr(), W1, b1, W2, b2, hidden,
+            zh.data_ptr(), tf.data_ptr(), W1, b1, W2, b2,
+            hidden if table is None else 0,
+            None if table is None else ctypes.byref(table),
             res.data_ptr(), y.data_ptr() if want_rod else None,
             z.data_ptr() if want_rod else None, plan.threads,
             plan.smem_bytes, int(plan.staged), stream_of(G))

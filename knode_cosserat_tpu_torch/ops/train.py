@@ -60,6 +60,7 @@ from ..models.mlp import KnodeMLP, MLPSpec, StackedMLP
 from .quaternion import quaternion_to_euler
 
 __all__ = ["make_fused_training_run", "make_fused_grid_training_run",
+           "make_sharded_grid_training_run",
            "fused_trainer_supported", "precompute", "train_run",
            "train_run_reference", "train_grid_run", "train_grid_reference",
            "fresh_state", "fused_state_from_optimizer", "load_fused_state",
@@ -564,5 +565,47 @@ def make_fused_grid_training_run(spec: MLPSpec, cfg, n_epochs: int,
             for P, w in zip(out.parameters(), W_out):
                 P.copy_(w)
         return out, losses, state
+
+    return run
+
+
+def _take(state: dict, sl: slice) -> dict:
+    return {"moments": tuple(m[sl] for m in state["moments"]),
+            "scalars": state["scalars"][sl]}
+
+
+def make_sharded_grid_training_run(spec: MLPSpec, cfg, n_epochs: int, mesh,
+                                   axis: str = "data", plain: bool = False):
+    """Multi-card multitrain (the JAX package's
+    ``make_sharded_grid_training_run``, which shard_maps the vmapped
+    whole-run kernel over the mesh): the experiment grid is embarrassingly
+    parallel, so each rank of ``mesh`` runs K5 (:func:`train_grid_run`) on
+    its G/n cells of the grid axis (n = mesh.shape[axis]), with no
+    collective inside the training loop; the weights, losses and
+    optimizer states are gathered with ``all_gather`` over ``axis`` at the
+    end, so every rank returns the whole grid.
+
+    Same signature and returns as :func:`make_fused_grid_training_run`:
+    every rank passes the whole grid, whose length must divide over the
+    axis (callers pad, as parallel.grid.grid_train does). plain=True runs
+    :func:`train_grid_reference` on each rank instead."""
+    from ..parallel.mesh import P, Placement
+
+    inner = make_fused_grid_training_run(spec, cfg, n_epochs, plain=plain)
+    grid = Placement(mesh, P(axis))
+
+    def run(rods, params: StackedMLP, trajs, controls, opt_state=None):
+        sl = grid.span(len(rods))
+        local = StackedMLP(params.unstack()[sl])
+        p_l, losses, state = inner(rods[sl], local, trajs[sl], controls[sl],
+                                   None if opt_state is None
+                                   else _take(opt_state, sl))
+        out = copy.deepcopy(params)
+        with torch.no_grad():
+            for W, w in zip(out.parameters(), p_l.parameters()):
+                W.copy_(grid.gather(w.detach()))
+        return out, grid.gather(losses), {
+            "moments": tuple(grid.gather(m) for m in state["moments"]),
+            "scalars": grid.gather(state["scalars"])}
 
     return run

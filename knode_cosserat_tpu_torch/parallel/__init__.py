@@ -1,7 +1,16 @@
-"""Experiment grids (the multitrain study): ``build_grid`` and
-``grid_train``, the (data x mod x seed) cells trained together on one card
-by kernel K5. The multi-card layouts (the JAX package's parallel/mesh.py,
-distributed.py, spatial.py) are not ported (ROADMAP.md, Queue 1, item 4)."""
-from .grid import GridCell, GridResult, build_grid, grid_train
+"""The parallel stack: the ("data", "seq", "model") device mesh
+(mesh.py) over the process group that distributed.py starts, the
+experiment grids trained together by kernel K5 and split over "data"
+(grid.py), sharded training (sharded_train.py: train_knode(mesh=)'s
+machinery and the deprecated ShardedTrainer) and the halo-exchange
+multiple-shooting rollout (spatial.py)."""
+from .mesh import make_mesh, data_sharding, replicated, shard_params_tp
+from .sharded_train import ShardedTrainer
+from .grid import GridCell, GridResult, grid_train, build_grid
+from .distributed import init_distributed, is_multihost, process_summary
+from .spatial import simulate_scan_ms_halo
 
-__all__ = ["GridCell", "GridResult", "build_grid", "grid_train"]
+__all__ = ["make_mesh", "data_sharding", "replicated", "shard_params_tp",
+           "ShardedTrainer", "GridCell", "GridResult", "grid_train",
+           "build_grid", "init_distributed", "is_multihost",
+           "process_summary", "simulate_scan_ms_halo"]

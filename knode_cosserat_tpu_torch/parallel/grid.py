@@ -7,7 +7,10 @@ reference orchestrator physics_multitrain.py:85-157 fanned out one
 mods are RodParams of the same structure), its data and its seed's net.
 On a CUDA rod the whole grid trains in one launch of kernel K5 per chunk
 (ops/train.py:train_grid_run, one cluster per cell); ``cfg.fused="off"``
-runs the plain epoch loop cell by cell.
+runs the plain epoch loop cell by cell. Under a mesh (parallel/mesh.py)
+the grid axis splits over "data": each rank trains its cells (K5 on its
+card, ops/train.py:make_sharded_grid_training_run, or the plain loop) and
+the results are gathered, so every rank returns the whole grid.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from ..models.mlp import KnodeMLP, MLPSpec, StackedMLP, init_mlp
 from ..training.data import make_training_data, parse_traj_specs
 from ..training.train import (TrainConfig, _resolve_fused, make_epoch_scan,
                               make_optimizer)
+from .mesh import P, Placement, data_sharding
 
 __all__ = ["GridCell", "GridResult", "grid_train", "build_grid"]
 
@@ -74,21 +78,22 @@ def grid_train(
     sub-grids, merged back in cell order. ``cfg.fused`` as train_knode
     reads it ("auto" takes K5 on a CUDA rod); with no ``log`` the whole run
     is one chunk, else chunks of ``cfg.log_every`` epochs, the optimizer
-    state carried between them. mesh (sharded grids) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the sharded grid (make_sharded_grid_training_run) waits "
-            "for torch.distributed; see ROADMAP.md, Queue 1, item 4")
+    state carried between them. mesh: a parallel.mesh.Mesh; the grid axis
+    is padded to a multiple of its "data" axis by repeating the last cell,
+    each rank trains its share, and the padded cells are dropped from the
+    gathered result (the JAX package's pad and drop). Every cell equals the
+    unsharded grid's."""
     if reference_rod is None:
         reference_rod = apply_mod(None, original=original)
     data_cache = {}
     for d in sorted({c.data for c in cells}):
         data_cache[d] = make_training_data(
             reference_rod, parse_traj_specs(d.split(" ")), train_len=train_len)
-    return _train(list(cells), cfg, reference_rod, data_cache, original, log)
+    return _train(list(cells), cfg, reference_rod, data_cache, original, log,
+                  mesh)
 
 
-def _train(cells, cfg, reference_rod, data_cache, original, log):
+def _train(cells, cfg, reference_rod, data_cache, original, log, mesh):
     # cells whose data have different trajectory counts cannot share one
     # launch: split into same-shape sub-grids and merge in cell order
     n_traj_of = {d: v[0].shape[0] for d, v in data_cache.items()}
@@ -97,7 +102,8 @@ def _train(cells, cfg, reference_rod, data_cache, original, log):
         results, secs = {}, 0.0
         for n in counts:
             sub = [c for c in cells if n_traj_of[c.data] == n]
-            r = _train(sub, cfg, reference_rod, data_cache, original, log)
+            r = _train(sub, cfg, reference_rod, data_cache, original, log,
+                       mesh)
             secs += r.train_seconds
             for c, pr, lh in zip(r.cells, r.params, r.loss_history.T):
                 results[c] = (pr, lh)
@@ -109,11 +115,17 @@ def _train(cells, cfg, reference_rod, data_cache, original, log):
     dtype = getattr(torch, cfg.dtype)
     dev = reference_rod.device
     spec = cfg.spec()
+    G = len(cells)
+    # under a mesh the grid axis pads to a multiple of "data" (the padded
+    # cells repeat the last one and are dropped at the end)
+    run_cells = cells + cells[-1:] * (
+        (-G) % mesh.shape["data"] if mesh is not None else 0)
     rods = [apply_mod(c.mod, original=original, N=reference_rod.N,
-                      dtype=reference_rod.dtype, device=dev) for c in cells]
-    trajs = torch.stack([data_cache[c.data][0].to(dtype) for c in cells])
-    ctls = torch.stack([data_cache[c.data][1].to(dtype) for c in cells])
-    nets = [init_cell_net(spec, c.seed, dtype, dev) for c in cells]
+                      dtype=reference_rod.dtype, device=dev)
+            for c in run_cells]
+    trajs = torch.stack([data_cache[c.data][0].to(dtype) for c in run_cells])
+    ctls = torch.stack([data_cache[c.data][1].to(dtype) for c in run_cells])
+    nets = [init_cell_net(spec, c.seed, dtype, dev) for c in run_cells]
 
     n_cells_model = int(trajs.shape[1] * (trajs.shape[2] - 1)
                         * len(cfg.keypoints))
@@ -130,35 +142,54 @@ def _train(cells, cfg, reference_rod, data_cache, original, log):
     sync()
     t0 = time.perf_counter()
     if mode:
-        from ..ops.train import make_fused_grid_training_run
+        from ..ops.train import (make_fused_grid_training_run,
+                                 make_sharded_grid_training_run)
         chunk = (cfg.epochs if log is None
                  else max(1, min(cfg.log_every, cfg.epochs)))
-        make = lambda n: make_fused_grid_training_run(
-            spec, cfg, n, plain=mode == "plain")
+        if mesh is not None:
+            make = lambda n: make_sharded_grid_training_run(
+                spec, cfg, n, mesh, plain=mode == "plain")
+        else:
+            make = lambda n: make_fused_grid_training_run(
+                spec, cfg, n, plain=mode == "plain")
         run_chunk = make(chunk)
         params, state = StackedMLP(nets), None
         while done < cfg.epochs:
             n = min(chunk, cfg.epochs - done)
             runner = run_chunk if n == chunk else make(n)
             params, ls, state = runner(rods, params, trajs, ctls, state)
-            losses.extend(ls.T.cpu().numpy())          # n rows of (G,)
+            losses.extend(ls[:G].T.cpu().numpy())      # n rows of (G,)
             done += n
             if log:
                 log(f"epoch {done - 1} losses {losses[-1]}")
-        nets = params.unstack()
+        nets = params.unstack()[:G]
     else:
-        opts = [make_optimizer(cfg, net) for net in nets]
+        # the plain epoch loop over this rank's cells (all of them without
+        # a mesh), gathered over "data" after each chunk
+        span = range(len(run_cells))
+        if mesh is not None:
+            grid = data_sharding(mesh)
+            span = span[grid.span(len(span))]
+        opts = {g: make_optimizer(cfg, nets[g]) for g in span}
         chunk = max(1, min(cfg.log_every, cfg.epochs))
         while done < cfg.epochs:
             n = min(chunk, cfg.epochs - done)
-            ls = [make_epoch_scan(rod, spec, opt, cfg.keypoints,
-                                  cfg.clamp_weights, n)(net, t, c)
-                  for rod, opt, net, t, c in zip(rods, opts, nets, trajs,
-                                                 ctls)]
-            losses.extend(torch.stack(ls, dim=1).detach().cpu().numpy())
+            ls = torch.stack([make_epoch_scan(
+                rods[g], spec, opts[g], cfg.keypoints, cfg.clamp_weights, n)(
+                    nets[g], trajs[g], ctls[g]) for g in span], dim=1)
+            if mesh is not None:
+                ls = Placement(mesh, P(None, "data")).gather(ls.detach())
+            losses.extend(ls[:, :G].detach().cpu().numpy())
             done += n
             if log:
                 log(f"epoch {done - 1} losses {losses[-1]}")
+        if mesh is not None:
+            mine, whole = StackedMLP([nets[g] for g in span]), StackedMLP(nets)
+            with torch.no_grad():
+                for W, w in zip(whole.parameters(), mine.parameters()):
+                    W.copy_(grid.gather(w.detach()))
+            nets = whole.unstack()
+        nets = nets[:G]
     sync()
     return GridResult(cells=cells, params=nets,
                       loss_history=np.asarray(losses), spec=spec,

@@ -52,6 +52,7 @@ def grow_predictions(
     controls: torch.Tensor,
     keypoints: Sequence[int],
     fused_fn=None,
+    nn_fn=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced next-state predictions at the keypoints.
 
@@ -61,6 +62,9 @@ def grow_predictions(
       fused_fn: the fused next-segment op
         (ops/next_segment.make_fused_next_segment), called once on the
         flattened cells of every trajectory.
+      nn_fn: the net as a function (..., din) -> (..., 25), in place of
+        ``nn_params`` (a tensor-parallel shard's forward,
+        parallel/sharded_train.TPNet).
     Returns:
       (y_grown, z_new): (..., T-1, K, 19), (..., T-1, K, 6) predictions for
       steps 1..T-1 evaluated at nodes keypoints-1.
@@ -89,8 +93,7 @@ def grow_predictions(
                           flat(tf.unsqueeze(-2).expand(lead + (3,))))
         return yg.reshape(lead + (19,)), zn.reshape(lead + (6,))
 
-    nn_fn = None
-    if nn_params is not None:
+    if nn_fn is None and nn_params is not None:
         nn_fn = lambda x: mlp_apply(spec, nn_params, x)
     return next_segment_euler(p, y_in, yh_in, zh_in, tf, nn_fn=nn_fn,
                               nn_history=spec.history)
@@ -105,10 +108,11 @@ def teacher_forced_loss(
     keypoints: Sequence[int] = DEFAULT_KEYPOINTS_FAST,
     fused_fn=None,
     skip_first: bool = False,
+    nn_fn=None,
 ) -> torch.Tensor:
     """The loss of each trajectory, shape ``traj.shape[:-3]`` (a scalar for
     one trajectory); sum it for the multi-trajectory total
-    (physics_train.py:313-366).
+    (physics_train.py:313-366). fused_fn, nn_fn: as grow_predictions.
 
     skip_first: drop each trajectory's first transition. Its BDF-2 history
     uses the frame as its own predecessor (physics_train.py:321-322):
@@ -121,7 +125,8 @@ def teacher_forced_loss(
             f"teacher_forced_loss(skip_first=True) needs >= 3 frames, got "
             f"traj of length {traj.shape[-3]} (after any trimming)")
     y_grown, z_new = grow_predictions(p, spec, nn_params, traj, controls,
-                                      keypoints, fused_fn=fused_fn)
+                                      keypoints, fused_fn=fused_fn,
+                                      nn_fn=nn_fn)
     target = traj[..., 1:, :, :]                 # (..., T-1, N, 25)
     if skip_first:
         y_grown, z_new = y_grown[..., 1:, :, :], z_new[..., 1:, :, :]

@@ -384,6 +384,18 @@ def _resolve_fused(cfg: TrainConfig, spec: MLPSpec, n_cells: int,
     return None
 
 
+def _decline_fused(cfg: TrainConfig):
+    """cfg.fused under a mesh: the plain epoch loop, or the JAX package's
+    refusal of a forced fused trainer."""
+    if cfg.fused not in ("auto", "off"):
+        raise ValueError(
+            f"cfg.fused={cfg.fused!r}: train_knode's fused trainers are "
+            "single-device (one model = no shardable batch axis); for the "
+            "multi-chip fused path train a GRID - "
+            "parallel.grid.grid_train(mesh=...) runs the whole-run kernel "
+            "on each rank's cells of the mesh's data axis")
+
+
 def _net_tree(net: KnodeMLP, host: bool = True):
     """The JAX package's params layout: ({"w", "b"}, ...) per layer."""
     f = ((lambda t: t.detach().cpu().numpy()) if host
@@ -428,12 +440,16 @@ def train_knode(
     DTW-based best-model selection. eval_rod: the rod of the validation
     rollouts (default p_mod). resume_from: a checkpoint (either package's)
     to take the weights, optimizer state and loss history from
-    (physics_train.py:186-204). mesh (sharded training) is not ported.
+    (physics_train.py:186-204). mesh: a parallel.mesh.Mesh ("data", "seq",
+    "model"); the whole trainer (epoch loop, validation, best-DTW,
+    checkpoints, resume) then runs sharded on every rank of it: trajectories
+    DP over "data" (when their count divides it), time SP over "seq", the
+    net's hidden units TP over "model" (parallel/sharded_train.py). The
+    fused trainers are declined under a mesh; the result is the whole
+    (gathered) net on every rank, and rank 0 writes the checkpoints.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh: sharded training (parallel/mesh.py) is not ported yet; "
-            "see ROADMAP.md, Queue 1, item 4")
+        _decline_fused(cfg)
     spec = cfg.spec()
     dtype = getattr(torch, cfg.dtype)
     device = p_mod.device
@@ -452,6 +468,11 @@ def train_knode(
 
     trajs = torch.as_tensor(trajs, dtype=dtype, device=device)
     controls_t = torch.as_tensor(controls, dtype=dtype, device=device)
+    sharded = None
+    if mesh is not None:
+        from ..parallel.sharded_train import MeshTraining
+        sharded = MeshTraining.build(mesh, p_mod, spec, cfg, net, optimizer,
+                                     trajs, controls_t)
 
     eval_rod = eval_rod if eval_rod is not None else p_mod
     do_eval = (validation_controls is not None
@@ -471,10 +492,13 @@ def train_knode(
 
     n_cells = int(trajs.shape[0] * (trajs.shape[1] - 1)
                   * len(cfg.keypoints))
-    fused_mode = _resolve_fused(cfg, spec, n_cells, device)
+    fused_mode = (None if sharded is not None
+                  else _resolve_fused(cfg, spec, n_cells, device))
     chunk = cfg.eval_every if do_eval else max(cfg.log_every, 1)
     chunk = max(1, min(chunk, cfg.epochs + 1))
-    if fused_mode in ("wide", "wide_plain"):
+    if sharded is not None:
+        make_runner = lambda n: (lambda *_: sharded.run(n))
+    elif fused_mode in ("wide", "wide_plain"):
         from ..ops.train import fused_state_from_optimizer, load_fused_state
         from ..ops.train_wide import make_wide_training_run
         make_runner = lambda n: make_wide_training_run(
@@ -509,6 +533,8 @@ def train_knode(
                 traj = simulate(eval_rod, validation_controls,
                                 tol=_default_tol(eval_rod.dtype))
             else:
+                if sharded is not None:
+                    net = sharded.gathered()[0]
                 traj = rollout_with_nn(eval_rod, validation_controls, spec,
                                        _on_rod(net, eval_rod),
                                        impl=eval_impl)
@@ -544,7 +570,11 @@ def train_knode(
                 torch.cuda.synchronize(device)
             t0_compiled = time.perf_counter()
         epoch += n
-        if checkpoint_path and (epoch % cfg.checkpoint_every) < n:
+        due = checkpoint_path and (epoch % cfg.checkpoint_every) < n
+        if due and sharded is not None:
+            # the gather is a collective: every rank joins it, rank 0 writes
+            net, optimizer = sharded.gathered()
+        if due and (sharded is None or sharded.writer):
             tree = {"params": _net_tree(net, host=ckpt_writer is None),
                     "opt_state": optim_state_to_jax(optimizer),
                     "loss": np.asarray(loss_hist), "dtw": list(dtw_hist)}
@@ -564,6 +594,8 @@ def train_knode(
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - (t0_compiled or t_start)
     eps = cfg.epochs / elapsed if elapsed > 0 else 0.0
+    if sharded is not None:
+        net = sharded.gathered()[0]      # the whole net, on every rank
     if not do_eval:
         best_dtw, best_params = np.nan, net
     return TrainResult(params=net, best_params=best_params,

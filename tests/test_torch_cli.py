@@ -54,10 +54,12 @@ def test_multitrain_then_graphs(tiny, tmp_path, capsys):
 
 
 def test_unported_options_raise(tiny, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4$"):
-        cli.main(["multitrain", "--mesh", "1,1,1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4$"):
-        cli.main(["train", "sine", "0.5", "--mesh", "1,1,1", "--device",
+    # --mesh needs the ranks of its devices (torchrun) and a data,seq,model
+    # triple; the mesh runs in tests/test_torch_parallel.py
+    with pytest.raises(RuntimeError, match="torchrun"):
+        cli.main(["multitrain", "--mesh", "2,1,1", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="data,seq,model"):
+        cli.main(["train", "sine", "0.5", "--mesh", "1,1", "--device",
                   "cpu"])
     for extra in (["--model", "m.npz"], ["--fast"]):
         with pytest.raises(SystemExit, match="--segments"):

@@ -202,12 +202,118 @@ def test_step_kernel_raises_when_the_card_refuses(dev, monkeypatch):
 
 
 def test_deeper_net_raises_on_cuda(dev):
+    """Nets of any depth up to ops/sweep.py's MAX_LAYERS run on the kernels
+    (the deep-net tests below); a deeper one raises before a launch."""
     p = K.experimental_rod(device=dev).to(dtype=torch.float32)
-    spec = K.MLPSpec(dims=(28, 16, 16, 25))
+    spec = K.MLPSpec(dims=(28,) + (16,) * ksweep.MAX_LAYERS + (25,))
     net = K.init_mlp(spec, torch.Generator().manual_seed(0), torch.float32, dev)
     G, yh, zh, tf = _inputs(p, 4, 2, dev)
-    with pytest.raises(NotImplementedError):
+    before = ksweep.LAUNCHES
+    with pytest.raises(ValueError, match="at most"):
         ksweep.make_sweep_kernel(p, spec)(G, yh, zh, tf, net)
+    assert ksweep.LAUNCHES == before
+
+
+# nets of three layers and more: the JAX package's deep kernel tests'
+# shapes (tests/test_pallas_kernels.py:26-32) and the 512-wide middle
+# layers that no block can stage
+DEEP = [((28, 32, 32, 25), "elu"), ((53, 16, 16, 16, 25), "tanh"),
+        ((28, 512, 512, 25), "elu"), ((53, 512, 512, 512, 25), "tanh")]
+
+
+def _deep(dims, act, dtype, dev, scale=1.0, seed=0):
+    spec = K.MLPSpec(dims=dims, activation=act, history=dims[0] == 53)
+    net = K.init_mlp(spec, torch.Generator().manual_seed(seed), dtype, dev)
+    with torch.no_grad():
+        for t in net.parameters():
+            t.mul_(scale)
+    return spec, net
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", ["euler", "rk4"])
+@pytest.mark.parametrize("dims,act", DEEP)
+def test_sweep_kernel_deep_net_matches_plain(dev, dtype, method, dims, act):
+    p = K.experimental_rod(N=10, device=dev).to(dtype=dtype)
+    G, yh, zh, tf = _inputs(p, 67, 0, dev)
+    spec, net = _deep(dims, act, dtype, dev, 0.1)
+    before = ksweep.LAUNCHES
+    with torch.no_grad():
+        got = ksweep.make_sweep_kernel(p, spec, method=method)(G, yh, zh, tf,
+                                                               net)
+        want = ksweep.sweep_reference(p, G, yh, zh, tf, net, method)
+    torch.cuda.synchronize()
+    assert ksweep.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=TOL[dtype][0],
+                                   atol=TOL[dtype][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dims,act", DEEP)
+def test_step_kernel_deep_net_matches_plain(dev, dtype, dims, act):
+    p = K.experimental_rod(N=10, device=dev).to(dtype=dtype)
+    G, yh, zh, tf = _inputs(p, 45, 1, dev)
+    G = torch.zeros_like(G)
+    spec, net = _deep(dims, act, dtype, dev, 1e-2)
+    tol = 1e-18 if dtype == torch.float64 else 1e-13   # both to the floor
+    before = kstep.LAUNCHES
+    with torch.no_grad():
+        got = kstep.make_step_kernel(p, spec, tol=tol)(G, yh, zh, tf, net)
+        want = kstep.step_reference(p, G, yh, zh, tf, net, tol=tol)
+    torch.cuda.synchronize()
+    assert kstep.LAUNCHES == before + 1
+    if dtype == torch.float64:
+        for a, b in zip(got[:4], want[:4]):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-10)
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dims,act", DEEP[:2])
+def test_step_kernel_deep_per_rod_nets_match_single_net_launches(dev, dims,
+                                                                 act):
+    from knode_cosserat_tpu_torch.models.mlp import StackedMLP
+    p = K.experimental_rod(N=10, device=dev).to(dtype=torch.float32)
+    G, yh, zh, tf = _inputs(p, 3, 4, dev)
+    G = torch.zeros_like(G)
+    nets = [_deep(dims, act, torch.float32, dev, 1e-2, seed=g)[1]
+            for g in range(3)]
+    k = kstep.make_step_kernel(p, nets[0].spec, tol=1e-13)
+    with torch.no_grad():
+        got = k(G, yh, zh, tf, StackedMLP(nets))
+        singles = [k(G[b:b + 1], yh[b:b + 1], zh[b:b + 1], tf[b:b + 1],
+                     nets[b]) for b in range(3)]
+    for b in range(3):
+        for x, w in zip(got, singles[b]):
+            assert torch.equal(x[b:b + 1], w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dims,act", DEEP)
+def test_next_segment_kernel_deep_net_matches_plain(dev, dtype, dims, act):
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    p = K.apply_mod("nsw", dtype=dtype, device=dev)
+    spec, net = _deep(dims, act, dtype, dev)
+    g = np.random.RandomState(3)
+    B = 300
+    G, yh, zh, tf = _inputs(K.experimental_rod(N=10, device=dev).to(
+        dtype=dtype), B, 3, dev)
+    y = yh[:, 4] + torch.tensor(1e-3 * g.randn(B, 19), dtype=dtype,
+                                device=dev)
+    cells = (y.contiguous(), yh[:, 3].contiguous(), zh[:, 3].contiguous(),
+             tf.contiguous())
+    W = [t for wb in net.weights() for t in wb]
+    before = kseg.LAUNCHES
+    with torch.no_grad():
+        got = kseg.make_fused_next_segment(p, spec)(net, *cells)
+        want = kseg.next_segment_reference(p, spec, *cells, *W)
+    torch.cuda.synchronize()
+    assert kseg.LAUNCHES == before + 1
+    tol = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}[dtype]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=tol[0], atol=tol[1])
 
 
 def test_mega_rollout_matches_plain(dev):

@@ -128,5 +128,11 @@ def test_segment_count_and_mesh_are_checked(rods, ctl):
             kms.simulate_scan_ms(krod, ctl, S)
     with pytest.raises(ValueError, match="unknown solver"):
         kms.simulate_scan_ms(krod, ctl, 4, solver="sparse")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4$"):
+    # a mesh needs the seq axis, over which S must divide (a mesh of
+    # ranks runs in tests/test_torch_parallel.py)
+    from types import SimpleNamespace
+    with pytest.raises(ValueError, match="no axis 'seq'"):
         kms.simulate_scan_ms(krod, ctl, 4, mesh=object())
+    with pytest.raises(ValueError, match="divide over the seq=3 mesh axis"):
+        kms.simulate_scan_ms(krod, ctl, 4, mesh=SimpleNamespace(
+            shape={"seq": 3}, index=lambda axis: 0))

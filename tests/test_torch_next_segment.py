@@ -133,10 +133,10 @@ def test_fused_train_step_matches_jax(monkeypatch):
 
 
 def test_deep_nets_raise_on_cuda_only():
-    """A 3-layer net runs on the CPU (the plain version takes any depth);
-    on a CUDA tensor it would raise the kernels' NotImplementedError, which
-    check_spec gives without a card."""
-    from knode_cosserat_tpu_torch.ops.sweep import check_spec
+    """A 3-layer net runs on the CPU (the plain version takes any depth)
+    and the kernels take it too (check_spec); only a net deeper than the
+    kernels' MAX_LAYERS raises, which check_spec gives without a card."""
+    from knode_cosserat_tpu_torch.ops.sweep import MAX_LAYERS, check_spec
     pk = K.apply_mod(None, device="cpu")
     spec = kmlp.MLPSpec(dims=(28, 8, 8, 25))
     net = kmlp.init_mlp(spec, torch.Generator().manual_seed(0), torch.float64,
@@ -144,8 +144,9 @@ def test_deep_nets_raise_on_cuda_only():
     ins = [torch.tensor(a) for a in _cells(J.apply_mod(None), 10, seed=0)]
     yg, z = kseg.make_fused_next_segment(pk, spec)(net, *ins)
     assert yg.shape == (10, 19) and z.shape == (10, 6)
-    with pytest.raises(NotImplementedError, match="deeper nets on CUDA"):
-        check_spec(spec)
+    check_spec(spec)
+    with pytest.raises(ValueError, match="at most"):
+        check_spec(kmlp.MLPSpec(dims=(28,) + (8,) * MAX_LAYERS + (25,)))
     with pytest.raises(ValueError, match="device"):
         kseg.make_fused_next_segment(pk, spec)(net, *(t.to("meta")
                                                       for t in ins))

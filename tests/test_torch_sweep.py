@@ -85,8 +85,15 @@ def test_sweep_reference_matches_pallas_interpret():
 def test_kernel_spec_checks():
     ksweep.check_spec(None)
     ksweep.check_spec(kmlp.MLPSpec.for_knode(512, history=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ksweep.check_spec(kmlp.MLPSpec(dims=(28, 16, 16, 25)))
+    # nets of any depth up to MAX_LAYERS layers (the JAX kernels' dims loop)
+    ksweep.check_spec(kmlp.MLPSpec(dims=(28, 16, 16, 25)))
+    ksweep.check_spec(kmlp.MLPSpec(dims=(53, 16, 16, 16, 25), history=True))
+    with pytest.raises(ValueError, match="at most"):
+        ksweep.check_spec(kmlp.MLPSpec(dims=(28,) + (8,) * 8 + (25,)))
+    with pytest.raises(ValueError, match="not a KNODE net"):
+        ksweep.check_spec(kmlp.MLPSpec(dims=(28, 16, 16, 24)))
+    with pytest.raises(ValueError, match="not a KNODE net"):
+        ksweep.check_spec(kmlp.MLPSpec(dims=(53, 16, 16, 25)))
     with pytest.raises(ValueError):
         ksweep.check_spec(kmlp.MLPSpec(dims=(28, 16, 25), activation="identity"))
 
