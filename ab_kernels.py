@@ -10,7 +10,11 @@ that a change is compared with its parent on the same card in one call:
   K2  one BDF-2 step, N=10, for_knode(512), 1, 40 and 256 rods;
   K8  the fused next segment, hidden 512, at path C's two shapes (232
       cells of 28 inputs, 1,904 cells of 53 inputs): the wrapper's call
-      and the kernel's device time (torch.profiler, chip_smoke.device_ms).
+      and the kernel's device time (torch.profiler, chip_smoke.device_ms);
+  K7  one coupled step of one assembly (M=3, N=10, step 5 of the sine
+      schedule, chip_smoke.step_args): the wrapper's call and the device
+      time; and path A, simulate_assembly(fused=True) at T=101 (steps/s,
+      CUDA events around the call, best of 3).
 
 All float32; calls by CUDA events (chip_smoke.timed). Every line is tagged
 with its checkout and the card's name and power limit. Needs one card.
@@ -53,6 +57,30 @@ for label, p, cfg, net, trajs, ctls in c.k8_cases(K, dev, c.bench_data(dev)):
     print(f"[time] K8 {label}, hidden 512 f32: the wrapper's call "
           f"{call:.4f} ms, device {kern:.4f} ms ({seen} of 50 launches "
           f"recorded) [{tag}]")
+from knode_cosserat_tpu_torch.core.assembly import (make_ring_assembly,
+                                                    simulate_assembly)
+from knode_cosserat_tpu_torch.ops import assembly as kasm
+asm = make_ring_assembly(**c.ASM_CFG, dtype=dt, device=dev)
+ins = c.step_args(asm, c.assembly_controls(asm, 8), 5)
+k7 = kasm.make_assembly_step_kernel(asm)
+kern, seen = c.device_ms(lambda: k7(*ins), 20, "assembly_kernel", kasm)
+call = c.timed(lambda: k7(*ins), 20)
+print(f"[time] K7 one coupled step M=3 N=10 f32: the wrapper's call "
+      f"{call:.4f} ms, device {kern:.4f} ms ({seen} of 20 launches "
+      f"recorded) [{tag}]")
+ctl = c.assembly_controls(asm, 101)
+simulate_assembly(asm, ctl[:3], fused=True)
+rates = []
+for _ in range(3):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    simulate_assembly(asm, ctl, fused=True)
+    end.record()
+    torch.cuda.synchronize()
+    rates.append(100 / (start.elapsed_time(end) / 1e3))
+print(f"[time] path A simulate_assembly(fused=True) M=3 N=10 f32 T=101: "
+      f"best of 3 {max(rates):.1f} steps/s [{tag}]")
 '''
 
 

@@ -145,6 +145,20 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      train_knode(mesh=) against the plain loop (K2 counted in its
      validation), simulate_scan_ms(mesh=) and simulate_scan_ms_halo at
      D = 1 against simulate_scan_ms.
+ 22. the batched assemblies (path G, the JAX package's jax.vmap over the
+     coupled solve): K7 over a grid of 256 blocks (one step, f32 and f64)
+     against 256 single launches, bit for bit, and in f64 against its
+     batched plain version (phase 13's bars); counted: simulate_assembly
+     over the JAX bench's 256 schedules (5 + U(0, 1) N, T=50, tol 1e-8,
+     fused, f32; 49 K7 launches), 4 of its systems against their rollouts
+     alone, coupled steps/s at B = 1, 16 and 256 (CUDA events around the
+     call), the batched K7 timed at B = 1, 16 and 256 beside its bound;
+     the plain batched coupled Newton (16 x T=11) against the fused batch
+     in float64 (phase 13's 1e-9), and in float32 each one's distance
+     from the float64 truth (printed); the multi-start
+     plan at path B's configuration with 8 restarts (one K7 launch per
+     forward step for all of them, the cost falling) and two restarts as
+     one batch against their two single plans.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -242,6 +256,24 @@ MPC_MOVE = (0.01, 0.0, 1e-4)
 # card, the eager IFT backward most of it, and the host's speed varies
 # 1.4x between calls)
 MPC_B_ITERS = 10
+# path G: the JAX bench's batched assemblies (bench.py:566-578: 256
+# schedules of 5 + U(0, 1) N, T = 50, tol 1e-8, M = 3, N = 10, f32), fused;
+# the systems whose batched rollouts are re-run alone; the plain batched
+# coupled Newton's shape; the multi-start's restarts (the JAX default) and
+# the Adam iterations of its two-restart check; the bars of that check
+# (f32: the batch's implicit backward solves its (R, U, U) systems in one
+# batched LU, whose rounding may differ from a single LU's); and the bound
+# on a sampled rollout that is not bit for bit its rollout alone
+G_BATCH, G_T, G_TOL = 256, 50, 1e-8
+G_SAMPLED = (0, 85, 170, 255)
+G_PLAIN_B, G_PLAIN_T = 16, 11
+G_RESTARTS, G_EQ_ITERS = 8, 3
+G_PLAN_RTOL, G_PLAN_U = 1e-4, 1e-3
+G_SAMPLE_BOUND = 1e-6
+# K7 at B = 256 in f64 against its batched plain version: systems that end
+# one Newton iteration apart, both converged (phase_k7 allows 2 of a
+# rollout's 20 steps, K7_STRADDLES; the same share of 256)
+G_STRADDLES = 26
 # K8 against its plain version, (rtol, atol): f64 to rounding; f32, where
 # the net's 512-term sums run in another order (measured ~5e-7 on
 # y_grown ~ 2 on the first chip run)
@@ -2196,19 +2228,35 @@ def device_ms(fn, n, kernel, module):
                          f"three windows of {n}")
 
 
-def k7_bound(asm, iters):
-    """(ms, by) for one K7 launch that took ``iters`` Newton iterations
-    (f32): per iteration the 20M rod sweeps the step needs (each rod's
-    base and its 12 probes, 7 line-search candidates), each N-1 nodes of
-    physics, and the elimination's U^3 multiply-adds; plus the first
-    residual's and the recording's M sweeps each."""
+def k7_work(asm, iters):
+    """(operations, bytes) of one system's K7 step that took ``iters``
+    Newton iterations (f32): per iteration the 20M rod sweeps the step
+    needs (each rod's base and its 12 probes, 7 line-search candidates),
+    each N-1 nodes of physics, and the elimination's U^3 multiply-adds;
+    plus the first residual's and the recording's M sweeps each. Bytes:
+    the system's inputs and outputs once, and the constants."""
     M, N = asm.M, asm.N
     U = 6 * M + 7
     sweep = (N - 1) * PHYS_FLOPS
     flops = iters * (20 * M * sweep + 2 * U ** 3) + 2 * M * sweep
     nbytes = (4 * (2 * U + M * N * 25 + 3 * M + 13 + M * N * 19
                    + M * (N - 1) * 6 + 2) + 8 * (M * 76 + 14 + 7 * M))
-    return bound(flops, nbytes)
+    return flops, nbytes
+
+
+def k7_bound(asm, iters):
+    """(ms, by) for one K7 launch of one system (k7_work)."""
+    return bound(*k7_work(asm, iters))
+
+
+def k7_batch_bound(asm, iters):
+    """(ms, by) for one K7 launch over a batch: each system's operations
+    at its own iterations (this run's data), summed; the constants read
+    once, every system's inputs and outputs once."""
+    work = [k7_work(asm, int(i)) for i in iters.tolist()]
+    const = 8 * (asm.M * 76 + 14 + 7 * asm.M)
+    return bound(sum(f for f, _ in work),
+                 sum(b - const for _, b in work) + const)
 
 
 def phase_k7_k8_timings(K, dev, name_power, small):
@@ -2268,6 +2316,295 @@ def phase_k7_k8_timings(K, dev, name_power, small):
             f"{plain:.4f} ms, bound {b_ms:.6f} ms "
             f"({b_by}); plan {tuple(kseg.launch_plan(p.dtype, din, HIDDEN, B))} "
             f"{tag}")
+    return out
+
+
+# ------------------------------------------- path G: batched assemblies
+
+def batched_schedules(asm, B, T, seed=SEED):
+    """(B, T, M, 4) tensions 5 + U(0, 1) N, the JAX bench's batched
+    workload (bench.py:569-571), from a seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+    return (5.0 + torch.rand((B, T, asm.M, 4), generator=g,
+                             dtype=torch.float64)).to(dtype=asm.dtype,
+                                                      device=asm.device)
+
+
+def batched_step_args(asm, ctl, t, tol):
+    """K7's batched inputs at step t of the batched fused rollout under
+    ``ctl`` (B, T, M, 4), captured from assembly_step_carry (these
+    launches are not the main path's)."""
+    from knode_cosserat_tpu_torch.core.assembly import (AssemblyCarry,
+                                                        assembly_step_carry)
+    from knode_cosserat_tpu_torch.ops.assembly import make_assembly_step_kernel
+    k, grab = make_assembly_step_kernel(asm, tol=tol), []
+    carry = AssemblyCarry.initial(asm, ctl.shape[0])
+    with torch.no_grad():
+        for s in range(t + 1):
+            carry = assembly_step_carry(
+                asm, carry, ctl[:, s], tol=tol,
+                solve_fn=lambda *a: grab.append(a) or k(*a))[0]
+    return grab[t]
+
+
+def first_divergence(asm, ctl, b, tol):
+    """Where system b's fused rollout inside the batch first leaves its
+    rollout alone: (step, K7 input) of the first K7 input that differs,
+    each named by the glue op that makes it."""
+    from knode_cosserat_tpu_torch.core.assembly import (AssemblyCarry,
+                                                        assembly_step_carry)
+    from knode_cosserat_tpu_torch.ops.assembly import make_assembly_step_kernel
+    names = ("X0 (2 G - G_prev, the warm start)", "yh (the BDF-2 history)",
+             "zh (the BDF-2 history)", "tf (tensions x tendon directions, "
+             "summed over the tendons)", "pph", "vph", "hph", "wbh")
+    runs = []
+    for batch in (True, False):
+        k, grab = make_assembly_step_kernel(asm, tol=tol), []
+        carry = AssemblyCarry.initial(asm, ctl.shape[0] if batch else None)
+        with torch.no_grad():
+            for s in range(ctl.shape[1] - 1):
+                carry = assembly_step_carry(
+                    asm, carry, ctl[:, s] if batch else ctl[b, s], tol=tol,
+                    solve_fn=lambda *a: grab.append(a) or k(*a))[0]
+        runs.append(grab)
+    for s, (xb, xs) in enumerate(zip(*runs)):
+        for name, u, v in zip(names, xb, xs):
+            if not torch.equal(u[b], v):
+                return s, name, float((u[b] - v).abs().max())
+    return None
+
+
+def phase_batched_assembly(K, dev, name_power, errs):
+    """Path G, the batched coupled assembly (the JAX package's jax.vmap):
+    (a) one K7 launch over 256 systems, f32 and f64, against 256 single
+    launches, bit for bit; (b) simulate_assembly over 256 schedules
+    (G_T steps, f32, fused, tol G_TOL), counted: G_T - 1 K7 launches,
+    finite outputs, G_SAMPLED systems against their rollouts alone, and
+    coupled steps/s at B = 1, 16 and 256; (c) the plain batched coupled
+    Newton at G_PLAIN_B x G_PLAIN_T against batched K7 on (b)'s first
+    schedules (float64 at phase_k7's bar; float32 distances printed); (d) the
+    multi-start plan, counted: G_RESTARTS restarts at path B's
+    configuration, one K7 launch per forward step for all of them, the
+    cost falling; two restarts as one batch against their two single
+    plans. Returns the counts, times and the batched K7 row's numbers."""
+    from knode_cosserat_tpu_torch.control import (
+        make_assembly_planner, make_multistart_assembly_planner)
+    from knode_cosserat_tpu_torch.core.assembly import (AssemblyCarry,
+                                                        make_ring_assembly,
+                                                        simulate_assembly)
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    from knode_cosserat_tpu_torch.ops.assembly import (
+        assembly_step_reference, make_assembly_step_kernel)
+
+    tag = f"[{name_power}]"
+    out = {}
+    # (a) one step at B = 256: the batch against single launches
+    for dt, tol in ((torch.float32, G_TOL), (torch.float64, K7_TOL64)):
+        asm = make_ring_assembly(**ASM_CFG, dtype=dt, device=dev)
+        ins = batched_step_args(asm, batched_schedules(asm, G_BATCH, 8), 5,
+                                tol)
+        k = make_assembly_step_kernel(asm, tol=tol, max_iter=30)
+        got = k(*ins)
+        differ = 0
+        for b in range(G_BATCH):
+            one = k(*(t[b] for t in ins))
+            differ += not all(torch.equal(a[b], w) for a, w in zip(got, one))
+        torch.cuda.synchronize()
+        its = got[4]
+        log(f"[G] K7 one step at B={G_BATCH}, M=3 N=10 {str(dt)[6:]} (tol "
+            f"{tol:g}): one launch against {G_BATCH} single launches, "
+            f"{G_BATCH - differ} of {G_BATCH} systems bit for bit; Newton "
+            f"iterations {int(its.min())}-{int(its.max())} (mean "
+            f"{float(its.float().mean()):.2f})")
+        if differ:
+            raise AssertionError(f"batched K7 {dt}: {differ} systems differ "
+                                 f"from their single launches")
+        if dt == torch.float32:
+            ins32, asm32, iters32 = ins, asm, its
+            continue
+        # f64: the batch against its batched plain version (phase_k7's bars)
+        want = assembly_step_reference(asm, *ins, tol=tol, max_iter=30)
+        ok_x, e_x = close(got[0], want[0], 0.0, K7_F64)
+        ok_y, e_y = rel_close(got[1], want[1], K7_F64)
+        ok_z, e_z = rel_close(got[2], want[2], K7_F64)
+        apart = int((got[4] != want[4]).sum())
+        far = int(((got[4] - want[4]).abs() > 1).sum()
+                  + ((got[4] != want[4]) & ((got[3] > tol)
+                                            | (want[3] > tol))).sum())
+        errs.setdefault("K7 batched", []).append(e_x)
+        log(f"[G] K7 at B={G_BATCH} f64 against its batched plain version: X "
+            f"{e_x:.3e} y {e_y:.3e} (rel) z {e_z:.3e} (rel); {apart} systems "
+            f"end one iteration apart, both converged (bar {G_STRADDLES})")
+        if not (ok_x and ok_y and ok_z and far == 0
+                and apart <= G_STRADDLES):
+            raise AssertionError(f"batched K7 f64 vs plain beyond {K7_F64}, "
+                                 f"or iterations differ ({apart}, {far})")
+
+    # the batched K7 timed at B = 1, 16, 256 (f32, (a)'s inputs)
+    k = make_assembly_step_kernel(asm32, tol=G_TOL, max_iter=30)
+    for B in (1, 16, G_BATCH):
+        sub = [t[:B] for t in ins32]
+        kern, seen = device_ms(lambda: k(*sub), 20, "assembly_kernel", kasm)
+        call = timed(lambda: k(*sub), 20)
+        b_ms, b_by = k7_batch_bound(asm32, iters32[:B])
+        out[f"K7 B={B}"] = dict(ms=call, device_ms=kern, bound_ms=b_ms,
+                                bound_by=b_by)
+        log(f"[time] K7 batched, B={B} systems M=3 N=10 f32 in one launch "
+            f"(iterations {int(iters32[:B].min())}-{int(iters32[:B].max())}"
+            f"): the wrapper's call {call:.4f} ms (device time {kern:.4f} "
+            f"ms over {seen} of 20 launches), bound {b_ms:.6f} ms ({b_by}) "
+            f"{tag}")
+    plain = timed(lambda: assembly_step_reference(asm32, *ins32, tol=G_TOL,
+                                                  max_iter=30), 1)
+    out[f"K7 B={G_BATCH}"]["plain_ms"] = plain
+    log(f"[time] K7's plain version batched, B={G_BATCH}: {plain:.3f} ms "
+        f"{tag}")
+
+    # (b) path G at full width, counted
+    ctl = batched_schedules(asm32, G_BATCH, G_T)
+    simulate_assembly(asm32, ctl[:, :3], fused=True, tol=G_TOL)    # warm
+    rates, total = {}, 0
+    for B in (1, 16, G_BATCH, G_BATCH):
+        torch.cuda.synchronize()
+        kasm.LAUNCHES = 0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        res = simulate_assembly(asm32, ctl[:B], fused=True, tol=G_TOL)
+        end.record()
+        torch.cuda.synchronize()
+        launches = kasm.LAUNCHES
+        total += launches
+        secs = start.elapsed_time(end) / 1e3
+        rates.setdefault(B, []).append(B * (G_T - 1) / secs)
+        if launches != G_T - 1:
+            raise AssertionError(f"path G, B={B}: {launches} K7 launches, "
+                                 f"want {G_T - 1}")
+        if not all(bool(torch.isfinite(f).all()) for f in res):
+            raise AssertionError(f"path G, B={B}: non-finite output")
+        log(f"[G] simulate_assembly(fused=True), {B} schedules x T={G_T}, "
+            f"M=3 N=10 f32, tol {G_TOL:g}: {secs:.4f} s = {rates[B][-1]:.1f}"
+            f" coupled steps/s; K7 launches {launches}; Newton iterations "
+            f"mean {float(res.newton_iters[:, 1:].float().mean()):.2f} max "
+            f"{int(res.newton_iters.max())}, residual max "
+            f"{float(res.residual_norm.max()):.3e} {tag}")
+        if B == G_BATCH:
+            batched = res
+    out["G launches"] = total
+    out["G steps/s"] = {B: max(r) for B, r in rates.items()}
+    shapes = [tuple(f.shape) for f in batched]
+    want = [(G_BATCH, G_T, 3, 10, 50), (G_BATCH, G_T, 7),
+            (G_BATCH, G_T, 3, 6), (G_BATCH, G_T), (G_BATCH, G_T)]
+    if shapes != want:
+        raise AssertionError(f"path G shapes {shapes}, want {want}")
+    for b in G_SAMPLED:
+        alone = simulate_assembly(asm32, ctl[b], fused=True, tol=G_TOL)
+        same = [torch.equal(f[b], a) for f, a in zip(batched, alone)]
+        if all(same):
+            log(f"[G] system {b}: its rollout inside the batch equals its "
+                f"rollout alone, bit for bit")
+            continue
+        gap = {n: float((f[b].double() - a.double()).abs().max())
+               for n, f, a in zip(batched._fields, batched, alone)}
+        where = first_divergence(asm32, ctl, b, G_TOL)
+        log(f"[G] system {b}: inside the batch vs alone, max |diff| {gap}; "
+            f"first K7 input that differs (step, op, max |diff|): {where}")
+        errs["K7 batched"].append(gap["plate_pose"])
+        if not (gap["plate_pose"] <= G_SAMPLE_BOUND
+                and gap["Gs"] <= G_SAMPLE_BOUND * 1e3):
+            raise AssertionError(f"path G system {b} beyond the bound: "
+                                 f"{gap}")
+
+    # (c) the plain batched coupled Newton on (b)'s first schedules against
+    # the fused batch on them: in f64, both solved to 1e-24, within
+    # phase_k7's f64 bar (K7_F64); in f32 each one's distance from that
+    # f64 truth, printed: phase_k7's f32 envelope (K7 within 3x the plain
+    # Newton's distance) does not hold on these random schedules, for K7
+    # alone as in the batch (on an H100: G 1.25e-2 against 3.37e-3 at tol
+    # 1e-10; PERF.md)
+    sub = ctl[:G_PLAIN_B, :G_PLAIN_T]
+    asm64 = make_ring_assembly(**ASM_CFG, dtype=torch.float64, device=dev)
+    truth = simulate_assembly(asm64, sub.double(), tol=K7_TOL64)
+    fused64 = simulate_assembly(asm64, sub.double(), tol=K7_TOL64,
+                                fused=True)
+    ok_g, e_g = close(fused64.Gs, truth.Gs, 0.0, K7_F64)
+    ok_p, e_p = close(fused64.plate_pose, truth.plate_pose, 0.0, K7_F64)
+    ok_y, e_y = rel_close(fused64.traj, truth.traj, K7_F64)
+    errs["K7 batched"].extend([e_g, e_p])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = simulate_assembly(asm32, sub, tol=1e-10)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    fused = simulate_assembly(asm32, sub, tol=1e-10, fused=True)
+    err = lambda a, b: float((a.double() - b).abs().max())
+    f32 = {name: (err(r.Gs, truth.Gs), err(r.plate_pose, truth.plate_pose))
+           for name, r in (("plain", plain), ("K7", fused))}
+    f32[f"(b), tol {G_TOL:g}"] = (
+        err(batched.Gs[:G_PLAIN_B, :G_PLAIN_T], truth.Gs),
+        err(batched.plate_pose[:G_PLAIN_B, :G_PLAIN_T], truth.plate_pose))
+    log(f"[G] plain batched coupled Newton (dense) against batched K7, "
+        f"{G_PLAIN_B} schedules x T={G_PLAIN_T}, f64 at tol {K7_TOL64:g}: G "
+        f"{e_g:.3e} plate {e_p:.3e} y {e_y:.3e} (rel) (bar {K7_F64}); "
+        f"f32 plain at tol 1e-10: {t_plain:.3f} s = "
+        f"{G_PLAIN_B * (G_PLAIN_T - 1) / t_plain:.1f} coupled steps/s; f32 "
+        f"against the f64 truth (G, plate): "
+        + "; ".join(f"{n} {g:.3e}, {q:.3e}" for n, (g, q) in f32.items())
+        + f" {tag}")
+    if not (ok_g and ok_p and ok_y and all(np.isfinite(v).all()
+                                           for v in f32.values())):
+        raise AssertionError(f"path G: plain batched Newton vs batched K7 "
+                             f"f64 beyond {K7_F64}: G {e_g:.3e} plate "
+                             f"{e_p:.3e} y {e_y:.3e}, or f32 non-finite")
+    out["plain steps/s"] = G_PLAIN_B * (G_PLAIN_T - 1) / t_plain
+
+    # (d) the multi-start plan at path B's configuration, counted
+    H = 8
+    carry = AssemblyCarry.initial(asm32)
+    ramp = torch.arange(1, H + 1, dtype=asm32.dtype, device=dev)[:, None] / H
+    target = carry.pp + ramp * torch.tensor(MPC_MOVE, dtype=asm32.dtype,
+                                            device=dev)
+    plan = make_multistart_assembly_planner(asm32, H, restarts=G_RESTARTS,
+                                            fused=True, w_du=0.0,
+                                            opt_iters=MPC_B_ITERS)
+    torch.cuda.synchronize()
+    kasm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    r = plan(carry, target, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kasm.LAUNCHES
+    costs = r.cost_history.cpu().numpy()
+    log(f"[G] make_multistart_assembly_planner(restarts={G_RESTARTS}, "
+        f"fused=True) M=3 N=10 f32, horizon {H}, {MPC_B_ITERS} iterations, "
+        f"w_du 0: {secs:.2f} s, K7 launches {launches}; the winner's cost "
+        f"{costs[0]:.4e} -> {costs[-1]:.4e} (final {float(r.cost):.4e}) "
+        f"{tag}")
+    if launches != (MPC_B_ITERS + 1) * H:
+        raise AssertionError(f"multi-start plan: {launches} K7 launches, "
+                             f"want {(MPC_B_ITERS + 1) * H} (one per forward "
+                             f"step for all restarts)")
+    if not (np.isfinite(costs).all() and costs[-1] < costs[0]):
+        raise AssertionError(f"multi-start plan: cost {costs[0]} -> "
+                             f"{costs[-1]}")
+    out["plan launches"], out["plan seconds"] = launches, secs
+    # two restarts as one batch against their two single plans
+    two = make_assembly_planner(asm32, H, fused=True, w_du=0.0,
+                                opt_iters=G_EQ_ITERS)
+    g = torch.Generator().manual_seed(SEED)
+    starts = torch.cat([torch.zeros((1, H, 3, 4)), 2.0 * torch.randn(
+        (1, H, 3, 4), generator=g, dtype=torch.float64).float()]).to(dev)
+    both = two(carry, target, logits_init=starts)
+    singles = [two(carry, target, logits_init=s) for s in starts]
+    e_cost = max(abs(float(both.cost[i]) - float(s.cost))
+                 / abs(float(s.cost)) for i, s in enumerate(singles))
+    e_u = max(float((both.tensions[i] - s.tensions).abs().max())
+              for i, s in enumerate(singles))
+    log(f"[G] two restarts as one batch against two single plans "
+        f"({G_EQ_ITERS} iterations): cost max relative {e_cost:.3e}, "
+        f"tensions max {e_u:.3e} N (bars {G_PLAN_RTOL:g}, {G_PLAN_U:g})")
+    if not (e_cost <= G_PLAN_RTOL and e_u <= G_PLAN_U):
+        raise AssertionError(f"batched plan vs single plans: {e_cost:.3e}, "
+                             f"{e_u:.3e}")
     return out
 
 
@@ -2751,7 +3088,9 @@ def main() -> int:
     deep = phase_deep_paths(K, dev, name_power)
     deep_ms = deep_timings(K, dev, name_power, data[0])
     par = phase_parallel(K, dev, name_power)
-    k7_launches = asm["launches"] + mpc["launches"]
+    path_g = phase_batched_assembly(K, dev, name_power, errs)
+    g_launches = path_g["G launches"] + path_g["plan launches"]
+    k7_launches = asm["launches"] + mpc["launches"] + g_launches
 
     # bounds at the timed shapes (float32, hidden 512, 28 inputs, N=10)
     R, f_node = 256, node_flops(HIDDEN, 28)
@@ -2832,6 +3171,20 @@ def main() -> int:
          "ms": t78["K7 M=3"]["ms"], "device_ms": t78["K7 M=3"]["device_ms"],
          "plain_ms": t78["K7 M=3"]["plain_ms"],
          **row((t78["K7 M=3"]["bound_ms"], t78["K7 M=3"]["bound_by"]))},
+        {"name": f"K7 assembly step, batched (B={G_BATCH} systems of M=3, "
+                 f"N=10 in one launch, a block per system; path G)",
+         "route": "cuda", "source": src + "assembly.cu",
+         "replaces": "knode_cosserat_tpu/ops/pallas_assembly.py:84",
+         "launches": g_launches, "max_abs_err": max(errs["K7 batched"]),
+         "ms": path_g[f"K7 B={G_BATCH}"]["ms"],
+         "device_ms": path_g[f"K7 B={G_BATCH}"]["device_ms"],
+         "plain_ms": path_g[f"K7 B={G_BATCH}"]["plain_ms"],
+         **row((path_g[f"K7 B={G_BATCH}"]["bound_ms"],
+                path_g[f"K7 B={G_BATCH}"]["bound_by"])),
+         **{f"ms_b{B}": path_g[f"K7 B={B}"]["ms"] for B in (1, 16)},
+         **{f"bound_ms_b{B}": path_g[f"K7 B={B}"]["bound_ms"]
+            for B in (1, 16)},
+         "steps_per_sec": path_g["G steps/s"]},
         {"name": "K8 next segment (232 cells, 28 inputs, hidden 512; a "
                  "warp per cell over rhs_node_coop, redesigned)",
          "route": "cuda", "source": src + "next_segment.cu",

@@ -18,11 +18,16 @@ With ``fused=True`` kernel K7 (ops/assembly.py) solves each step's root.
 optax.adam(opt_lr) is training/train.AdamPlateau's Adam (optax's update:
 m_hat / (sqrt(v_hat) + 1e-8), no eps_root) with a patience longer than
 the run, so its plateau never scales the rate; the JAX package's
-``lax.scan`` over Adam steps is a Python loop, and the multi-start's vmap
-over restarts a loop over restarts.
+``lax.scan`` over Adam steps is a Python loop. The multi-start's vmap over
+restarts is a batch: the R restarts' logits (R, H, M, n_tendons) go
+through one batched rollout (every horizon step one coupled solve, one K7
+launch with ``fused=True``, for all of them, and one batched implicit
+root in the backward), and Adam steps on the gradient of the sum of
+their costs, so each restart's logits get exactly their own gradient.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -35,6 +40,8 @@ __all__ = ["AssemblyPlanResult", "rollout_plate", "make_assembly_planner",
 
 
 class AssemblyPlanResult(NamedTuple):
+    """A plan over a batch of logits (R restarts) has a leading R on every
+    field."""
     tensions: torch.Tensor      # (H, M, n_tendons) optimized schedule
     logits: torch.Tensor        # (H, M, n_tendons) reparam warm start
     cost: torch.Tensor          # scalar final cost
@@ -48,17 +55,22 @@ def rollout_plate(asm: RodAssembly, carry: AssemblyCarry, tensions,
                   solve_fn=None):
     """Differentiable H-step assembly rollout from ``carry`` under a
     (H, M, n_tendons) tension schedule: (plate poses (H, 7), final carry).
+    Tensions (R, H, M, n_tendons) roll R schedules out as one batch, from
+    a batched carry or from one carry broadcast to all R: plate poses
+    (R, H, 7), each horizon step one batched solve.
     solve_fn: a fused root solver (K7, ops/assembly.py); the gradients
     still come through the plain residual (assembly_step_carry)."""
     tensions = torch.as_tensor(tensions, dtype=asm.dtype, device=asm.device)
+    if tensions.dim() == 4 and carry.y.dim() == 3:
+        carry = carry.expand(tensions.shape[0])
     plates = []
-    for u in tensions:
+    for t in range(tensions.shape[-3]):
         carry, _, plate7, _, _ = assembly_step_carry(
-            asm, carry, u, nn_fn, nn_history, tol, max_iter,
-            differentiable=True, nn_spec=nn_spec, nn_params=nn_params,
-            solve_fn=solve_fn)
+            asm, carry, tensions[..., t, :, :], nn_fn, nn_history, tol,
+            max_iter, differentiable=True, nn_spec=nn_spec,
+            nn_params=nn_params, solve_fn=solve_fn)
         plates.append(plate7)
-    return torch.stack(plates), carry
+    return torch.stack(plates, dim=-2), carry
 
 
 def _quat_err(h: torch.Tensor, h_target: torch.Tensor) -> torch.Tensor:
@@ -91,6 +103,10 @@ def make_assembly_planner(
     target_pos: (horizon, 3) plate positions; target_quat: (horizon, 4)
     (used when w_ori > 0). nn_params: per-rod nets (a sequence of M, with
     ``nn_spec``). fused: solve each horizon step's root with K7 (no net).
+    logits_init (R, horizon, M, n_tendons) runs R independent plans as
+    one batch (the multi-start's restarts, the JAX package's vmap): every
+    field of the result, and u_last when it defaults, gains a leading R
+    (the cost history (R, opt_iters)).
     """
     span, lo = float(u_max) - float(u_min), float(u_min)
     M, n_t = asm.M, int(asm.rods[0].n_tendons)
@@ -107,16 +123,18 @@ def make_assembly_planner(
         return lo + span * torch.sigmoid(logits)
 
     def cost_fn(logits, carry, target_pos, target_quat, nn_params, u_last):
+        """The cost ([R],), tensions and plate poses of logits ([R,] H, M,
+        n_t)."""
         u = to_u(logits)
         plates, _ = rollout_plate(asm, carry, u, nn_spec=nn_spec,
                                   nn_params=nn_params, tol=tol,
                                   max_iter=max_iter, solve_fn=solve_fn)
-        track = ((plates[:, :3] - target_pos) ** 2).sum(-1).mean()
+        track = ((plates[..., :3] - target_pos) ** 2).sum(-1).mean(-1)
         if w_ori > 0.0:
-            e = _quat_err(plates[:, 3:7], target_quat)
-            track = track + w_ori * (e * e).sum(-1).mean()
-        du = torch.diff(torch.cat([u_last[None], u]), dim=0)
-        return track + w_du * (du * du).sum((-2, -1)).mean(), u, plates
+            e = _quat_err(plates[..., 3:7], target_quat)
+            track = track + w_ori * (e * e).sum(-1).mean(-1)
+        du = torch.diff(torch.cat([u_last.unsqueeze(-3), u], dim=-3), dim=-3)
+        return (track + w_du * (du * du).sum((-2, -1)).mean(-1), u, plates)
 
     def plan(carry: AssemblyCarry, target_pos, target_quat=None,
              logits_init=None, nn_params=None,
@@ -132,26 +150,32 @@ def make_assembly_planner(
         if logits_init is None:
             logits_init = torch.zeros((horizon, M, n_t), **kw)
         logits_init = torch.as_tensor(logits_init, **kw)
+        lead = tuple(logits_init.shape[:-3])    # (R,) for a batch, else ()
         if u_last is None:
-            u_last = to_u(logits_init[0])
-        u_last = torch.as_tensor(u_last, **kw).detach()
+            u_last = to_u(logits_init[..., 0, :, :])
+        u_last = torch.as_tensor(u_last, **kw).detach().expand(
+            lead + (M, n_t))
         carry = AssemblyCarry(*(t.detach() for t in carry))
         logits = logits_init.detach().clone().requires_grad_(True)
+        # a patience past the last step: the plateau never scales the
+        # rate, so the restarts of a batch, which share its state, stay
+        # uncoupled (Adam's moments are elementwise)
         adam = AdamPlateau([logits], lr=opt_lr, patience=opt_iters + 1)
         costs = []
         for _ in range(opt_iters):
             with torch.enable_grad():
                 cost, _, _ = cost_fn(logits, carry, target_pos, target_quat,
                                      nn_params, u_last)
-                (logits.grad,) = torch.autograd.grad(cost, logits)
-            adam.step(cost.detach())
+                # restart r's logits reach cost[r] alone
+                (logits.grad,) = torch.autograd.grad(cost.sum(), logits)
+            adam.step(cost.sum().detach())
             costs.append(cost.detach())
         with torch.no_grad():
             final, u, plates = cost_fn(logits, carry, target_pos, target_quat,
                                        nn_params, u_last)
-        return AssemblyPlanResult(u, logits.detach(), final,
-                                  torch.stack(costs) if costs
-                                  else torch.zeros(0, **kw), plates)
+        history = (torch.stack(costs, dim=-1) if costs
+                   else torch.zeros(lead + (0,), **kw))
+        return AssemblyPlanResult(u, logits.detach(), final, history, plates)
 
     return plan
 
@@ -161,15 +185,17 @@ def make_multistart_assembly_planner(asm: RodAssembly, horizon: int,
                                      init_scale: float = 2.0,
                                      **kw) -> Callable[..., AssemblyPlanResult]:
     """Multi-start variant of make_assembly_planner: ``restarts`` Adam
-    descents, restart 0 from ``logits_init`` (the receding-horizon warm
-    start) and the others from it plus init_scale * N(0, 1) noise drawn
-    from ``generator``; the best final cost wins, so the result is never
-    worse than the single plan.
+    descents run as ONE batch (every horizon step one coupled solve for
+    all restarts: one K7 launch with ``fused=True``), restart 0 from
+    ``logits_init`` (the receding-horizon warm start) and the others from
+    it plus init_scale * N(0, 1) noise drawn from ``generator``; the best
+    final cost wins (a NaN cost, a diverged restart, never does), so the
+    result is never worse than the single plan.
 
     Returns ``plan(carry, target_pos, generator, target_quat=None,
     logits_init=None, nn_params=None, u_last=None)``; ``generator`` is a
     CPU ``torch.Generator`` (the JAX package's PRNG key)."""
-    single = make_assembly_planner(asm, horizon, nn_spec, **kw)
+    batched = make_assembly_planner(asm, horizon, nn_spec, **kw)
     M, n_t = asm.M, int(asm.rods[0].n_tendons)
 
     def plan(carry: AssemblyCarry, target_pos, generator: torch.Generator,
@@ -182,10 +208,9 @@ def make_multistart_assembly_planner(asm: RodAssembly, horizon: int,
                                          generator=generator,
                                          dtype=asm.dtype).to(asm.device)
         inits = torch.cat([logits_init[None], logits_init[None] + noise])
-        results = [single(carry, target_pos, target_quat, li, nn_params,
-                          u_last) for li in inits]
-        best = int(torch.argmin(torch.stack([r.cost for r in results])))
-        return results[best]
+        r = batched(carry, target_pos, target_quat, inits, nn_params, u_last)
+        best = int(torch.argmin(torch.nan_to_num(r.cost, nan=math.inf)))
+        return AssemblyPlanResult(*(t[best] for t in r))
 
     return plan
 

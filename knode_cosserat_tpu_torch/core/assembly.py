@@ -22,6 +22,16 @@ of leading axes in front of X's, so the Jacobians (one replicated
 reverse pass, core/multiple_shooting.jacobian) and the line search's
 candidates each take one residual call.
 
+A batch of B systems of the same assembly (the JAX package's
+``jax.vmap`` over simulate_assembly, the planners' restarts): X (B, U)
+against histories (B, M, N, 19), (B, M, N, 6), tendon forces (B, M, 3)
+and plate histories (B, 3 | 4); a probe or candidate axis sits in front
+of B, so histories pair with their own system only. The rods, the plate
+and the nets are shared. ``controls`` (B, T, M, n_tendons) gives every
+output of simulate_assembly a leading B; each system's Newton runs under
+its own mask (core/multiple_shooting._newton_loop_batched), so system b's
+results are its unbatched solve's.
+
 Solvers: ``"structured"`` builds the arrowhead Jacobian from the per-rod
 tip Jacobians (13 x 6 each) and the plate algebra's; ``"dense"``
 differentiates the whole residual; ``"auto"`` takes structured on the CPU
@@ -282,8 +292,10 @@ def assembly_from_jax(asm, dtype: torch.dtype | None = None,
 
 def _sweep_all(asm: RodAssembly, G, yh, zh, tf, nn_fn, nn_history,
                nn_spec=None, nn_params=None):
-    """All M rod sweeps: G (..., M, 6), yh (M, N, 19), zh (M, N, 6),
-    tf (M, 3) -> (y (..., M, N, 19), z_body (..., M, N-1, 6)).
+    """All M rod sweeps: G (..., M, 6), yh ([B,] M, N, 19), zh ([B,] M,
+    N, 6), tf ([B,] M, 3) -> (y (..., M, N, 19), z_body (..., M, N-1,
+    6)); a batch axis B of the histories pairs with the axis of G in
+    front of M.
 
     ``nn_fn`` applies ONE shared residual net to every rod, and the rods
     advance together node by node (asm.stacked_rods: one RHS call per
@@ -292,7 +304,8 @@ def _sweep_all(asm: RodAssembly, G, yh, zh, tf, nn_fn, nn_history,
     if nn_params is not None:
         ys, zs = [], []
         for i, p in enumerate(asm.rods):
-            y, z = integrate_euler(p, G[..., i, :], yh[i], zh[i], tf[i],
+            y, z = integrate_euler(p, G[..., i, :], yh[..., i, :, :],
+                                   zh[..., i, :, :], tf[..., i, :],
                                    nn_params[i], nn_history)
             ys.append(y)
             zs.append(z)
@@ -303,7 +316,8 @@ def _sweep_all(asm: RodAssembly, G, yh, zh, tf, nn_fn, nn_history,
     y = torch.cat([e(p.p0), e(p.h0), G, e(p.q0), e(p.w0)], dim=-1)
     ys, zs = [y], []
     for j in range(asm.N - 1):
-        dy, zj = rhs(p, y, yh[:, j], zh[:, j], tf, nn_fn, nn_history)
+        dy, zj = rhs(p, y, yh[..., j, :], zh[..., j, :], tf, nn_fn,
+                     nn_history)
         y = y + p.ds * dy
         ys.append(y)
         zs.append(zj)
@@ -388,15 +402,15 @@ def _tip_jacobians(asm: RodAssembly, G, yh, zh, tf, nn_fn, nn_history,
                    nn_spec=None, nn_params=None):
     """Per-rod tip Jacobians T_i = d tip_i / d G_i (tip_i depends on G_i
     alone): one replicated reverse pass over 13 copies of G covers every
-    rod. Returns (T (M, 13, 6), tips (M, 13))."""
+    rod. G ([B,] M, 6) -> (T ([B,] M, 13, 6), tips ([B,] M, 13))."""
     with torch.enable_grad():
         Gr = G.detach().expand((13,) + G.shape).clone().requires_grad_(True)
         y, _ = _sweep_all(asm, Gr, yh, zh, tf, nn_fn, nn_history,
                           nn_spec, nn_params)
-        tips = y[..., -1, :13]                         # (13, M, 13)
+        tips = y[..., -1, :13]                         # (13, [B,] M, 13)
         (g,) = torch.autograd.grad(
-            torch.diagonal(tips, dim1=0, dim2=2).sum(), Gr)
-    return g.transpose(0, 1), tips[0].detach()
+            torch.diagonal(tips, dim1=0, dim2=-1).sum(), Gr)
+    return g.movedim(0, -2), tips[0].detach()
 
 
 def _assembly_jacobian(asm: RodAssembly, X, yh, zh, tf, pph, vph, hph, wbh,
@@ -406,21 +420,21 @@ def _assembly_jacobian(asm: RodAssembly, X, yh, zh, tf, pph, vph, hph, wbh,
     their own G_i (through the sweep) plus the 7 plate variables; the plate
     rows see every tip. So J[:, G_i] = (dR/d tips_i) T_i and
     J[:, plate] = dR/d plate7, with the sweeps carrying 13 copies instead
-    of 6M+7."""
+    of 6M+7. X ([B,] U) -> (J ([B,] U, U), r ([B,] U))."""
     M = asm.M
     U = 6 * M + 7
-    T, tips = _tip_jacobians(asm, X[:6 * M].reshape(M, 6), yh, zh, tf, nn_fn,
-                             nn_history, nn_spec, nn_params)
-    flat = torch.cat([tips.reshape(-1), X[6 * M:]])
+    T, tips = _tip_jacobians(asm, X[..., :6 * M].unflatten(-1, (M, 6)), yh,
+                             zh, tf, nn_fn, nn_history, nn_spec, nn_params)
+    flat = torch.cat([tips.flatten(-2), X[..., 6 * M:]], dim=-1)
 
     def alg(v):
         return _residual_algebra(asm, v[..., :13 * M].unflatten(-1, (M, 13)),
                                  v[..., 13 * M:], pph, vph, hph, wbh)
 
-    Ja = jacobian(alg, flat, m=U)                  # (U, 13M + 7)
-    Jt = Ja[:, :13 * M].reshape(U, M, 13)
-    JG = torch.einsum("rmt,mtg->rmg", Jt, T).reshape(U, 6 * M)
-    return torch.cat([JG, Ja[:, 13 * M:]], dim=1), alg(flat)
+    Ja = jacobian(alg, flat, m=U)                  # ([B,] U, 13M + 7)
+    Jt = Ja[..., :13 * M].unflatten(-1, (M, 13))
+    JG = torch.einsum("...rmt,...mtg->...rmg", Jt, T).flatten(-2)
+    return torch.cat([JG, Ja[..., 13 * M:]], dim=-1), alg(flat)
 
 
 def _newton_structured(residual_fn, jac_fn, X0, tol, max_iter, **kw):
@@ -468,13 +482,15 @@ def assembly_solve_step(asm: RodAssembly, yh, zh, tf, X0, pph, vph, hph,
     """Solve one BDF-2 time step of the coupled assembly.
 
     yh/zh: (M, N, 19)/(M, N, 6) histories; tf: (M, 3) tendon body forces;
-    X0: (6M+7,) warm start; pph/vph/hph/wbh: plate histories.
+    X0: (6M+7,) warm start; pph/vph/hph/wbh: plate histories. A batch of
+    B systems: X0 (B, 6M+7) and every history with a leading B (module
+    docstring); the results then carry it too.
     differentiable: the root carries implicit-function-theorem gradients
     (shooting.implicit_root) to every tensor the residual depends on: the
     histories, the tensions behind tf, the nets' weights, the rods' and
     the plate's parameters (training/sysid.fit_assembly_params).
     solver: "structured", "dense" or "auto" (module docstring).
-    Returns (y (M, N, 19), z_body (M, N-1, 6), X, stats)."""
+    Returns (y ([B,] M, N, 19), z_body ([B,] M, N-1, 6), X, stats)."""
     if solver == "auto":
         solver = "structured" if X0.device.type == "cpu" else "dense"
     if solver not in ("structured", "dense"):
@@ -493,14 +509,15 @@ def assembly_solve_step(asm: RodAssembly, yh, zh, tf, X0, pph, vph, hph,
     if differentiable:
         X, stats = _implicit_root(asm, X, tol, **kw)
     M = asm.M
-    y, z_body = _sweep_all(asm, X[:6 * M].reshape(M, 6), yh, zh, tf,
-                           nn_fn, nn_history, nn_spec, nn_params)
+    y, z_body = _sweep_all(asm, X[..., :6 * M].unflatten(-1, (M, 6)), yh,
+                           zh, tf, nn_fn, nn_history, nn_spec, nn_params)
     return y, z_body, X, stats
 
 
 # ---------------------------------------------------------------- rollout
 
 class AssemblySimOutput(NamedTuple):
+    """Every field has a leading B for a batch of schedules."""
     traj: torch.Tensor           # (T, M, N, 50) [y, z, yh, zh] per rod
     plate_pose: torch.Tensor     # (T, 7) [p_plate, h_plate]
     Gs: torch.Tensor             # (T, M, 6) converged base reactions
@@ -529,7 +546,8 @@ def _initial_rod_states(asm: RodAssembly):
 
 class AssemblyCarry(NamedTuple):
     """BDF-2 carry of the coupled assembly (the state of simulate_assembly's
-    loop; also the moving-horizon state of the planners)."""
+    loop; also the moving-horizon state of the planners). A batch of B
+    systems carries a leading B on every leaf."""
     y: torch.Tensor          # (M, N, 19)
     z: torch.Tensor          # (M, N, 6)
     y_prev: torch.Tensor
@@ -546,20 +564,29 @@ class AssemblyCarry(NamedTuple):
     wb_prev: torch.Tensor
 
     @staticmethod
-    def initial(asm: RodAssembly) -> "AssemblyCarry":
+    def initial(asm: RodAssembly, batch: Optional[int] = None
+                ) -> "AssemblyCarry":
+        """The straight assembly at rest; ``batch``: B copies of it."""
         y0, z0 = _initial_rod_states(asm)
         kw = dict(dtype=asm.dtype, device=asm.device)
         G0 = torch.zeros((asm.M, 6), **kw)
         pp0, hp0 = asm.p_plate0.clone(), asm.h_plate0.clone()
         v0 = torch.zeros(3, **kw)
-        return AssemblyCarry(y0, z0, y0, z0, G0, G0, pp0, pp0, hp0, hp0,
-                             v0, v0, v0, v0)
+        carry = AssemblyCarry(y0, z0, y0, z0, G0, G0, pp0, pp0, hp0, hp0,
+                              v0, v0, v0, v0)
+        return carry if batch is None else carry.expand(batch)
+
+    def expand(self, batch: int) -> "AssemblyCarry":
+        """B copies of this (unbatched) carry."""
+        return AssemblyCarry(*(t.expand((batch,) + t.shape).contiguous()
+                               for t in self))
 
 
 def carry_from_jax(carry, dtype: torch.dtype | None = None,
                    device=None) -> AssemblyCarry:
     """The JAX package's AssemblyCarry -> the port's (each leaf through
-    ``np.asarray``; ``device`` defaults to the CUDA card)."""
+    ``np.asarray``, so a vmapped carry keeps its leading batch axis;
+    ``device`` defaults to the CUDA card)."""
     device = default_device(device)
     return AssemblyCarry(*(
         torch.from_numpy(np.array(a)).to(device=device,
@@ -576,7 +603,9 @@ def assembly_step_carry(asm: RodAssembly, carry: AssemblyCarry, tensions,
     """One coupled BDF-2 step from any carry: the building block of
     simulate_assembly and of moving-horizon planning. tensions:
     (M, n_tendons). Returns (carry', record (M, N, 50), plate_pose (7,),
-    G (M, 6), stats).
+    G (M, 6), stats). A batched carry (leading B) takes tensions
+    (B, M, n_tendons) and gives every output a leading B, in one solve
+    (one K7 launch with solve_fn) for all B systems.
 
     solve_fn: a replacement for the Newton solve, e.g. kernel K7
     (ops/assembly.make_assembly_step_kernel), with the signature
@@ -605,36 +634,37 @@ def assembly_step_carry(asm: RodAssembly, carry: AssemblyCarry, tensions,
     wbh = c1 * wb + c2 * wb_prev
     tensions = torch.as_tensor(tensions, dtype=asm.dtype, device=asm.device)
     tf = (tensions.unsqueeze(-1) * asm.stacked_rods().tendon_dirs).sum(-2)
-    X0 = torch.cat([(2.0 * G - G_prev).reshape(-1), pp, hp])
+    X0 = torch.cat([(2.0 * G - G_prev).flatten(-2), pp, hp], dim=-1)
     if solve_fn is not None and differentiable:
         kw = dict(yh=yh, zh=zh, tf=tf, pph=pph, vph=vph, hph=hph, wbh=wbh)
         with torch.no_grad():
             X_star = solve_fn(*(t.detach() for t in (X0, yh, zh, tf, pph,
                                                      vph, hph, wbh)))[0]
         X, stats = _implicit_root(asm, X_star, tol, **kw)
-        y_new, z_body = _sweep_all(asm, X[:6 * M].reshape(M, 6), yh, zh,
-                                   tf, None, False)
+        y_new, z_body = _sweep_all(asm, X[..., :6 * M].unflatten(-1, (M, 6)),
+                                   yh, zh, tf, None, False)
     elif solve_fn is not None:
         X, y_new, z_body, r2, iters = solve_fn(X0, yh, zh, tf, pph, vph, hph,
                                                wbh)
-        zero = torch.zeros((), dtype=torch.int32, device=X.device)
-        stats = NewtonStats(iters, r2.sqrt(), r2 <= tol, zero)
+        stats = NewtonStats(iters, r2.sqrt(), r2 <= tol,
+                            torch.zeros_like(iters))
     else:
         y_new, z_body, X, stats = assembly_solve_step(
             asm, yh, zh, tf, X0, pph, vph, hph, wbh, nn_fn, nn_history, tol,
             max_iter, differentiable=differentiable, nn_spec=nn_spec,
             nn_params=nn_params, solver=solver)
-    G_new = X[:6 * M].reshape(M, 6)
-    pp_new = X[6 * M:6 * M + 3]
-    hp_new = X[6 * M + 3:]
-    hp_new = hp_new / torch.linalg.vector_norm(hp_new)
-    z_new = torch.cat([z_body, z[:, -1:]], dim=1)     # the tip z stays frozen
+    G_new = X[..., :6 * M].unflatten(-1, (M, 6))
+    pp_new = X[..., 6 * M:6 * M + 3]
+    hp_new = X[..., 6 * M + 3:]
+    hp_new = hp_new / torch.linalg.vector_norm(hp_new, dim=-1, keepdim=True)
+    z_new = torch.cat([z_body, z[..., -1:, :]], dim=-2)   # the tip z frozen
     vp_new = c0 * pp_new + pph
     wb_new = _body_angular_velocity(hp_new, c0 * hp_new + hph)
     record = torch.cat([y_new, z_new, yh, zh], dim=-1)
     new_carry = AssemblyCarry(y_new, z_new, y, z, G_new, G, pp_new, pp,
                               hp_new, hp, vp_new, vp, wb_new, wb)
-    return (new_carry, record, torch.cat([pp_new, hp_new]), G_new, stats)
+    return (new_carry, record, torch.cat([pp_new, hp_new], dim=-1), G_new,
+            stats)
 
 
 def simulate_assembly(
@@ -655,6 +685,9 @@ def simulate_assembly(
 
     controls: (T, M, n_tendons) per-rod tendon tensions. The record keeps
     the single-rod contract per rod ([y, z, yh, zh], the tip z frozen).
+    controls (B, T, M, n_tendons): B rollouts of the same assembly at once
+    (``jax.vmap`` of the JAX function), each step one batched solve (one
+    K7 launch with fused=True); every output field gains a leading B.
 
     differentiable=True makes the rollout differentiable with respect to
     the controls (and the nets' weights) by the implicit function theorem
@@ -679,13 +712,16 @@ def simulate_assembly(
         from ..ops.assembly import make_assembly_step_kernel
         solve_fn = make_assembly_step_kernel(asm, tol=tol, max_iter=max_iter)
     controls = torch.as_tensor(controls, dtype=asm.dtype, device=asm.device)
-    T = controls.shape[0]
-    carry = carry0 = AssemblyCarry.initial(asm)
+    lead = tuple(controls.shape[:-3])           # (B,) for a batch, else ()
+    ax = len(lead)                              # the time axis
+    T = controls.shape[ax]
+    carry = carry0 = AssemblyCarry.initial(asm, *lead)
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         records, plates, Gs, iters, res = [], [], [], [], []
         for t in range(T - 1):
             carry, record, plate7, G_new, stats = assembly_step_carry(
-                asm, carry, controls[t], nn_fn, nn_history, tol, max_iter,
+                asm, carry, controls.select(ax, t), nn_fn, nn_history, tol,
+                max_iter,
                 differentiable=differentiable, nn_spec=nn_spec,
                 nn_params=nn_params, solver=solver, solve_fn=solve_fn)
             records.append(record)
@@ -694,11 +730,13 @@ def simulate_assembly(
             iters.append(stats.iterations)
             res.append(stats.residual_norm)
         rec0 = torch.cat([carry0.y, carry0.z, carry0.y, carry0.z], dim=-1)
-        zero_i = torch.zeros((), dtype=torch.int32, device=asm.device)
-        zero_f = torch.zeros((), dtype=asm.dtype, device=asm.device)
+        zero_i = torch.zeros(lead, dtype=torch.int32, device=asm.device)
+        zero_f = torch.zeros(lead, dtype=asm.dtype, device=asm.device)
         return AssemblySimOutput(
-            torch.stack([rec0] + records),
-            torch.stack([torch.cat([carry0.pp, carry0.hp])] + plates),
-            torch.stack([carry0.G] + Gs),
-            torch.stack([zero_i] + [i.to(torch.int32) for i in iters]),
-            torch.stack([zero_f] + res))
+            torch.stack([rec0] + records, dim=ax),
+            torch.stack([torch.cat([carry0.pp, carry0.hp], dim=-1)] + plates,
+                        dim=ax),
+            torch.stack([carry0.G] + Gs, dim=ax),
+            torch.stack([zero_i] + [i.to(torch.int32) for i in iters],
+                        dim=ax),
+            torch.stack([zero_f] + res, dim=ax))

@@ -16,10 +16,12 @@ core/stepper.simulate_scan to Newton precision.
 
 The damped-Newton loop (``_newton_loop``: the backtracking line search and
 the Levenberg-Marquardt stall ladder) is shared with the assembly solver
-(core/assembly.py) and the halo solver (parallel/spatial.py); it drives ONE
-system X (U,). The residual broadcasts over leading axes, so the line
-search's candidates take one residual call. The loop decides on the host
-each iteration (one synchronisation per iteration on a CUDA device). Two
+(core/assembly.py) and the halo solver (parallel/spatial.py); it drives
+one system X (U,), or B of them X (B, U) under per-system masks (the
+batched coupled assembly, the JAX package's vmap). The residual
+broadcasts over leading axes, so the line search's candidates take one
+residual call. The loop decides on the host each iteration (one
+synchronisation per iteration on a CUDA device). Two
 direction producers use it here: ``_structured_direction`` (the
 block-bidiagonal elimination: per-segment 19x19 tangents, an affine
 prefix, one 6x6 solve) and the dense LU of ``_newton_dense``.
@@ -57,19 +59,21 @@ _DOUBLING_FROM = 32
 
 def jacobian(fn: Callable[[torch.Tensor], torch.Tensor],
              x: torch.Tensor, m: int | None = None) -> torch.Tensor:
-    """J[i, k] = d fn(x)_i / d x_k for fn: (..., n) -> (..., m) that
-    broadcasts over leading axes, from ONE reverse pass: x is replicated m
-    times along a new leading axis, copy i keeps component i of its output,
-    and the gradient of their sum holds row i in copy i (the trick of
-    core/shooting.py). ``m`` defaults to n (a square system). Returns
-    (m, n), detached."""
+    """J[..., i, k] = d fn(x)[..., i] / d x[..., k] for fn: (..., n) ->
+    (..., m) that broadcasts over leading axes, from ONE reverse pass: x
+    is replicated m times along a new leading axis, copy i keeps component
+    i of its output, and the gradient of their sum holds row i in copy i
+    (the trick of core/shooting.py). x (n,) gives (m, n); a batch x
+    (B, n), whose row b of fn's output depends on x[b] alone, gives
+    (B, m, n). ``m`` defaults to n (a square system). Detached."""
     with torch.enable_grad():
         x0 = x.detach()
         m = x0.shape[-1] if m is None else m
         xr = x0.expand((m,) + x0.shape).clone().requires_grad_(True)
         r = fn(xr)
-        (g,) = torch.autograd.grad(torch.diagonal(r).sum(), xr)
-    return g
+        (g,) = torch.autograd.grad(
+            torch.diagonal(r, dim1=0, dim2=-1).sum(), xr)
+    return g.movedim(0, -2)
 
 
 def _sumsq(r):
@@ -90,7 +94,14 @@ def _newton_loop(residual_fn, direction_fn, X0, tol, max_iter,
     fails <= max_escalations. ``sumsq(r)`` is r2 over r's last axis (the
     halo solver's sums over every rank's rows). Returns (X, NewtonStats)
     with scalar stats.
+
+    X0 (B, U) solves B independent systems at once (the JAX package's
+    loop under ``jax.vmap``): :func:`_newton_loop_batched`.
     """
+    if X0.dim() > 1:
+        return _newton_loop_batched(residual_fn, direction_fn, X0, tol,
+                                    max_iter, max_backtracks, lm_lambda0,
+                                    lm_growth, max_escalations, sumsq)
     dtype, device = X0.dtype, X0.device
     alphas = (0.5 ** torch.arange(max_backtracks + 1, dtype=torch.float64)
               ).to(device=device, dtype=dtype)
@@ -119,11 +130,61 @@ def _newton_loop(residual_fn, direction_fn, X0, tol, max_iter,
     return X, NewtonStats(i32(it), r2.sqrt(), r2 <= tol, i32(retries))
 
 
+def _newton_loop_batched(residual_fn, direction_fn, X0, tol, max_iter,
+                         max_backtracks, lm_lambda0, lm_growth,
+                         max_escalations, sumsq):
+    """:func:`_newton_loop` over B systems X0 (B, U), as ``jax.vmap`` runs
+    the JAX package's: each system keeps its own it, lam, fails and
+    retries and an active mask (r2 > tol, it < max_iter, fails <=
+    max_escalations), and one that is done holds its X, r and counters
+    while the others iterate. residual_fn: (..., B, U) -> (..., B, U),
+    row b depending on X[..., b, :] alone; direction_fn(X (B, U), r
+    (B, U), lam (B,)) -> dX (B, U). One host synchronisation an
+    iteration (``active.any()``). Returns (X, NewtonStats), stats (B,)."""
+    dtype, device = X0.dtype, X0.device
+    B = X0.shape[0]
+    alphas = (0.5 ** torch.arange(max_backtracks + 1, dtype=torch.float64)
+              ).to(device=device, dtype=dtype)
+    rows = torch.arange(B, device=device)
+    X = X0
+    r = residual_fn(X)
+    r2 = sumsq(r)
+    it = torch.zeros(B, dtype=torch.int32, device=device)
+    fails = torch.zeros_like(it)
+    retries = torch.zeros_like(it)
+    lam = torch.zeros(B, dtype=dtype, device=device)
+    while True:
+        active = (r2 > tol) & (it < max_iter) & (fails <= max_escalations)
+        if not bool(active.any()):
+            break
+        dX = direction_fn(X, r, lam)
+        dX = torch.where(torch.isfinite(dX).all(-1, keepdim=True), dX, -r)
+        X_cand = X + alphas[:, None, None] * dX       # (A, B, U)
+        r_cand = residual_fn(X_cand)
+        r2_cand = sumsq(r_cand)
+        improves = r2_cand < r2
+        found = improves.any(0)
+        pick = improves.int().argmax(0)       # the first improver, else 0
+        step = active & found
+        X = torch.where(step[:, None], X_cand[pick, rows], X)
+        r = torch.where(step[:, None], r_cand[pick, rows], r)
+        r2 = torch.where(step, r2_cand[pick, rows], r2)
+        lam = torch.where(active, torch.where(
+            found, 0.0, torch.clamp_min(lam * lm_growth, lm_lambda0)), lam)
+        fails = torch.where(active, torch.where(found, 0, fails + 1), fails)
+        retries = retries + (active & ~found).int()
+        it = it + active.int()
+    return X, NewtonStats(it, r2.sqrt(), r2 <= tol, retries)
+
+
 def _lm_damped_solve(J, r, lam, eye):
     """LM-damped LU solve of J dX = -r with Marquardt diagonal scaling
     D = max(|diag J|, 1). A singular system gives NaN (ops/linalg.py),
-    which the loop's non-finite fallback catches."""
-    D = torch.diagonal(J).abs().clamp_min(1.0)
+    which the loop's non-finite fallback catches. A batch: J (B, U, U),
+    r (B, U), lam (B,)."""
+    D = torch.diagonal(J, dim1=-2, dim2=-1).abs().clamp_min(1.0)
+    if torch.is_tensor(lam):
+        return solve_small(J + lam[:, None, None] * D[:, None, :] * eye, -r)
     return solve_small(J + lam * D * eye, -r)
 
 

@@ -1,5 +1,6 @@
 // K7: one coupled-assembly BDF-2 step's whole damped-Newton solve per
-// launch, one thread block per assembly.
+// launch, one thread block per assembly, a grid of B blocks for a batch
+// of B systems of the same assembly.
 //
 // Replaces knode_cosserat_tpu/ops/pallas_assembly.py::
 // make_assembly_step_kernel. Plain version: knode_cosserat_tpu_torch/ops/
@@ -68,6 +69,14 @@
 // where the FD-Newton stops inside its tolerance; with contraction the
 // kernel stopped 3-9x farther from the float64 truth than the plain coupled
 // Newton (PERF.md).
+//
+// A batch (the JAX kernel under jax.vmap, which Pallas runs as a grid of B
+// programs): block b reads its X0, histories, tendon forces and plate
+// histories at offset b, writes its own outputs and runs its own Newton
+// loop (every decision is on the block's own shared scalars), leaving
+// when its system is done; the rods' and the plate's constants are shared.
+// Nothing global is written but a block's own outputs, so each system's
+// results are, bit for bit, those of a launch of its own.
 //
 // Where the H100 bounds it: per iteration 20M rod sweeps of N-1 nodes of
 // ~400 flops and the elimination's 2 U^3: ~0.2 Mflop at M = 3, nothing
@@ -471,6 +480,18 @@ assembly_kernel(const RodConstsHost* __restrict__ consts,
   const Smem<T> s = smem_of<T>(M, N);
   const int tid = threadIdx.x, nt = blockDim.x;
   const int U = 6 * M + 7, ld = lda(U);
+  // this block's system of the batch
+  const size_t sys = blockIdx.x;
+  X0 += sys * U;
+  yh += sys * M * N * 19;
+  zh += sys * M * N * 6;
+  tf += sys * 3 * M;
+  ph += sys * 13;
+  X_out += sys * U;
+  y_out += sys * M * N * 19;
+  z_out += sys * M * (N - 1) * 6;
+  r2_out += sys;
+  it_out += sys;
 
   for (int i = tid; i < M; i += nt) s.rc[i] = cast_consts<T>(consts[i]);
   for (int i = tid; i < kPlateHead + 7 * M; i += nt) s.plate[i] = T(plate[i]);
@@ -635,7 +656,8 @@ assembly_kernel(const RodConstsHost* __restrict__ consts,
 }
 
 template <typename T>
-int launch(int M, int N, const RodConstsHost* consts, const double* plate,
+int launch(int B, int M, int N, const RodConstsHost* consts,
+           const double* plate,
            double tol, double eps0, int max_iter, const void* X0,
            const void* yh, const void* zh, const void* tf, const void* ph,
            void* X, void* y, void* z, void* r2, void* iters, int threads,
@@ -653,7 +675,7 @@ int launch(int M, int N, const RodConstsHost* consts, const double* plate,
     cudaGetLastError();   // the error is returned, not left behind
     return (int)e;
   }
-  assembly_kernel<T><<<1, threads, bytes, stream>>>(
+  assembly_kernel<T><<<B, threads, bytes, stream>>>(
       consts, plate, M, N, T(tol), T(eps0), max_iter, (const T*)X0,
       (const T*)yh, (const T*)zh, (const T*)tf, (const T*)ph, (T*)X, (T*)y,
       (T*)z, (T*)r2, (int*)iters);
@@ -662,30 +684,32 @@ int launch(int M, int N, const RodConstsHost* consts, const double* plate,
 
 }  // namespace
 
-// C entry point (bound with ctypes in ops/_build.py). consts: M
-// RodConstsHost on the device; plate: the plate's float64 constants
-// (ops/assembly.py::_plate_consts) on the device; the other pointers are
-// device pointers of contiguous tensors in the working type (iters int32).
+// C entry point (bound with ctypes in ops/_build.py). B: the systems of
+// the batch, one block each; consts: M RodConstsHost on the device; plate:
+// the plate's float64 constants (ops/assembly.py::_plate_consts) on the
+// device; the other pointers are device pointers of contiguous tensors in
+// the working type (iters int32), each with a leading B.
 // threads and smem come from ops/assembly.py::launch_plan and are
 // checked against the kernel's own shape. Returns the first CUDA error of
 // the shared-memory attribute or the launch, 0 on success.
-extern "C" int knode_assembly(int is_f64, int M, int N, const void* consts,
+extern "C" int knode_assembly(int is_f64, int B, int M, int N,
+                              const void* consts,
                               const void* plate, double tol, double eps0,
                               int max_iter, const void* X0, const void* yh,
                               const void* zh, const void* tf, const void* ph,
                               void* X, void* y, void* z, void* r2,
                               void* iters, int threads, int smem,
                               void* stream) {
-  if (M < 1 || M > kMaxRods || N < 2 || !consts || !plate)
+  if (B < 1 || M < 1 || M > kMaxRods || N < 2 || !consts || !plate)
     return (int)cudaErrorInvalidValue;
   const RodConstsHost* c = (const RodConstsHost*)consts;
   const double* pl = (const double*)plate;
   const int bad =
-      is_f64 ? launch<double>(M, N, c, pl, tol, eps0, max_iter, X0, yh, zh,
-                              tf, ph, X, y, z, r2, iters, threads, smem,
+      is_f64 ? launch<double>(B, M, N, c, pl, tol, eps0, max_iter, X0, yh,
+                              zh, tf, ph, X, y, z, r2, iters, threads, smem,
                               (cudaStream_t)stream)
-             : launch<float>(M, N, c, pl, tol, eps0, max_iter, X0, yh, zh, tf,
-                             ph, X, y, z, r2, iters, threads, smem,
+             : launch<float>(B, M, N, c, pl, tol, eps0, max_iter, X0, yh, zh,
+                             tf, ph, X, y, z, r2, iters, threads, smem,
                              (cudaStream_t)stream);
   if (bad) return bad;
   return (int)cudaGetLastError();

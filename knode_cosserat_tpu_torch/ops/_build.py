@@ -263,11 +263,11 @@ def _declare(k: _Kernels):
     k.knode_train_wide.argtypes = [ctypes.POINTER(WideArgs),
                                    ctypes.POINTER(WidePlanC), P]
     k.knode_train_wide.restype = I
-    # knode_assembly(is_f64, M, N, consts, plate, tol, eps0, max_iter,
+    # knode_assembly(is_f64, B, M, N, consts, plate, tol, eps0, max_iter,
     #                X0, yh, zh, tf, ph, X, y, z, r2, iters, threads, smem,
     #                stream)
     k.knode_assembly = k.assembly.knode_assembly
-    k.knode_assembly.argtypes = [I, I, I, P, P, D, D, I,
+    k.knode_assembly.argtypes = [I, I, I, I, P, P, D, D, I,
                                  P, P, P, P, P, P, P, P, P, P, I, I, P]
     k.knode_assembly.restype = I
     # knode_next_segment(is_f64, nn_in, act, B, consts, W1, b1, W2, b2,

@@ -25,6 +25,14 @@ yh (M,N,19), zh (M,N,6), tf (M,3), pph (3,), vph (3,), hph (4,),
 wbh (3,)) -> (X (U,), y (M,N,19), z (M,N-1,6), r2 (), iters () int32):
 the plain version for CPU tensors, the kernel for CUDA tensors (or it
 raises). The assembly's constants go to the card once per wrapper.
+
+A batch of B systems of the assembly (``jax.vmap`` of the JAX kernel,
+which Pallas runs as a grid of B programs): every argument and result
+gains a leading B (X0 (B, U) ... r2 (B,), iters (B,)), and the kernel
+runs as ONE launch of B blocks, block b on system b with its own Newton
+loop, so each system's outputs are, bit for bit, those of a launch of
+its own. ``LAUNCHES`` counts launches, not systems. The plain version
+runs the batch under per-system masks.
 """
 from __future__ import annotations
 
@@ -116,31 +124,42 @@ def probe_jobs(M: int):
 
 
 def gauss_jordan(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A t = b (U x U) as the TPU kernel's ``solve_tile`` does: for
-    each pivot k the row of the largest |A_ik| over i >= k (ties to the
-    lowest i) is swapped up, column k is eliminated from every other row,
-    and t = b / diag(A) at the end. No host synchronisation."""
-    U = A.shape[0]
-    rows = torch.arange(U, device=A.device)
+    """Solve A t = b (A (..., U, U), b (..., U)) as the TPU kernel's
+    ``solve_tile`` does: for each pivot k the row of the largest |A_ik|
+    over i >= k (ties to the lowest i) is swapped up, column k is
+    eliminated from every other row, and t = b / diag(A) at the end; each
+    system of a batch pivots on its own. No host synchronisation."""
+    lead, U = A.shape[:-2], A.shape[-1]
+    A, b = A.reshape((-1, U, U)), b.reshape((-1, U))
+    sys = torch.arange(A.shape[0], device=A.device)
+    rows = torch.arange(U, device=A.device).expand(A.shape[0], U)
     for k in range(U):
-        p = k + torch.argmax(A[k:, k].abs())       # the first maximum
+        p = k + torch.argmax(A[:, k:, k].abs(), dim=-1)   # the first maximum
         perm = rows.clone()
-        perm[k] = p
-        perm[p] = k
-        A, b = A[perm], b[perm]
-        fac = A[:, k] / A[k, k]
-        fac[k] = 0.0
-        A = A - fac[:, None] * A[k]
-        b = b - fac * b[k]
-    return b / torch.diagonal(A)
+        perm[:, k] = p
+        perm[sys, p] = k
+        A, b = A[sys[:, None], perm], b[sys[:, None], perm]
+        fac = A[:, :, k] / A[:, k, k, None]
+        fac[:, k] = 0.0
+        A = A - fac[:, :, None] * A[:, None, k]
+        b = b - fac * b[:, k, None]
+    return (b / torch.diagonal(A, dim1=-2, dim2=-1)).reshape(lead + (U,))
 
 
 @torch.no_grad()
 def assembly_step_reference(asm: RodAssembly, X0, yh, zh, tf, pph, vph, hph,
                             wbh, tol: float = 1e-10, max_iter: int = 50):
     """Plain PyTorch version of K7, any device: the same algorithm on the
-    same lanes (module docstring), each pass one batched residual call."""
+    same lanes (module docstring), each pass one batched residual call.
+    A batch (X0 (B, U), the histories with a leading B) runs every system
+    under its own mask, as the kernel's blocks do: one that is done holds
+    X, r2, lam and its counters while the others iterate."""
+    one = X0.dim() == 1
+    if one:
+        X0, yh, zh, tf, pph, vph, hph, wbh = (
+            t[None] for t in (X0, yh, zh, tf, pph, vph, hph, wbh))
     M, U = asm.M, 6 * asm.M + 7
+    B = X0.shape[0]
     kw = dict(dtype=X0.dtype, device=X0.device)
     eps0 = fd1_eps(X0.dtype)
     res = lambda X: _assembly_residual(asm, X, yh, zh, tf, pph, vph, hph, wbh)
@@ -148,36 +167,42 @@ def assembly_step_reference(asm: RodAssembly, X0, yh, zh, tf, pph, vph, hph,
     probes = torch.cat([torch.zeros((1, U), **kw), eye, -eye])  # (2U+1, U)
     alphas = (0.5 ** torch.arange(_N_ALPHAS, dtype=torch.float64)).to(**kw)
     lam0 = torch.tensor(_LM_LAMBDA0, **kw)
+    sys = torch.arange(B, device=X0.device)
     X = X0
     r0 = res(X)
-    r2 = (r0 * r0).sum()
-    lam = torch.zeros((), **kw)
-    fails = it = 0
-    while bool(r2 > tol) and fails <= _MAX_ESCALATIONS and it < max_iter:
-        h = eps0 * (1.0 + X.abs())
-        Rt = res(X + h * probes)                    # lane l: row l
+    r2 = (r0 * r0).sum(-1)
+    lam = torch.zeros(B, **kw)
+    fails = torch.zeros(B, dtype=torch.int32, device=X0.device)
+    it = torch.zeros_like(fails)
+    while True:
+        active = (r2 > tol) & (fails <= _MAX_ESCALATIONS) & (it < max_iter)
+        if not bool(active.any()):
+            break
+        h = eps0 * (1.0 + X.abs())                  # (B, U)
+        Rt = res(X + h * probes[:, None])           # lane l: Rt[l] (B, U)
         r = Rt[0]
-        A = (Rt[1:U + 1] - Rt[U + 1:]).T            # A[:, k] = R+_k - R-_k
-        d = torch.diagonal(A).abs()
-        A = A + torch.diag(lam * torch.maximum(d, 2.0 * h))
+        A = (Rt[1:U + 1] - Rt[U + 1:]).permute(1, 2, 0)   # A[b, :, k]
+        d = torch.diagonal(A, dim1=-2, dim2=-1).abs()
+        A = A + torch.diag_embed(lam[:, None] * torch.maximum(d, 2.0 * h))
         dX = 2.0 * h * gauss_jordan(A, -r)
-        if not bool(torch.isfinite(dX).all()):
-            dX = -r
-        Xc = X + alphas[:, None] * dX
+        dX = torch.where(torch.isfinite(dX).all(-1, keepdim=True), dX, -r)
+        Xc = X + alphas[:, None, None] * dX         # (7, B, U)
         Rc = res(Xc)
         r2c = (Rc * Rc).sum(-1)
         improves = r2c < r2
-        if bool(improves.any()):
-            k = int(improves.int().argmax())
-            X, r2 = Xc[k], r2c[k]
-            lam = torch.zeros((), **kw)
-            fails = 0
-        else:
-            lam = torch.maximum(lam * _LM_GROWTH, lam0)
-            fails += 1
-        it += 1
-    y, z = _sweep_all(asm, X[:6 * M].reshape(M, 6), yh, zh, tf, None, False)
-    return X, y, z, r2, torch.tensor(it, dtype=torch.int32, device=X.device)
+        found = improves.any(0)
+        step = active & found
+        k = improves.int().argmax(0)                # the first improver
+        X = torch.where(step[:, None], Xc[k, sys], X)
+        r2 = torch.where(step, r2c[k, sys], r2)
+        lam = torch.where(active, torch.where(
+            found, 0.0, torch.maximum(lam * _LM_GROWTH, lam0)), lam)
+        fails = torch.where(active, torch.where(found, 0, fails + 1), fails)
+        it = it + active.int()
+    y, z = _sweep_all(asm, X[..., :6 * M].unflatten(-1, (M, 6)), yh, zh, tf,
+                      None, False)
+    out = (X, y, z, r2, it)
+    return tuple(t[0] for t in out) if one else out
 
 
 def _plate_consts(asm: RodAssembly) -> np.ndarray:
@@ -208,6 +233,8 @@ def make_assembly_step_kernel(asm: RodAssembly, tol: float = 1e-10,
     cache = {}
 
     def step(X0, yh, zh, tf, pph, vph, hph, wbh):
+        """(X0, yh, zh, tf, pph, vph, hph, wbh) -> (X, y, z, r2, iters),
+        each with a leading B for a batch (module docstring)."""
         if X0.device.type == "cpu":
             return assembly_step_reference(asm, X0, yh, zh, tf, pph, vph, hph,
                                            wbh, tol, max_iter)
@@ -221,7 +248,7 @@ def make_assembly_step_kernel(asm: RodAssembly, tol: float = 1e-10,
             cache["plate"] = torch.from_numpy(_plate_consts(asm)).to(
                 X0.device)
         return _launch(asm, cache, tol, max_iter, X0, yh, zh, tf,
-                       torch.cat([pph, vph, hph, wbh]))
+                       torch.cat([pph, vph, hph, wbh], dim=-1))
 
     return step
 
@@ -232,8 +259,13 @@ def _launch(asm, cache, tol, max_iter, X0, yh, zh, tf, ph):
 
     M, N = asm.M, asm.N
     U = 6 * M + 7
+    lead = tuple(X0.shape[:-1])             # (B,) for a batch, else ()
+    if len(lead) > 1 or 0 in lead:
+        raise ValueError(f"X0: shape {tuple(X0.shape)}, expected (U,) or "
+                         f"(B, U) with B >= 1")
     want = {"X0": (X0, (U,)), "yh": (yh, (M, N, 19)), "zh": (zh, (M, N, 6)),
             "tf": (tf, (M, 3)), "plate histories": (ph, (13,))}
+    want = {k: (t, lead + shape) for k, (t, shape) in want.items()}
     if X0.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"K7 takes float32/float64, got {X0.dtype}")
     for name, (t, shape) in want.items():
@@ -245,15 +277,16 @@ def _launch(asm, cache, tol, max_iter, X0, yh, zh, tf, ph):
                              f"{shape}")
     X0, yh, zh, tf, ph = (t.contiguous() for t in (X0, yh, zh, tf, ph))
     kw = dict(dtype=X0.dtype, device=X0.device)
-    X = torch.empty((U,), **kw)
-    y = torch.empty((M, N, 19), **kw)
-    z = torch.empty((M, N - 1, 6), **kw)
-    r2 = torch.empty((), **kw)
-    iters = torch.empty((), dtype=torch.int32, device=X0.device)
+    X = torch.empty(lead + (U,), **kw)
+    y = torch.empty(lead + (M, N, 19), **kw)
+    z = torch.empty(lead + (M, N - 1, 6), **kw)
+    r2 = torch.empty(lead, **kw)
+    iters = torch.empty(lead, dtype=torch.int32, device=X0.device)
     plan = launch_plan(X0.dtype, M, N)
     with torch.cuda.device(X0.device):
         code = library().knode_assembly(
-            int(X0.dtype == torch.float64), M, N, cache["consts"].data_ptr(),
+            int(X0.dtype == torch.float64), lead[0] if lead else 1, M, N,
+            cache["consts"].data_ptr(),
             cache["plate"].data_ptr(), float(tol), fd1_eps(X0.dtype),
             int(max_iter), X0.data_ptr(), yh.data_ptr(), zh.data_ptr(),
             tf.data_ptr(), ph.data_ptr(), X.data_ptr(), y.data_ptr(),

@@ -754,6 +754,54 @@ def test_assembly_kernel_at_its_longest_rod(dev, M, N):
         want[1].abs().max())
 
 
+def _batched_assembly_inputs(asm, seeds):
+    """B systems' K7 inputs (_assembly_step_inputs at each seed), each
+    stacked on a leading batch axis."""
+    return [torch.stack(t) for t in
+            zip(*(_assembly_step_inputs(asm, s) for s in seeds))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_assembly_kernel_is_single_launches(dev, dtype):
+    """K7 over a grid of B = 5 blocks, one launch, against 5 launches of
+    one system each: every output bit for bit (block b runs system b's
+    own Newton loop on the same code)."""
+    from knode_cosserat_tpu_torch.core.assembly import make_ring_assembly
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    asm = make_ring_assembly(n_rods=3, base_radius=0.05, N=10, dtype=dtype,
+                             device=dev)
+    ins = _batched_assembly_inputs(asm, range(20, 25))
+    k = kasm.make_assembly_step_kernel(asm, max_iter=30)
+    kasm.LAUNCHES = 0
+    got = k(*ins)
+    torch.cuda.synchronize()
+    assert kasm.LAUNCHES == 1
+    assert got[0].shape == (5, 25) and got[4].shape == (5,)
+    for b in range(5):
+        one = k(*(t[b] for t in ins))
+        for a, w in zip(got, one):
+            assert torch.equal(a[b], w)
+    assert kasm.LAUNCHES == 6
+
+
+def test_batched_assembly_kernel_matches_batched_plain(dev):
+    """One batched K7 launch against its batched plain version, f64, both
+    solved to 1e-24, at chip_smoke's phase_k7 bars: X within 1e-9, y and
+    z within 1e-9 of their largest, the same iterations per system."""
+    from knode_cosserat_tpu_torch.core.assembly import make_ring_assembly
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    asm = make_ring_assembly(n_rods=3, base_radius=0.05, N=10, device=dev)
+    ins = _batched_assembly_inputs(asm, range(30, 35))
+    got = kasm.make_assembly_step_kernel(asm, tol=1e-24, max_iter=30)(*ins)
+    want = kasm.assembly_step_reference(asm, *ins, tol=1e-24, max_iter=30)
+    torch.cuda.synchronize()
+    assert float((got[0] - want[0]).abs().max()) < 1e-9
+    for i in (1, 2):
+        assert float((got[i] - want[i]).abs().max()) < 1e-9 * float(
+            want[i].abs().max())
+    assert torch.equal(got[4], want[4])
+
+
 def _segment_cells(B, dtype, dev, seed=1):
     g = np.random.RandomState(seed)
     return [torch.tensor(a, dtype=dtype, device=dev) for a in (
