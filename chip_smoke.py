@@ -114,11 +114,18 @@ Phases, each printing its own lines (any failure ends the run non-zero):
      through K2's roots against newton_solve's (rtol 1e-6); an 8-restart
      multi-start of 5 iterations (one K2 launch per horizon step for all
      restarts); five MPCController.act calls (5 iterations, then 2); the
-     CLI's sysid --mod youngs --fit E (teacher, 100 steps on 60; rollout,
-     3 steps on 4), design (horizon 3, 2 steps) and sysid --assembly 2,
-     each on the host clock, each loss
-     falling; an OnlineAdapter fed 100 K2-rollout frames of the true rod
-     (the window loss under physics, a certified handoff, update() in ms).
+     CLI's sysid --mod youngs --fit E (teacher, 100 steps on 60, with 1
+     and with 4 random restarts as one batch; rollout, 3 steps on 4),
+     design (horizon 3, 2 steps) and sysid --assembly 2, each on the host
+     clock, each loss falling (every start loss finite); float64 batched
+     fits of SYSID_STARTS starts (teacher, 5 steps on 20; rollout, 2
+     steps on 4), two of the starts each held to its solo fit (1e-10
+     relative); ENSEMBLE_DRAWS draws of a hand-made Laplace posterior of
+     E (std 0.05, no Hessian) rolled out as one simulate_scan of the
+     stack (N=10, T=20, f64), two draws held to their solo rollouts
+     (1e-12, equal iterations); an OnlineAdapter fed 100 K2-rollout
+     frames of the true rod (the window loss under physics, a certified
+     handoff, update() in ms).
  20. the fine-rod, reference-solver, mixed-precision and hardware path (E),
      counted: simulate_scan_ms on experimental_rod(N=40), float64, E_STEPS
      steps (S=3 and S=13 structured, S=3 dense) and simulate_fsolve at N=10,
@@ -289,6 +296,13 @@ MPC_D_SCHEDULE = np.stack([np.linspace(a, b, MPC_D_HORIZON) for a, b in
                            ((2.0, 12.0), (3.0, 5.0), (6.0, 4.0), (1.0, 2.0))],
                           axis=1)
 ONLINE_FRAMES = 100               # path D: the online adapter's stream
+# path D: the batched restarts' f64 fits against their starts' solo fits
+# (Adam steps per objective: a rollout step takes ~5 s on the card, its
+# eager implicit backward), and the posterior ensemble against its draws'
+# solo rollouts
+SYSID_STARTS, SYSID_SOLO_RTOL = 3, 1e-10
+SYSID_STEPS = {"teacher": 5, "rollout": 2}
+ENSEMBLE_DRAWS, ENSEMBLE_T, ENSEMBLE_ATOL = 16, 20, 1e-12
 # path E: the fine rod of multiple shooting (N - 1 = 39 = 3 x 13) and its
 # segment counts, the rollouts' length, the bar against physics-only K2
 # (max |a - b| over the trajectory's largest entry), the fsolve rollout's
@@ -1752,9 +1766,11 @@ def phase_model_based(K, dev, name_power):
     """Path D, counted: the single-rod planner on K2's roots (physics only
     and with the for_knode(512) net), the float64 gradient through K2's
     roots against newton_solve's, an 8-restart multi-start, five
-    MPCController.act calls, the CLI's sysid (teacher, rollout, --assembly
-    2) and design, and an OnlineAdapter on K2-rollout frames of the true
-    rod. Each part is timed on the synchronised host clock; the K2 launch
+    MPCController.act calls, the CLI's sysid (teacher with 1 and 4 starts,
+    rollout, --assembly 2) and design, the batched restarts against their
+    solo fits and a posterior ensemble against its draws' solo rollouts
+    (float64), and an OnlineAdapter on K2-rollout frames of the true rod.
+    Each part is timed on the synchronised host clock; the K2 launch
     counts are read around each."""
     import tempfile
 
@@ -1859,6 +1875,9 @@ def phase_model_based(K, dev, name_power):
     for label, argv in (
             ("sysid teacher", ["sysid", "--mod", "youngs", "--fit", "E",
                                "--steps", "100", "--length", "60"]),
+            ("sysid teacher, 4 starts", [
+                "sysid", "--mod", "youngs", "--fit", "E", "--n_starts", "4",
+                "--steps", "100", "--length", "60"]),
             ("sysid rollout", ["sysid", "--mod", "youngs", "--fit", "E",
                                "--objective", "rollout", "--steps", "3",
                                "--length", "4"]),
@@ -1873,9 +1892,18 @@ def phase_model_based(K, dev, name_power):
         else:
             h = res.loss_history.cpu().numpy()
             ok = bool(np.isfinite(h).all() and h[-1] < h[0])
+        if "starts" in label:
+            ok = ok and res.start_losses.shape == (4,) and bool(
+                torch.isfinite(res.start_losses).all())
         if not ok:
             raise AssertionError(f"path D {label}: no improvement")
     tmp.cleanup()
+    ratio = (out["seconds"]["cli sysid teacher, 4 starts"]
+             / out["seconds"]["cli sysid teacher"])
+    out["restarts_ratio"] = ratio
+    log(f"[sysid D] 4 starts as one batch take {ratio:.2f}x the single "
+        f"start's seconds (same steps and data) [{name_power}]")
+    phase_batched_sysid(K, dev, name_power, timed_run, out)
 
     # online adaptation: K2-rollout frames of the true rod, the model at
     # the damping fault
@@ -1913,6 +1941,91 @@ def phase_model_based(K, dev, name_power):
         raise AssertionError(f"path D online: window {win} vs physics "
                              f"{phys}, certified {ad.certified_updates}")
     return out
+
+
+def phase_batched_sysid(K, dev, name_power, timed_run, out):
+    """Path D's batch axis for rods, float64: SYSID_STARTS jittered starts
+    fitted as one batch (teacher on 20 time steps, rollout on 4), starts 0
+    and the last each held to its solo fit; then ENSEMBLE_DRAWS draws of a
+    Laplace posterior of E (std 0.05, made by hand: no Hessian) rolled out
+    as one simulate_scan of the stack, the first and the last draw held to
+    their solo rollouts."""
+    from knode_cosserat_tpu_torch.controls import calc_controls
+    from knode_cosserat_tpu_torch.core.params import rod_at
+    from knode_cosserat_tpu_torch.models.mlp import MLPSpec
+    from knode_cosserat_tpu_torch.training import sysid as ks
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    plant = K.experimental_rod(N=10, **f64)
+    p0 = K.apply_mod("youngs", **f64)
+    R = SYSID_STARTS
+    for objective, T in (("teacher", 20), ("rollout", 4)):
+        steps = SYSID_STEPS[objective]
+        ctl = torch.tensor(calc_controls("sine", 1.0, float(plant.del_t), T),
+                           **f64)
+        traj = K.simulate_scan(plant, ctl).traj[:, :, :25]
+        starts = ks._jitter_starts(ks.theta_init(p0, ("E",)), R, 0.25,
+                                   torch.Generator().manual_seed(SEED))
+        loss_fn = ks._make_objective(p0, traj[None], ctl[None], objective,
+                                     ks.DEFAULT_KEYPOINTS_FAST,
+                                     MLPSpec.for_knode(), "euler", None, 50)
+        (_, _, hist, finals), _ = timed_run(
+            f"batched fit f64 {objective}, {R} starts x {steps} steps",
+            lambda: ks._fit_batch(loss_fn, starts, None, steps, 0.1, 1e-2))
+        errs = []
+        for i in (0, R - 1):
+            solo, _ = timed_run(
+                f"solo fit f64 {objective}, start {i}, {steps} steps",
+                lambda: ks.fit_rod_params(
+                    ks.apply_theta(p0, {"E": starts["E"][i]}), traj, ctl,
+                    fields=("E",), objective=objective, steps=steps,
+                    lr=0.1))
+            errs.append(float(((solo.loss_history - hist[i]).abs()
+                               / hist[i].abs()).max()))
+        log(f"[sysid D] {objective}: final objectives "
+            f"{np.array2string(finals.cpu().numpy(), precision=4)}; starts "
+            f"0 and {R - 1} against their solo fits, max relative error "
+            f"{max(errs):.3e} (rtol {SYSID_SOLO_RTOL})")
+        if not (bool(torch.isfinite(hist).all())
+                and max(errs) <= SYSID_SOLO_RTOL):
+            raise AssertionError(f"path D batched {objective} fit: solo "
+                                 f"errors {errs}")
+        out[f"batched_{objective}_err"] = max(errs)
+
+    post = ks.LaplacePosterior(labels=["E"], theta=ks.theta_init(plant,
+                                                                  ("E",)),
+                               covariance=np.array([[0.05 ** 2]]),
+                               std=np.array([0.05]), sigma2=0.0,
+                               n_residuals=0)
+    draws = ks.sample_posterior(plant, post,
+                                torch.Generator().manual_seed(SEED),
+                                ENSEMBLE_DRAWS)
+    ctl = torch.tensor(calc_controls("sine", 1.0, float(plant.del_t),
+                                     ENSEMBLE_T), **f64)
+    ens, _ = timed_run(f"ensemble, {ENSEMBLE_DRAWS} posterior draws as one "
+                       f"simulate_scan (N=10, T={ENSEMBLE_T}, f64)",
+                       lambda: K.simulate_scan(draws, ctl))
+    tips = ens.traj[:, :, -1, 0:3]
+    errs = []
+    for i in (0, ENSEMBLE_DRAWS - 1):
+        solo, _ = timed_run(f"solo rollout of draw {i} (N=10, "
+                            f"T={ENSEMBLE_T}, f64)",
+                            lambda: K.simulate_scan(rod_at(draws, i), ctl))
+        if not torch.equal(solo.newton_iters, ens.newton_iters[i]):
+            raise AssertionError(f"path D ensemble draw {i}: iterations "
+                                 "differ from its solo rollout")
+        errs.append(float((solo.traj - ens.traj[i]).abs().max()))
+    spread = float(tips.std(0).max())
+    log(f"[sysid D] ensemble of {ENSEMBLE_DRAWS}: traj "
+        f"{tuple(ens.traj.shape)}, tip spread {spread:.3e} m, draws 0 and "
+        f"{ENSEMBLE_DRAWS - 1} against their solo rollouts, max abs error "
+        f"{max(errs):.3e} (atol {ENSEMBLE_ATOL}) [{name_power}]")
+    if not (ens.traj.shape == (ENSEMBLE_DRAWS, ENSEMBLE_T, 10, 50)
+            and bool(torch.isfinite(tips).all()) and spread > 0
+            and max(errs) <= ENSEMBLE_ATOL):
+        raise AssertionError(f"path D ensemble: spread {spread}, solo "
+                             f"errors {errs}")
+    out["ensemble_err"] = max(errs)
 
 
 def phase_fine_rod_and_hardware(K, dev, name_power, errs):

@@ -59,7 +59,7 @@ from ..models.mlp import ACTIVATIONS
 from ..ops.quaternion import quat_to_rotmat
 from .multiple_shooting import (_lm_damped_solve, _newton_dense, _newton_loop,
                                 jacobian)
-from .params import RodParams, make_rod, rod_from_numpy
+from .params import RodParams, make_rod, rod_from_numpy, stack_params
 from .rhs import _cross, _mv, _mv_t, rhs
 from .shooting import NewtonStats, implicit_root
 from .spatial import integrate_euler
@@ -156,20 +156,11 @@ class RodAssembly:
         return self.rods[0].N
 
     def stacked_rods(self) -> RodParams:
-        """One RodParams whose leaves carry the rods on a leading axis,
-        shaped to broadcast against states (..., M, k): scalars (M, 1),
-        vectors (M, k), matrices (M, 3, 3). core/rhs.py then evaluates all
+        """The rods as one stack (core/params.stack_params: scalars (M, 1),
+        vectors (M, k), matrices (M, 3, 3)), so core/rhs.py evaluates all
         M rods in one call (the JAX package's vmap over stacked rods)."""
         if "rods" not in self._cache:
-            kw = {}
-            for f in dataclasses.fields(RodParams):
-                v = getattr(self.rods[0], f.name)
-                if f.name in ("N", "n_tendons") or v is None:
-                    kw[f.name] = v
-                    continue
-                t = torch.stack([getattr(r, f.name) for r in self.rods])
-                kw[f.name] = t[:, None] if t.dim() == 1 else t
-            self._cache["rods"] = RodParams(**kw)
+            self._cache["rods"] = stack_params(self.rods)
         return self._cache["rods"]
 
 

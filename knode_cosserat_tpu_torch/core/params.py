@@ -11,6 +11,15 @@ State conventions:
   y (19,) = [p(3), h(4), n(3), m(3), q(3), w(3)]
   z  (6,) = [v(3), u(3)]
 All layouts are state-last: ``(..., N, 19)``.
+
+A stack of R rods (:func:`stack_params`; the JAX package's rods stacked on
+a leading axis for ``jax.vmap``) is one RodParams whose leaves carry the
+rods first: scalars (R, 1), vectors (R, k), matrices (R, 3, 3), so the rod
+axis sits just left of a state's last axis and broadcasts from the right
+against per-node states (..., R, k). ``derive`` and the physics core
+(core/rhs.py, core/spatial.py, core/stepper.py) take such a stack;
+:func:`align_rods` lines it up with states that carry more axes between
+the rod axis and the state axis.
 """
 from __future__ import annotations
 
@@ -31,11 +40,30 @@ __all__ = [
     "original_rod",
     "apply_mod",
     "rod_from_numpy",
+    "stack_params",
+    "unstack_params",
+    "rod_at",
+    "repeat_rods",
+    "align_rods",
     "MODS",
     "MODS_ORIGINAL",
 ]
 
 _STATIC = ("N", "n_tendons")
+# the leaves that are 0-dim for one rod (a stack holds them as (R, 1)),
+# and the (3, 3) / (n_tendons, 3) ones; every other leaf is a vector
+_SCALARS = frozenset(("L", "E", "r", "rho", "del_t", "T0", "tendon_offset",
+                      "A", "Gmod", "ds", "c0", "c1", "c2", "rhoA"))
+_MATRICES = frozenset(("Bse", "Bbt", "tendon_dirs", "J", "Kse", "Kbt",
+                       "Kse_c0Bse_inv", "Kbt_c0Bbt_inv", "rhoJ"))
+_BASE = ("L", "E", "r", "rho", "vstar", "g", "Bse", "Bbt", "C", "del_t",
+         "F_tip", "M_tip", "T0", "tendon_offset", "tendon_dirs", "p0", "h0",
+         "q0", "w0")
+
+
+def _ndim(name: str) -> int:
+    """A leaf's number of axes in one rod."""
+    return 0 if name in _SCALARS else 2 if name in _MATRICES else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +143,11 @@ class RodParams:
     def device(self) -> torch.device:
         return self.L.device
 
+    @property
+    def n_rods(self) -> int | None:
+        """R for a stack of R rods (:func:`stack_params`), None for one."""
+        return int(self.L.shape[0]) if np.ndim(self.L) else None
+
 
 def derive(p: RodParams, dtype: torch.dtype = torch.float64,
            device=None) -> RodParams:
@@ -130,44 +163,99 @@ def derive(p: RodParams, dtype: torch.dtype = torch.float64,
     move there and back, differentiably): its values are then the JAX host
     derive's bit for bit, and a rod built on the card equals the one built
     on the CPU (the card's float64 ``pow`` may round differently by an
-    ulp, which moves Newton stop tests that sit at the tolerance)."""
+    ulp, which moves Newton stop tests that sit at the tolerance).
+
+    A base leaf with a leading rod axis (a stack, or one fitted leaf per
+    start: scalars (R,) or (R, 1)) makes the result a stack of R rods, the
+    other leaves shared by all R. Rod i of the stack equals the derive of
+    rod i alone, bit for bit: the batched operations are elementwise over
+    the rods, the 3x3 inverses one LU each."""
     device = default_device(device)
     f = lambda x: torch.as_tensor(x, dtype=torch.float64, device="cpu")
-    L, E, r, rho, del_t = f(p.L), f(p.E), f(p.r), f(p.rho), f(p.del_t)
-    Bse, Bbt, vstar, g = f(p.Bse), f(p.Bbt), f(p.vstar), f(p.g)
+    base = {k: f(getattr(p, k)) for k in _BASE}
+    R = next((int(v.shape[0]) for k, v in base.items()
+              if v.dim() > _ndim(k)), None)
+    if R is not None:
+        # every base leaf on the rod axis; scalars (R,) while computing
+        base = {k: (v.reshape(-1).expand(R) if k in _SCALARS
+                    else v.expand((R,) + v.shape[v.dim() - _ndim(k):]))
+                for k, v in base.items()}
+    L, E, r, rho, del_t = (base[k] for k in ("L", "E", "r", "rho", "del_t"))
+    Bse, Bbt, vstar, g = (base[k] for k in ("Bse", "Bbt", "vstar", "g"))
+    mat = lambda s: s[..., None, None]          # a scalar against a 3x3
 
     A = math.pi * r ** 2
     Gmod = E / (2 * (1 + 0.3))
     ds = L / (p.N - 1)
-    J = torch.diag(torch.stack([math.pi * r ** 4 / 4, math.pi * r ** 4 / 4,
-                                math.pi * r ** 4 / 2]))
-    Kse = torch.diag(torch.stack([Gmod * A, Gmod * A, E * A]))
-    Kbt = torch.diag(torch.stack([E * J[0, 0], E * J[1, 1], Gmod * J[2, 2]]))
+    # rod by rod: the CPU's vectorized pow, which takes batches of 8 and
+    # more, may round an ulp away from the scalar one
+    r4 = r ** 4 if R is None else torch.stack([x ** 4 for x in r.unbind()])
+    J = torch.diag_embed(torch.stack([math.pi * r4 / 4, math.pi * r4 / 4,
+                                      math.pi * r4 / 2], -1))
+    Kse = torch.diag_embed(torch.stack([Gmod * A, Gmod * A, E * A], -1))
+    Kbt = torch.diag_embed(torch.stack([E * J[..., 0, 0], E * J[..., 1, 1],
+                                        Gmod * J[..., 2, 2]], -1))
 
     c0 = 1.5 / del_t
     c1 = -2.0 / del_t
     c2 = 0.5 / del_t
 
-    Kse_c0Bse_inv = torch.linalg.inv(Kse + c0 * Bse)
-    Kbt_c0Bbt_inv = torch.linalg.inv(Kbt + c0 * Bbt)
-    Kse_vstar = (Kse * vstar).sum(-1)
-    v_rest = (Kse_c0Bse_inv * Kse_vstar).sum(-1)
+    Kse_c0Bse_inv = torch.linalg.inv(Kse + mat(c0) * Bse)
+    Kbt_c0Bbt_inv = torch.linalg.inv(Kbt + mat(c0) * Bbt)
+    Kse_vstar = (Kse * vstar.unsqueeze(-2)).sum(-1)
+    v_rest = (Kse_c0Bse_inv * Kse_vstar.unsqueeze(-2)).sum(-1)
 
-    cast = lambda x: x.to(device=device, dtype=dtype)
-    return p.replace(
-        L=cast(L), E=cast(E), r=cast(r), rho=cast(rho), del_t=cast(del_t),
-        vstar=cast(vstar), g=cast(g), Bse=cast(Bse), Bbt=cast(Bbt),
-        C=cast(f(p.C)), F_tip=cast(f(p.F_tip)), M_tip=cast(f(p.M_tip)),
-        T0=cast(f(p.T0)), tendon_offset=cast(f(p.tendon_offset)),
-        tendon_dirs=cast(f(p.tendon_dirs)),
-        p0=cast(f(p.p0)), h0=cast(f(p.h0)), q0=cast(f(p.q0)),
-        w0=cast(f(p.w0)),
-        A=cast(A), Gmod=cast(Gmod), ds=cast(ds), J=cast(J),
-        Kse=cast(Kse), Kbt=cast(Kbt), c0=cast(c0), c1=cast(c1), c2=cast(c2),
-        Kse_c0Bse_inv=cast(Kse_c0Bse_inv), Kbt_c0Bbt_inv=cast(Kbt_c0Bbt_inv),
-        Kse_vstar=cast(Kse_vstar), v_rest=cast(v_rest),
-        rhoA=cast(rho * A), rhoAg=cast(rho * A * g), rhoJ=cast(rho * J),
-    )
+    rhoA = rho * A
+    out = dict(base, A=A, Gmod=Gmod, ds=ds, J=J, Kse=Kse, Kbt=Kbt, c0=c0,
+               c1=c1, c2=c2, Kse_c0Bse_inv=Kse_c0Bse_inv,
+               Kbt_c0Bbt_inv=Kbt_c0Bbt_inv, Kse_vstar=Kse_vstar,
+               v_rest=v_rest, rhoA=rhoA,
+               rhoAg=rhoA[..., None] * g,
+               rhoJ=mat(rho) * J)
+
+    def cast(k, x):
+        if R is not None and k in _SCALARS:
+            x = x.unsqueeze(-1)
+        return x.to(device=device, dtype=dtype)
+
+    return p.replace(**{k: cast(k, v) for k, v in out.items()})
+
+
+def stack_params(rods) -> RodParams:
+    """R rods of one N and n_tendons as a stack (module docstring): every
+    leaf stacked on a leading rod axis, scalars as (R, 1)."""
+    rods = list(rods)
+    kw = {}
+    for k, _ in rods[0].leaves():
+        t = torch.stack([getattr(q, k) for q in rods])
+        kw[k] = t[:, None] if k in _SCALARS else t
+    return rods[0].replace(**kw)
+
+
+def rod_at(p: RodParams, i: int) -> RodParams:
+    """Rod ``i`` of a stack, its leaves views of the stack's."""
+    return p.replace(**{k: v[i, 0] if k in _SCALARS else v[i]
+                        for k, v in p.leaves()})
+
+
+def unstack_params(p: RodParams) -> tuple:
+    """The R rods of a stack (:func:`rod_at` each)."""
+    return tuple(rod_at(p, i) for i in range(p.n_rods))
+
+
+def repeat_rods(p: RodParams, n: int) -> RodParams:
+    """A stack of R rods as one of R * n, each rod repeated ``n`` times in
+    a row (rod-major: row ``i * n + b`` is rod ``i``), so the rods pair
+    with n schedules each on one flat batch axis."""
+    return p.replace(**{k: v.repeat_interleave(n, dim=0)
+                        for k, v in p.leaves()})
+
+
+def align_rods(p: RodParams, n: int) -> RodParams:
+    """A stack whose leaves carry ``n`` unit axes between the rod axis and
+    their own axes, so they broadcast against states (R, *n axes, k)."""
+    return p.replace(**{k: v.reshape(v.shape[:1] + (1,) * n + v.shape[1:])
+                        for k, v in p.leaves()})
 
 
 def _host(x):

@@ -4,7 +4,9 @@ PyTorch counterpart of ``knode_cosserat_tpu/core/spatial.py``
 (getResidualEuler cosserat_ode.py:188-213, getResidualRK4 :215-255). The
 node recurrence is a Python loop over N-1 nodes; every function takes any
 number of leading batch axes (rods, Newton probes) in front of the node and
-state axes, and broadcasts G's leading axes against the histories'. Nothing
+state axes, and broadcasts G's leading axes against the histories'. A stack
+of rods (core/params.py) lines up with G's last batch axis: G (..., R, 6)
+against histories (R, N, 19). Nothing
 here updates a tensor in place, so autograd runs through it
 (core/shooting.py builds its Jacobian that way).
 """
@@ -32,7 +34,7 @@ def base_state(p: RodParams, G: torch.Tensor) -> torch.Tensor:
     """Base boundary node y[0] = [p0, h0, n0(G), m0(G), q0, w0]
     (cosserat_ode.py:194). G (..., 6) -> (..., 19)."""
     lead = G.shape[:-1]
-    e = lambda a: a.expand(lead + a.shape)
+    e = lambda a: a.expand(lead + a.shape[-1:])
     return torch.cat([e(p.p0), e(p.h0), G, e(p.q0), e(p.w0)], dim=-1)
 
 

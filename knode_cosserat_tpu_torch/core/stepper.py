@@ -4,7 +4,10 @@ PyTorch counterpart of ``knode_cosserat_tpu/core/stepper.py`` (reference
 rollout driver knode.py:55-102): a Python loop over control steps, each
 step a warm-started, rod-batched Newton shooting solve (core/shooting.py),
 differentiable by the implicit function theorem on request. A batch of
-rollouts is a leading axis on ``controls``.
+rollouts is a leading axis on ``controls``; a stack of R rods
+(core/params.stack_params) rolls out as one more leading axis, every rod
+under every schedule (the JAX package's ``jax.vmap(simulate_scan,
+in_axes=(0, None))``).
 
 Reference quirks kept as they are:
   * trajectory[0] is the initial straight rod recorded as [y, z, y, z];
@@ -25,7 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models.mlp import mlp_forward
-from .params import RodParams
+from .params import RodParams, repeat_rods
 from .shooting import implicit_root, newton_solve
 from .spatial import integrate_euler, integrate_rk4, tip_residual
 
@@ -49,14 +52,16 @@ class SimOutput(NamedTuple):
 
 def initial_state(p: RodParams):
     """Straight-rod initial condition (knode.py:58-64): z positions linearly
-    spaced, identity quaternion, v = e_z, everything else zero."""
+    spaced, identity quaternion, v = e_z, everything else zero. (N, 19),
+    (N, 6); (R, N, 19), (R, N, 6) for a stack of R rods."""
     N = p.N
+    lead = () if p.n_rods is None else (p.n_rods,)
     zpos = torch.arange(N, dtype=p.dtype, device=p.device) * (p.L / (N - 1))
-    y = torch.zeros((N, 19), dtype=p.dtype, device=p.device)
-    y[:, 2] = zpos
-    y[:, 3] = 1.0
-    z = torch.zeros((N, 6), dtype=p.dtype, device=p.device)
-    z[:, 2] = 1.0
+    y = torch.zeros(lead + (N, 19), dtype=p.dtype, device=p.device)
+    y[..., 2] = zpos
+    y[..., 3] = 1.0
+    z = torch.zeros(lead + (N, 6), dtype=p.dtype, device=p.device)
+    z[..., 2] = 1.0
     return y, z
 
 
@@ -119,6 +124,14 @@ def simulate_scan(
 
     initial: optional (y0 (N, 19), z0 (N, 6)) starting state instead of the
     at-rest straight rod; the BDF-2 history seeds from the state itself.
+    With a batch, (B, N, 19), (B, N, 6) start each schedule from its own.
+
+    A stack of R rods (core/params.stack_params) runs every rod under every
+    schedule and puts the rod axis in front of every output: traj (R, T,
+    N, 50) or (R, B, T, N, 50). It is one rollout of R * B rows, rod-major,
+    each rod's leaves repeated per schedule; each row runs its own Newton
+    solve, so row (i, b) is the rollout of rod i alone under schedule b.
+    ``initial`` then broadcasts to (R, B, N, 19), (R, B, N, 6).
 
     Per step (knode.py:70-100): BDF-2 history yh = c1*y + c2*y_prev, Newton
     shooting solve for G warm-started from the previous step, then one
@@ -144,19 +157,30 @@ def simulate_scan(
     if not batched:
         controls = controls[None]
     B, T = controls.shape[0], controls.shape[1]
+    R = p.n_rods
+    lead = (B,) if R is None else (R, B)
+    if R is not None:
+        controls = controls.repeat(R, 1, 1)
+        p = repeat_rods(p, B)
+    rows = controls.shape[0]
     if initial is None:
         y0, z0 = initial_state(p)
     else:
         y0 = torch.as_tensor(initial[0], dtype=p.dtype, device=p.device)
         z0 = torch.as_tensor(initial[1], dtype=p.dtype, device=p.device)
-    y0 = y0.expand(B, -1, -1)
-    z0 = z0.expand(B, -1, -1)
+        y0 = y0.expand(lead + y0.shape[-2:]).reshape((rows,) + y0.shape[-2:])
+        z0 = z0.expand(lead + z0.shape[-2:]).reshape((rows,) + z0.shape[-2:])
+    y0 = y0.expand(rows, -1, -1)
+    z0 = z0.expand(rows, -1, -1)
     z_tip = z0[:, -1:]                      # frozen forever (see docstring)
-    G0 = torch.zeros((B, 6), dtype=p.dtype, device=p.device)
+    G0 = torch.zeros((rows, 6), dtype=p.dtype, device=p.device)
+    # the BDF-2 coefficients against (rows, N, k) states: a stack's (rows,
+    # 1) leaves need the node axis
+    c1, c2 = (p.c1, p.c2) if R is None else (p.c1[..., None], p.c2[..., None])
 
     def step(y, z, y_prev, z_prev, G, G_prev, u):
-        yh = p.c1 * y + p.c2 * y_prev
-        zh = p.c1 * z + p.c2 * z_prev
+        yh = c1 * y + c2 * y_prev
+        zh = c1 * z + c2 * z_prev
         G_guess = 2.0 * G - G_prev if extrapolate else G
         tf = tendon_forces(p, u)
         if differentiable:
@@ -192,13 +216,14 @@ def simulate_scan(
             lm.append(lmr)
             y, z, y_prev, z_prev, G, G_prev = y_new, z_new, y, z, G_new, G
 
-    zero_i = torch.zeros(B, dtype=torch.int32, device=p.device)
-    zero_f = torch.zeros(B, dtype=p.dtype, device=p.device)
+    zero_i = torch.zeros(rows, dtype=torch.int32, device=p.device)
+    zero_f = torch.zeros(rows, dtype=p.dtype, device=p.device)
     out = SimOutput(torch.stack(records, dim=1), torch.stack(Gs, dim=1),
                     torch.stack([zero_i] + iters, dim=1),
                     torch.stack([zero_f] + res, dim=1),
                     torch.stack([zero_i] + lm, dim=1))
-    return out if batched else SimOutput(*(a[0] for a in out))
+    shape = lead if batched else lead[:-1]
+    return SimOutput(*(a.reshape(shape + a.shape[1:]) for a in out))
 
 
 @torch.no_grad()

@@ -203,7 +203,9 @@ class StackedMLP(nn.Module):
     ``nn_fn`` it takes inputs whose leading axis holds G equal, contiguous
     groups of rows (rods, or rods x probes repeated per rod) and applies
     net g to group g, one ``F.linear`` per net, so each net sees exactly
-    the rows a single-net call on its own rods gives it."""
+    the rows a single-net call on its own rods gives it. ``along(axis)``
+    groups another axis instead (a stack of rods behind the Newton
+    probes' copies: axis -2)."""
 
     def __init__(self, nets):
         super().__init__()
@@ -240,7 +242,16 @@ class StackedMLP(nn.Module):
         return nets
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._grouped(x, 0)
+
+    def along(self, axis: int) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The stack as an ``nn_fn`` whose G groups of rows lie along
+        ``axis`` of its inputs (axis 0: the module itself)."""
+        return lambda x: self._grouped(x, axis)
+
+    def _grouped(self, x: torch.Tensor, axis: int) -> torch.Tensor:
         G = len(self)
+        x = x.movedim(axis, 0)
         if x.shape[0] % G:
             raise ValueError(f"{x.shape[0]} rows do not split into {G} nets")
         act = ACTIVATIONS[self.spec.activation]
@@ -254,8 +265,9 @@ class StackedMLP(nn.Module):
                 if i < len(layers) - 1:
                     h = act(h)
             outs.append(h)
-        return torch.stack(outs).reshape(tuple(x.shape[:-1])
-                                         + (outs[0].shape[-1],))
+        out = torch.stack(outs).reshape(tuple(x.shape[:-1])
+                                        + (outs[0].shape[-1],))
+        return out.movedim(0, axis)
 
 
 def stacked_params_from_jax(trees, spec: MLPSpec, dtype=None,

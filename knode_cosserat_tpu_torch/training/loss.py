@@ -13,7 +13,9 @@ physics_train.py:351-352).
 
 Every function takes trajectories with optional leading batch axes,
 ``(..., T, N, 25)`` with controls ``(..., T, 4)``; the loss is one value per
-trajectory (the JAX package vmaps a single-trajectory loss instead).
+trajectory (the JAX package vmaps a single-trajectory loss instead). A
+stack of R rods (core/params.stack_params) scores every trajectory under
+every rod, the rod axis in front: losses ``(R, ...)``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..core.params import RodParams
+from ..core.params import RodParams, align_rods
 from ..core.spatial import next_segment_euler
 from ..core.stepper import tendon_forces
 from ..models.mlp import KnodeMLP, MLPSpec, mlp_apply
@@ -64,11 +66,24 @@ def grow_predictions(
         flattened cells of every trajectory.
       nn_fn: the net as a function (..., din) -> (..., 25), in place of
         ``nn_params`` (a tensor-parallel shard's forward,
-        parallel/sharded_train.TPNet).
+        parallel/sharded_train.TPNet; a StackedMLP's net per rod).
     Returns:
       (y_grown, z_new): (..., T-1, K, 19), (..., T-1, K, 6) predictions for
-      steps 1..T-1 evaluated at nodes keypoints-1.
+      steps 1..T-1 evaluated at nodes keypoints-1; (R, ..., T-1, K, 19),
+      (R, ..., T-1, K, 6) for a stack of R rods.
     """
+    if p.n_rods is not None:
+        if fused_fn is not None:
+            raise ValueError("the fused next-segment op takes one rod")
+        traj = traj.expand((p.n_rods,) + traj.shape)
+        controls = controls.expand((p.n_rods,) + controls.shape)
+        # the rods against the tensions (R, ..., T-1, 4) and against the
+        # node states (R, ..., T-1, K, 19)
+        tf = tendon_forces(align_rods(p, controls.dim() - 2),
+                           controls[..., :-1, :])
+        p = align_rods(p, traj.dim() - 2)
+    else:
+        tf = tendon_forces(p, controls[..., :-1, :])  # (..., T-1, 3)
     kp1 = [k - 1 for k in keypoints]
     ys = traj[..., :-1, :, :19]
     zs = traj[..., :-1, :, 19:]
@@ -82,7 +97,6 @@ def grow_predictions(
     y_in = _nodes(G[..., :19], kp1)              # (..., T-1, K, 19)
     yh_in = _nodes(yh, kp1)
     zh_in = _nodes(zh, kp1)
-    tf = tendon_forces(p, controls[..., :-1, :])  # (..., T-1, 3)
 
     if fused_fn is not None:
         # the fused op (K8, ops/next_segment.py) over every trajectory's
@@ -111,8 +125,9 @@ def teacher_forced_loss(
     nn_fn=None,
 ) -> torch.Tensor:
     """The loss of each trajectory, shape ``traj.shape[:-3]`` (a scalar for
-    one trajectory); sum it for the multi-trajectory total
-    (physics_train.py:313-366). fused_fn, nn_fn: as grow_predictions.
+    one trajectory; ``(R,) + traj.shape[:-3]`` for a stack of R rods); sum
+    it for the multi-trajectory total (physics_train.py:313-366). fused_fn,
+    nn_fn: as grow_predictions.
 
     skip_first: drop each trajectory's first transition. Its BDF-2 history
     uses the frame as its own predecessor (physics_train.py:321-322):

@@ -19,7 +19,11 @@ trains the residual net jointly (grey-box identification).
 
 The port's idiom: the JAX package's jitted ``lax.scan`` over Adam steps is
 a Python loop of optax's Adam (training/train.AdamPlateau, its plateau
-never firing); its vmap over restarts a loop; its ``jax.hessian`` two
+never firing); its vmap over restarts one batch (the starts' rods a stack,
+core/params.stack_params, each start's net one of a StackedMLP: one
+objective evaluation a step for every start, whose backward pass takes the
+SUM of the starts' losses, so the elementwise Adam over the stacked
+variables is each start's own Adam); its ``jax.hessian`` two
 reverse passes with ``create_graph``; its ``jax.jacfwd`` of the residual
 vector the double-reverse trick (a VJP that is linear in its cotangent,
 differentiated once more). The Gauss-Newton Gram J^T J is formed in native
@@ -35,7 +39,6 @@ same result there too).
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import math
 import warnings
@@ -44,9 +47,9 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.params import RodParams, derive
+from ..core.params import RodParams, derive, unstack_params
 from ..core.stepper import simulate_scan
-from ..models.mlp import MLPSpec, bind
+from ..models.mlp import MLPSpec, StackedMLP, bind
 from .loss import (DEFAULT_KEYPOINTS_FAST, teacher_forced_loss,
                    teacher_forced_residuals)
 
@@ -106,14 +109,17 @@ def theta_init(p: RodParams, fields: Sequence[str]) -> Dict[str, torch.Tensor]:
 
 def apply_theta(p: RodParams, theta: Dict[str, torch.Tensor]) -> RodParams:
     """A fully derived rod with the fitted base parameters, differentiable
-    in every theta leaf (core/params.derive)."""
+    in every theta leaf (core/params.derive). Leaves with a leading axis of
+    R (scalars (R,), vectors and log-diagonals (R, 3)) give a stack of R
+    rods: the JAX package's ``jax.vmap(apply_theta)``, of one rod or of a
+    stack of R."""
     kw = {}
     for name, t in theta.items():
         kind = FITTABLE_FIELDS[name]
         if kind == "log":
             kw[name] = torch.exp(t)
         elif kind == "logdiag":
-            kw[name] = torch.diag(torch.exp(t))
+            kw[name] = torch.diag_embed(torch.exp(t))
         else:
             kw[name] = t
     return derive(p.replace(**kw), dtype=p.dtype, device=p.device)
@@ -136,8 +142,8 @@ class SysIdResult:
     params: the fitted, fully derived rod.
     theta: fitted optimization variables (transform space).
     values: physical-space fitted values per field (host numpy).
-    nn_params: the fitted net when ``fit_nn=True`` (a copy; else the
-      unchanged input).
+    nn_params: the fitted net when ``fit_nn=True`` (the winning start's,
+      a copy; else the unchanged input).
     loss_history: (steps,) objective value per Adam step.
     start_losses: final objective per start when n_starts > 1
       (loss_history is the winning start's curve).
@@ -174,30 +180,41 @@ def _batch(p: RodParams, traj, controls, what: str):
 def _rollout(p_t, traj, controls, nn_fn, nn_history, method, tol, max_iter):
     """The implicit rollouts of every trajectory from its observed first
     frame (real windows start mid-motion): positions (B, T-1, N, 3) after
-    the seed frame, beside the observed ones."""
+    the seed frame, beside the observed ones ((R, B, T-1, N, 3) for a stack
+    of R rods)."""
     sim = simulate_scan(p_t, controls, nn_fn=nn_fn, nn_history=nn_history,
                         method=method, tol=tol, max_iter=max_iter,
                         differentiable=True, remat=True,
                         initial=(traj[:, 0, :, :19], traj[:, 0, :, 19:]))
-    return sim.traj[:, 1:, :, :3] - traj[:, 1:, :, :3]
+    return sim.traj[..., 1:, :, :3] - traj[:, 1:, :, :3]
 
 
 def _make_objective(p, traj, controls, objective, keypoints, spec, method,
                     tol, max_iter, skip_first=False):
-    """loss(phys theta, net or None) -> scalar, shared by fitting and the
-    identifiability analysis. The rollout objective seeds each rollout from
-    the observed first frame and leaves that frame out of the MSE."""
+    """loss(phys theta, net or None) -> the objective, shared by fitting and
+    the identifiability analysis: a scalar, or one per start (R,) when the
+    theta leaves carry a leading axis of R starts (the net is then one net
+    for all, or a StackedMLP of a net per start). The rollout objective
+    seeds each rollout from the observed first frame and leaves that frame
+    out of the MSE."""
     kp = tuple(keypoints)
 
     def loss_fn(phys, net=None):
         p_t = apply_theta(p, phys)
+        stacked = isinstance(net, StackedMLP)
         if objective == "teacher":
-            return teacher_forced_loss(p_t, spec, net, traj, controls, kp,
-                                       skip_first=skip_first).mean()
-        nn_fn = bind(spec, net) if net is not None else None
+            # a net per start: the rod axis leads the loss's inputs
+            return teacher_forced_loss(
+                p_t, spec, None if stacked else net, traj, controls, kp,
+                skip_first=skip_first,
+                nn_fn=net if stacked else None).mean(-1)
+        # a net per start: the rod x trajectory rows sit behind the Newton
+        # probes' copies
+        nn_fn = (net.along(-2) if stacked
+                 else bind(spec, net) if net is not None else None)
         d = _rollout(p_t, traj, controls, nn_fn, spec.history, method, tol,
                      max_iter)
-        return (d * d).mean()
+        return (d * d).flatten(-4).mean(-1)
 
     return loss_fn
 
@@ -240,7 +257,8 @@ def _best_start(final_losses: torch.Tensor) -> int:
 
 def _flatten_theta(theta):
     """(vec0, labels, unpack) for a transform-space theta dict, its leaves
-    in sorted-name order (the JAX package's tree order)."""
+    in sorted-name order (the JAX package's tree order); ``unpack`` takes
+    vectors (..., D) with any leading axes."""
     names = sorted(theta)
     labels = []
     for name in names:
@@ -253,18 +271,20 @@ def _flatten_theta(theta):
     def unpack(v):
         out, off = {}, 0
         for name, shape, n in zip(names, shapes, sizes):
-            out[name] = v[off:off + n].reshape(shape)
+            out[name] = v[..., off:off + n].reshape(v.shape[:-1] + shape)
             off += n
         return out
 
     return vec0, labels, unpack
 
 
-def _adam_fit(loss_fn, phys, net, steps, lr, nn_lr):
+def _adam_fit(loss_fn, phys, net, steps, lr, nn_lr, shape=()):
     """``steps`` Adam steps on the leaves of ``phys`` (and the net's
     weights): the JAX package's scan of optax.adam(lr) (a separate
-    adam(nn_lr) on the net). Updates in place and returns the loss
-    history (steps,)."""
+    adam(nn_lr) on the net). ``loss_fn`` returns losses of ``shape`` (one
+    per start of a batch); the backward pass takes their sum, so each
+    start's variables get its own loss's gradient. Updates in place and
+    returns the loss history ``shape + (steps,)``."""
     from .train import AdamPlateau
 
     leaves = [phys[k] for k in sorted(phys)]
@@ -278,13 +298,55 @@ def _adam_fit(loss_fn, phys, net, steps, lr, nn_lr):
             o.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss = loss_fn(phys, net)
-            loss.backward()
+            total = loss.sum()
+            total.backward()
         for o in opts:
-            o.step(loss.detach())
+            o.step(total.detach())
         hist.append(loss.detach())
     dtype, device = leaves[0].dtype, leaves[0].device
-    return (torch.stack(hist) if hist
-            else torch.zeros(0, dtype=dtype, device=device))
+    return (torch.stack(hist, -1) if hist
+            else torch.zeros(shape + (0,), dtype=dtype, device=device))
+
+
+def _jitter_starts(theta0, n_starts: int, start_scale: float,
+                   generator: Optional[torch.Generator]):
+    """The random restarts' starting points, every leaf stacked on a leading
+    axis of R = max(n_starts, 1): start 0 is ``theta0``, the others jitter
+    it (log-space fields additively, linear ones relative to their
+    magnitude) by ``start_scale`` times normal draws from ``generator``
+    (default seeded with 0), drawn leaf by leaf in sorted-name order."""
+    batch = {k: v[None] for k, v in theta0.items()}
+    if n_starts <= 1:
+        return batch
+    gen = (generator if generator is not None
+           else torch.Generator().manual_seed(0))
+    for name in sorted(theta0):
+        leaf = theta0[name]
+        noise = torch.randn((n_starts - 1,) + tuple(leaf.shape),
+                            generator=gen, dtype=leaf.dtype).to(leaf.device)
+        scale = (start_scale * (leaf.abs() + 1e-3)
+                 if FITTABLE_FIELDS[name] == "linear" else start_scale)
+        batch[name] = torch.cat([leaf[None], leaf + scale * noise])
+    return batch
+
+
+def _fit_batch(loss_fn, theta, net, steps, lr, nn_lr):
+    """All starts of ``theta`` (leaves (R, ...)) fitted as one batch:
+    ``loss_fn(theta, nets)`` evaluated once an Adam step for every start.
+    ``net``: the net every start trains its own copy of (a StackedMLP of R
+    copies), or None. Returns (theta (R, ...), the StackedMLP or None,
+    history (R, steps), final objectives (R,), or None for one start)."""
+    R = next(iter(theta.values())).shape[0]
+    theta = {k: v.detach().clone().requires_grad_(True)
+             for k, v in theta.items()}
+    nets = StackedMLP([net] * R) if net is not None else None
+    hist = _adam_fit(loss_fn, theta, nets, steps, lr, nn_lr, shape=(R,))
+    theta = {k: v.detach() for k, v in theta.items()}
+    finals = None
+    if R > 1:
+        with torch.no_grad():
+            finals = loss_fn(theta, nets).detach()
+    return theta, nets, hist, finals
 
 
 def fit_rod_params(
@@ -323,11 +385,13 @@ def fit_rod_params(
       fit_nn: train the residual net jointly (its own Adam(nn_lr));
         ``nn_params`` (a KnodeMLP) is then required, and a fitted copy is
         returned.
-      n_starts: > 1 runs random-restart fits: start 0 is the unperturbed
-        theta, the others jitter it (log-space fields additively, linear
-        ones relative to their magnitude) by ``start_scale`` times normal
-        draws from ``generator`` (default seeded with 0); the start with
-        the lowest final objective wins.
+      n_starts: > 1 runs random-restart fits as one batch (the JAX
+        package's vmap): start 0 is the unperturbed theta, the others
+        jitter it (log-space fields additively, linear ones relative to
+        their magnitude) by ``start_scale`` times normal draws from
+        ``generator`` (default seeded with 0); the start with the lowest
+        final objective wins. With ``fit_nn`` every start trains its own
+        copy of the net.
       skip_first: drop the first transition from the teacher loss (data
         that starts mid-motion).
       chunk: validated for the JAX package's interface (module docstring).
@@ -342,53 +406,18 @@ def fit_rod_params(
                          "(models.mlp.init_mlp)")
     loss_fn = _make_objective(p, traj, controls, objective, keypoints, spec,
                               method, tol, max_iter, skip_first=skip_first)
-    theta0 = theta_init(p, fields)
-    fixed_net = None if fit_nn else nn_params
-
-    starts = [theta0]
-    if n_starts > 1:
-        gen = (generator if generator is not None
-               else torch.Generator().manual_seed(0))
-        noise = {}
-        for name in sorted(theta0):
-            leaf = theta0[name]
-            noise[name] = torch.randn((n_starts - 1,) + tuple(leaf.shape),
-                                      generator=gen,
-                                      dtype=leaf.dtype).to(leaf.device)
-        for s in range(n_starts - 1):
-            th = {}
-            for name, leaf in theta0.items():
-                scale = (start_scale * (leaf.abs() + 1e-3)
-                         if FITTABLE_FIELDS[name] == "linear" else start_scale)
-                th[name] = leaf + scale * noise[name][s]
-            starts.append(th)
-
-    runs = []
-    for th0 in starts:
-        phys = {k: v.detach().clone().requires_grad_(True)
-                for k, v in th0.items()}
-        net = copy.deepcopy(nn_params) if fit_nn else None
-        hist = _adam_fit(lambda ph, nt: loss_fn(ph, nt if fit_nn
-                                                else fixed_net),
-                         phys, net, steps, lr, nn_lr)
-        runs.append((phys, net, hist))
-
-    start_losses = None
-    best = 0
-    if n_starts > 1:
-        with torch.no_grad():
-            finals = torch.stack([
-                loss_fn(ph, nt if fit_nn else fixed_net).detach()
-                for ph, nt, _ in runs])
-        best = _best_start(finals)
-        start_losses = finals
-    phys, net, hist = runs[best]
-    phys = {k: v.detach() for k, v in phys.items()}
+    starts = _jitter_starts(theta_init(p, fields), n_starts, start_scale,
+                            generator)
+    theta, nets, hist, finals = _fit_batch(
+        lambda th, nt: loss_fn(th, nt if fit_nn else nn_params), starts,
+        nn_params if fit_nn else None, steps, lr, nn_lr)
+    best = 0 if finals is None else _best_start(finals)
+    phys = {k: v[best] for k, v in theta.items()}
     with torch.no_grad():
         fitted = apply_theta(p, phys)
     return SysIdResult(params=fitted, theta=phys, values=theta_values(phys),
-                       nn_params=net if fit_nn else nn_params,
-                       loss_history=hist, start_losses=start_losses)
+                       nn_params=nets.unstack()[best] if fit_nn else nn_params,
+                       loss_history=hist[best], start_losses=finals)
 
 
 @dataclasses.dataclass
@@ -727,10 +756,11 @@ def laplace_posterior(
 
 def sample_posterior(p: RodParams, post: LaplacePosterior,
                      generator: torch.Generator,
-                     n_samples: int = 20) -> tuple:
+                     n_samples: int = 20) -> RodParams:
     """``n_samples`` rods drawn from the Laplace posterior (normal draws
-    from ``generator``), a tuple of fully derived RodParams; the JAX
-    package returns them stacked on a leading axis for its vmap."""
+    from ``generator``), one stack of fully derived rods
+    (core/params.stack_params): ``simulate_scan`` rolls it out as a
+    predictive ensemble, (n_samples, T, N, 50)."""
     vec0, _, unpack = _flatten_theta(post.theta)
     D = vec0.numel()
     cov = np.asarray(post.covariance, np.float64)
@@ -743,8 +773,8 @@ def sample_posterior(p: RodParams, post: LaplacePosterior,
                       dtype=torch.float64).numpy()
     vecs = vec0.detach().cpu().double().numpy()[None] + eps @ Lc.T
     with torch.no_grad():
-        return tuple(apply_theta(p, unpack(torch.as_tensor(
-            v, dtype=vec0.dtype, device=vec0.device))) for v in vecs)
+        return apply_theta(p, unpack(torch.as_tensor(
+            vecs, dtype=vec0.dtype, device=vec0.device)))
 
 
 # ------------------------------------------------- assembly identification
@@ -772,10 +802,12 @@ def _assembly_theta(asm, fields):
 
 
 def _assembly_with(asm, theta):
-    """The assembly with rod i re-derived at theta[...][i]."""
-    return asm.replace(rods=tuple(
-        apply_theta(r, {k: v[i] for k, v in theta.items()})
-        for i, r in enumerate(asm.rods)))
+    """The assembly with rod i re-derived at theta[...][i], all M in one
+    batched apply_theta (the JAX package's jax.vmap(apply_theta))."""
+    rods = apply_theta(asm.stacked_rods(), theta)
+    out = asm.replace(rods=unstack_params(rods))
+    out._cache["rods"] = rods
+    return out
 
 
 def _assembly_inputs(asm, plate_traj, controls, w_ori):

@@ -229,6 +229,40 @@ def test_sysid_matches_the_jax_command(monkeypatch, capsys, argv):
     assert float(hist[-1]) < float(hist[0])
 
 
+def test_sysid_restarts_run_as_one_batch(monkeypatch, capsys):
+    """``sysid --n_starts 3``: the JAX command's lines (its starts come from
+    its PRNG, the port's from a torch.Generator, so the labels are
+    compared), three start losses, and the returned winner's objective
+    their minimum."""
+    from knode_cosserat_tpu_torch.core.params import apply_mod
+    from knode_cosserat_tpu_torch.core.stepper import simulate_scan
+    from knode_cosserat_tpu_torch.controls import calc_controls
+    from knode_cosserat_tpu_torch.models.mlp import MLPSpec
+    from knode_cosserat_tpu_torch.training import sysid as ks
+
+    argv = ["sysid", "--length", "6", "--steps", "3", "--n_starts", "3"]
+    want = _jax_cli(monkeypatch, argv, capsys)
+    res = cli.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    assert [ln.split(":")[0] for ln in got.splitlines()] == [
+        ln.split(":")[0] for ln in want.splitlines()]
+    printed = _numbers(got.splitlines()[0])
+    assert got.startswith("start losses:") and len(printed) == 3
+    np.testing.assert_allclose(printed, res.start_losses.numpy(),
+                               rtol=1e-3)         # printed with 4 digits
+    plant = apply_mod(None, device="cpu")
+    ctl = torch.tensor(calc_controls("sine", 1.0, float(plant.del_t), 6))
+    traj = simulate_scan(plant, ctl).traj[None, :, :, :25]
+    p0 = apply_mod("youngs", device="cpu")
+    objective = ks._make_objective(p0, traj, ctl[None], "teacher",
+                                   ks.DEFAULT_KEYPOINTS_FAST,
+                                   MLPSpec.for_knode(), "euler", None, 50)
+    with torch.no_grad():
+        won = float(objective(res.theta))
+    assert won == pytest.approx(float(res.start_losses.min()), rel=1e-12)
+    assert float(res.loss_history[-1]) < float(res.loss_history[0])
+
+
 def test_design_matches_jax(monkeypatch, capsys, tmp_path):
     """``design`` starts from logits drawn from a torch.Generator seeded
     with 0 (the JAX command draws from its PRNG key), so it is held to the

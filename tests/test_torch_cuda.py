@@ -986,3 +986,39 @@ def test_fine_rod_and_reference_solvers_on_the_card(dev):
             assert o.traj.device == ref.device
             rel = float((o.traj - ref).abs().max() / ref.abs().max())
             assert rel < 1e-9, (solver, rel)
+
+
+@pytest.mark.parametrize("objective", ["teacher", "rollout"])
+def test_batched_sysid_fit_equals_its_starts_solo_fits(dev, objective):
+    """fit_rod_params(n_starts=3) on the card, float64: the one-batch fit's
+    loss history of each start against that start's solo fit (1e-10
+    relative), and the winner's curve returned."""
+    from knode_cosserat_tpu_torch.controls import calc_controls
+    from knode_cosserat_tpu_torch.models.mlp import MLPSpec
+    from knode_cosserat_tpu_torch.training import sysid as ks
+
+    plant = K.experimental_rod(N=6, dtype=torch.float64, device=dev)
+    p0 = K.apply_mod("youngs", N=6, dtype=torch.float64, device=dev)
+    T = 5 if objective == "teacher" else 4
+    ctl = torch.tensor(calc_controls("sine", 1.0, float(plant.del_t), T),
+                       dtype=torch.float64, device=dev)
+    traj = K.simulate_scan(plant, ctl).traj[:, :, :25]
+    kw = dict(fields=("E",), objective=objective, steps=3, lr=0.1,
+              keypoints=(3, 5))
+    starts = ks._jitter_starts(ks.theta_init(p0, ("E",)), 3, 0.25,
+                               torch.Generator().manual_seed(0))
+    loss_fn = ks._make_objective(p0, traj[None], ctl[None], objective,
+                                 (3, 5), MLPSpec.for_knode(), "euler", None,
+                                 50)
+    _, _, hist, finals = ks._fit_batch(loss_fn, starts, None, 3, 0.1, 1e-2)
+    assert hist.device == dev and hist.shape == (3, 3)
+    for i in range(3):
+        solo = ks.fit_rod_params(ks.apply_theta(p0, {"E": starts["E"][i]}),
+                                 traj, ctl, **kw)
+        torch.testing.assert_close(solo.loss_history, hist[i], rtol=1e-10,
+                                   atol=0)
+    res = ks.fit_rod_params(p0, traj, ctl, n_starts=3,
+                            generator=torch.Generator().manual_seed(0), **kw)
+    torch.testing.assert_close(res.loss_history,
+                               hist[int(torch.argmin(finals))], rtol=0,
+                               atol=0)

@@ -20,6 +20,7 @@ from knode_cosserat_tpu.training import loss as jloss
 from knode_cosserat_tpu.training import sysid as js
 from knode_cosserat_tpu_torch.core import assembly as ka
 from knode_cosserat_tpu_torch.core import params as kp
+from knode_cosserat_tpu_torch.core import stepper as kst
 from knode_cosserat_tpu_torch.models.mlp import MLPSpec, params_from_jax
 from knode_cosserat_tpu_torch.training import loss as kloss
 from knode_cosserat_tpu_torch.training import sysid as ks
@@ -233,17 +234,27 @@ def test_laplace_posterior_matches_jax(posterior):
 
 def test_sample_posterior_moments(data, posterior):
     """The draws come from a torch.Generator (the JAX package's from its
-    PRNG): their log E has the posterior's mean and standard deviation."""
+    PRNG), stacked on a leading axis as the JAX package returns them:
+    their log E has the posterior's mean and standard deviation, every
+    draw is derived, and the stack rolls out as one simulate_scan, a
+    predictive ensemble that spreads."""
     _, post = posterior
     rods = ks.sample_posterior(data["pk"], post,
                                torch.Generator().manual_seed(0), 400)
-    logE = np.log([float(r.E) for r in rods])
+    assert rods.n_rods == 400 and rods.N == 6 and rods.E.shape == (400, 1)
+    logE = np.log(rods.E[:, 0].numpy())
     mean, std = float(post.theta["E"]), float(post.std[0])
-    assert len(rods) == 400 and rods[0].N == 6
     assert abs(logE.mean() - mean) < 4 * std / np.sqrt(400)
     assert abs(logE.std() / std - 1) < 0.15
-    assert float(rods[0].Kse[2, 2]) == pytest.approx(
-        float(rods[0].E) * float(rods[0].A), rel=1e-12)
+    np.testing.assert_allclose(rods.Kse[:, 2, 2].numpy(),
+                               (rods.E * rods.A)[:, 0].numpy(), rtol=1e-12)
+    few = ks.sample_posterior(data["pk"], post,
+                              torch.Generator().manual_seed(6), 8)
+    sims = kst.simulate_scan(few, data["ctl"]).traj
+    assert sims.shape == (8, T, 6, 50)
+    tips = sims[:, :, -1, 0:3].numpy()
+    assert np.all(np.isfinite(tips))
+    assert tips.std(axis=0).max() > 0        # the ensemble spreads
 
 
 @pytest.fixture(scope="module")
