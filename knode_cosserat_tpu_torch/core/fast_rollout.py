@@ -30,6 +30,7 @@ import torch
 
 from ..models.mlp import MLPSpec, StackedMLP
 from ..ops.linalg import solve_small
+from ..utils.profiling import annotate, new_call
 from .params import RodParams
 from .stepper import initial_state, tendon_forces
 
@@ -271,6 +272,7 @@ def make_fast_rollout(
 
     @torch.no_grad()
     def rollout(controls, nn_params=None):
+        new_call()
         controls = torch.as_tensor(controls, dtype=p.dtype, device=p.device)
         R, T = controls.shape[0], controls.shape[1]
         y0, z0 = initial_state(p)
@@ -281,14 +283,15 @@ def make_fast_rollout(
         records = [torch.cat([y0, z0, y0, z0], dim=-1)]
         res, iters = [], []
         for t in range(T - 1):
-            # linear extrapolation of the base reaction across time steps
-            # starts Newton closer to the root
-            G_guess = 2.0 * G - G_prev if extrapolate else G
-            y_new, z_new, G_new, yh, zh, r2, it = inner(
-                y, z, y_prev, z_prev, G_guess, controls[:, t], nn_params)
-            records.append(torch.cat([y_new, z_new, yh, zh], dim=-1))
-            res.append(r2.sqrt())
-            iters.append(it)
+            with annotate("rollout.step"):
+                # linear extrapolation of the base reaction across time
+                # steps starts Newton closer to the root
+                G_guess = 2.0 * G - G_prev if extrapolate else G
+                y_new, z_new, G_new, yh, zh, r2, it = inner(
+                    y, z, y_prev, z_prev, G_guess, controls[:, t], nn_params)
+                records.append(torch.cat([y_new, z_new, yh, zh], dim=-1))
+                res.append(r2.sqrt())
+                iters.append(it)
             y, z, y_prev, z_prev, G, G_prev = y_new, z_new, y, z, G_new, G
         traj = torch.stack(records, dim=1)                   # (R, T, N, 50)
         empty = torch.zeros((0, R), dtype=p.dtype, device=p.device)

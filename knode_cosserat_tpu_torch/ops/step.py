@@ -29,6 +29,7 @@ import torch
 
 from ..core.params import RodParams
 from ..models.mlp import MLPSpec
+from ..utils.profiling import annotate, count
 from . import sweep as _sweep
 from .sweep import (WARP, check_inputs, check_spec, deep_plan,
                     net_smem_bytes, net_table, raise_on, rod_consts,
@@ -126,6 +127,13 @@ def make_step_kernel(p: RodParams, spec: MLPSpec | None = None,
     cache = {}
 
     def fn(G, yh, zh, tf, nn_params=None):
+        with annotate("k2.launch"):
+            out = launch(G, yh, zh, tf, nn_params)
+        count("k2.newton_iters", out[4])
+        count("k2.rod_steps", G.shape[0])
+        return out
+
+    def launch(G, yh, zh, tf, nn_params):
         nn_params = nn_params if spec is not None else None
         if G.device.type == "cpu":
             return step_reference(p, G, yh, zh, tf, nn_params, tol, max_iter,

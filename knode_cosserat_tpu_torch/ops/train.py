@@ -57,6 +57,7 @@ from ..core.params import RodParams
 from ..core.rhs import nn_input_features, rhs
 from ..core.stepper import tendon_forces
 from ..models.mlp import KnodeMLP, MLPSpec, StackedMLP
+from ..utils.profiling import annotate
 from .quaternion import quaternion_to_euler
 
 __all__ = ["make_fused_training_run", "make_fused_grid_training_run",
@@ -245,7 +246,8 @@ def load_fused_state(opt, state: dict):
         for i, P in enumerate(Ps):
             opt.state[P]["mu"] = m[2 * i].to(P.dtype).clone()
             opt.state[P]["nu"] = m[2 * i + 1].to(P.dtype).clone()
-    count, best, pcount, scale = state["scalars"].tolist()
+    with annotate("train.wait"):
+        count, best, pcount, scale = state["scalars"].tolist()
     opt.chain.update(count=int(round(count)), best_value=best,
                      plateau_count=int(round(pcount)), scale=scale)
     return opt
@@ -300,11 +302,12 @@ def train_run(cells: Cells, W: Sequence[torch.Tensor], state: dict,
     """K4: ``n_epochs`` epochs in one launch. Same arguments and returns as
     :func:`train_run_reference`, which runs instead for cells on the CPU."""
     dev = cells.x.device
-    if dev.type == "cpu":
-        return train_run_reference(cells, W, state, n_epochs, hyper)
-    if dev.type != "cuda":
-        raise ValueError(f"no training kernel for device {dev}")
-    return _launch(cells, W, state, n_epochs, hyper)
+    with annotate("k4.launch"):
+        if dev.type == "cpu":
+            return train_run_reference(cells, W, state, n_epochs, hyper)
+        if dev.type != "cuda":
+            raise ValueError(f"no training kernel for device {dev}")
+        return _launch(cells, W, state, n_epochs, hyper)
 
 
 def _check(name, t, shape, dev):
@@ -501,7 +504,8 @@ def make_run(p: RodParams, spec: MLPSpec, cfg, n_epochs: int, fn,
     keypoints = tuple(cfg.keypoints)
 
     def run(net: KnodeMLP, trajs, controls, opt_state=None):
-        cells = precompute(p, spec, keypoints, trajs, controls)
+        with annotate("k4.cells"):
+            cells = precompute(p, spec, keypoints, trajs, controls)
         if cells.x.shape[0] > max_cells:
             raise ValueError(f"{cells.x.shape[0]} cells > {max_cells}")
         W = [t.detach().to(torch.float32).contiguous()

@@ -24,6 +24,7 @@ from .core.shooting import newton_solve
 from .core.spatial import integrate_euler, tip_residual
 from .core.stepper import initial_state, tendon_forces
 from .models.mlp import KnodeMLP, MLPSpec
+from .utils.profiling import annotate, new_call
 
 __all__ = ["StepState", "CompiledStepper"]
 
@@ -105,16 +106,19 @@ class CompiledStepper:
     @torch.no_grad()
     def step(self, state: StepState, tensions) -> Tuple[StepState, dict]:
         """Advance one del_t. tensions: (4,) or (batch, 4) newtons."""
-        tensions = torch.as_tensor(tensions, dtype=self.p.dtype,
-                                   device=self.p.device)
-        up = (lambda a: a) if self.batch is not None else (lambda a: a[None])
-        down = (lambda a: a) if self.batch is not None else (lambda a: a[0])
-        y_new, z_new, G_new, res = self._fn(
-            self._nn_params, up(state.y), up(state.z), up(state.y_prev),
-            up(state.z_prev), up(state.G), up(tensions))
-        res = res if res.dim() == 0 else down(res)
-        new = StepState(y=down(y_new), z=down(z_new), y_prev=state.y,
-                        z_prev=state.z, G=down(G_new))
+        new_call()
+        with annotate("serve.step"):
+            tensions = torch.as_tensor(tensions, dtype=self.p.dtype,
+                                       device=self.p.device)
+            one = self.batch is None
+            up = (lambda a: a[None]) if one else (lambda a: a)
+            down = (lambda a: a[0]) if one else (lambda a: a)
+            y_new, z_new, G_new, res = self._fn(
+                self._nn_params, up(state.y), up(state.z), up(state.y_prev),
+                up(state.z_prev), up(state.G), up(tensions))
+            res = res if res.dim() == 0 else down(res)
+            new = StepState(y=down(y_new), z=down(z_new), y_prev=state.y,
+                            z_prev=state.z, G=down(G_new))
         return new, {"residual": res}
 
     def benchmark(self, n: int = 100, reps: int = 3) -> dict:

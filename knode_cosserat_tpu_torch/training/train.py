@@ -37,6 +37,7 @@ import torch
 from ..core.params import RodParams
 from ..core.stepper import simulate
 from ..models.mlp import KnodeMLP, MLPSpec, clamp_nonnegative, init_mlp
+from ..utils.profiling import annotate, new_call
 from .loss import DEFAULT_KEYPOINTS_FAST, teacher_forced_loss
 
 __all__ = ["TrainConfig", "TrainResult", "train_knode", "make_train_step",
@@ -448,6 +449,7 @@ def train_knode(
     fused trainers are declined under a mesh; the result is the whole
     (gathered) net on every rank, and rank 0 writes the checkpoints.
     """
+    new_call()
     if mesh is not None:
         _decline_fused(cfg)
     spec = cfg.spec()
@@ -526,67 +528,72 @@ def train_knode(
 
     epoch = 0
     while epoch <= cfg.epochs:
-        if do_eval and epoch % cfg.eval_every == 0:
-            # reference quirk: the epoch-0 eval scores the model with NO NN
-            # (physics_train.py:275,380 pass None at epoch 0)
-            if epoch == 0:
-                traj = simulate(eval_rod, validation_controls,
-                                tol=_default_tol(eval_rod.dtype))
-            else:
-                if sharded is not None:
-                    net = sharded.gathered()[0]
-                traj = rollout_with_nn(eval_rod, validation_controls, spec,
-                                       _on_rod(net, eval_rod),
-                                       impl=eval_impl)
-            if cfg.eval_dtw == "device":
-                from ..ops.dtw import tip_dtw_device
-                d = float(tip_dtw_device(traj[None, :, :, :25],
-                                         validation_reference)[0])
-            else:
-                from ..evaluation.metrics import tip_dtw  # scipy: at use
-                d = tip_dtw(traj[:, :, :25].cpu().numpy(),
-                            validation_reference.cpu().numpy())
-            dtw_hist.append((epoch, d))
-            if log:
-                log(f"Validation DTW Distance XYZ {d}")
-            if d < best_dtw:
-                best_dtw, best_params = d, copy.deepcopy(net)
+        with annotate("train.chunk"):
+            if do_eval and epoch % cfg.eval_every == 0:
+                # reference quirk: the epoch-0 eval scores the model with
+                # NO NN (physics_train.py:275,380 pass None at epoch 0)
+                if epoch == 0:
+                    traj = simulate(eval_rod, validation_controls,
+                                    tol=_default_tol(eval_rod.dtype))
+                else:
+                    if sharded is not None:
+                        net = sharded.gathered()[0]
+                    traj = rollout_with_nn(eval_rod, validation_controls,
+                                           spec, _on_rod(net, eval_rod),
+                                           impl=eval_impl)
+                if cfg.eval_dtw == "device":
+                    from ..ops.dtw import tip_dtw_device
+                    d = float(tip_dtw_device(traj[None, :, :, :25],
+                                             validation_reference)[0])
+                else:
+                    from ..evaluation.metrics import tip_dtw  # scipy: at use
+                    d = tip_dtw(traj[:, :, :25].cpu().numpy(),
+                                validation_reference.cpu().numpy())
+                dtw_hist.append((epoch, d))
+                if log:
+                    log(f"Validation DTW Distance XYZ {d}")
+                if d < best_dtw:
+                    best_dtw, best_params = d, copy.deepcopy(net)
 
-        n = min(chunk, cfg.epochs + 1 - epoch)
-        runner = run_chunk if n == chunk else make_runner(n)
-        if fused_mode:
-            new, losses, fstate = runner(net, trajs, controls_t,
-                                         fused_state_from_optimizer(optimizer))
-            with torch.no_grad():
-                for P, Q in zip(net.parameters(), new.parameters()):
-                    P.copy_(Q)
-            load_fused_state(optimizer, fstate)
-        else:
-            losses = runner(net, trajs, controls_t)
-        losses = losses.detach().cpu().numpy()
-        loss_hist.extend(float(x) for x in losses)
-        if t0_compiled is None:
-            if cuda:
-                torch.cuda.synchronize(device)
-            t0_compiled = time.perf_counter()
-        epoch += n
-        due = checkpoint_path and (epoch % cfg.checkpoint_every) < n
-        if due and sharded is not None:
-            # the gather is a collective: every rank joins it, rank 0 writes
-            net, optimizer = sharded.gathered()
-        if due and (sharded is None or sharded.writer):
-            tree = {"params": _net_tree(net, host=ckpt_writer is None),
-                    "opt_state": optim_state_to_jax(optimizer),
-                    "loss": np.asarray(loss_hist), "dtw": list(dtw_hist)}
-            if ckpt_writer is not None:
-                ckpt_writer.save(checkpoint_path, tree,
-                                 meta={"epoch": epoch})
+            n = min(chunk, cfg.epochs + 1 - epoch)
+            runner = run_chunk if n == chunk else make_runner(n)
+            if fused_mode:
+                new, losses, fstate = runner(
+                    net, trajs, controls_t,
+                    fused_state_from_optimizer(optimizer))
+                with torch.no_grad():
+                    for P, Q in zip(net.parameters(), new.parameters()):
+                        P.copy_(Q)
+                load_fused_state(optimizer, fstate)
             else:
-                from .checkpoint import save_checkpoint
-                save_checkpoint(checkpoint_path, tree, meta={"epoch": epoch})
-        if log and (epoch // chunk) % max(1, cfg.log_every // chunk) == 0:
-            log(f"Epoch {epoch - 1} of {cfg.epochs}")
-            log(f"Total loss: {losses[-1]:.6e}")
+                losses = runner(net, trajs, controls_t)
+            with annotate("train.wait"):
+                losses = losses.detach().cpu().numpy()
+            loss_hist.extend(float(x) for x in losses)
+            if t0_compiled is None:
+                if cuda:
+                    torch.cuda.synchronize(device)
+                t0_compiled = time.perf_counter()
+            epoch += n
+            due = checkpoint_path and (epoch % cfg.checkpoint_every) < n
+            if due and sharded is not None:
+                # the gather is a collective: every rank joins it, rank 0
+                # writes
+                net, optimizer = sharded.gathered()
+            if due and (sharded is None or sharded.writer):
+                tree = {"params": _net_tree(net, host=ckpt_writer is None),
+                        "opt_state": optim_state_to_jax(optimizer),
+                        "loss": np.asarray(loss_hist), "dtw": list(dtw_hist)}
+                if ckpt_writer is not None:
+                    ckpt_writer.save(checkpoint_path, tree,
+                                     meta={"epoch": epoch})
+                else:
+                    from .checkpoint import save_checkpoint
+                    save_checkpoint(checkpoint_path, tree,
+                                    meta={"epoch": epoch})
+            if log and (epoch // chunk) % max(1, cfg.log_every // chunk) == 0:
+                log(f"Epoch {epoch - 1} of {cfg.epochs}")
+                log(f"Total loss: {losses[-1]:.6e}")
 
     if ckpt_writer is not None:
         ckpt_writer.close()   # every queued checkpoint is on disk

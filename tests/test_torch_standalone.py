@@ -98,7 +98,7 @@ SCRIPT = textwrap.dedent("""
     mp = K.init_mlp(K.MLPSpec.for_knode(8, compute_dtype="bfloat16"),
                     torch.Generator().manual_seed(0), torch.float32, "cpu")
     assert mp(torch.ones(2, 28)).dtype == torch.float32
-    with utils.Timer().phase("x"):
+    with utils.annotate("x"):
         pass
     assert calls == [], calls
     print("STANDALONE_OK")

@@ -8,9 +8,9 @@ import numpy as np
 import torch
 
 from knode_cosserat_tpu import utils as jutils
-from knode_cosserat_tpu_torch.utils import (MetricsLogger, Timer, annotate,
+from knode_cosserat_tpu_torch.utils import (MetricsLogger, annotate,
                                             denormalize_data, normalize_data,
-                                            timed, trace)
+                                            trace)
 
 torch.set_num_threads(1)
 
@@ -27,24 +27,6 @@ def test_metrics_logger_jsonl_and_stdout(tmp_path, capsys):
     out = capsys.readouterr().out
     # reference-compatible stdout format (physics_multitrain regex target)
     assert "Epoch 0" in out and "Total loss:" in out
-
-
-def test_timer_phases_and_sync():
-    t = Timer()
-    with t.phase("a"):
-        sum(range(1000))
-    with t.phase("a", sync=torch.zeros(3)):     # a CPU tensor: no sync
-        pass
-    with t.phase("b"):
-        pass
-    assert t.counts["a"] == 2 and t.counts["b"] == 1
-    assert "a" in t.report() and "avg" in t.report()
-
-
-def test_timed_logs(capsys):
-    with timed("thing"):
-        pass
-    assert "thing:" in capsys.readouterr().out
 
 
 def test_normalize_roundtrip_matches_jax():
