@@ -47,7 +47,7 @@ import copy
 import ctypes
 import dataclasses
 import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,7 +57,7 @@ from ..core.params import RodParams
 from ..core.rhs import nn_input_features, rhs
 from ..core.stepper import tendon_forces
 from ..models.mlp import KnodeMLP, MLPSpec, StackedMLP
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, count
 from .quaternion import quaternion_to_euler
 
 __all__ = ["make_fused_training_run", "make_fused_grid_training_run",
@@ -66,7 +66,7 @@ __all__ = ["make_fused_training_run", "make_fused_grid_training_run",
            "train_run_reference", "train_grid_run", "train_grid_reference",
            "fresh_state", "fused_state_from_optimizer", "load_fused_state",
            "fused_state_from_jax", "fused_state_to_jax", "Cells",
-           "TrainHyper", "launch_plan", "TrainPlan",
+           "DeviceNet", "TrainHyper", "launch_plan", "TrainPlan",
            "max_active_clusters", "MAX_CELLS", "MAX_HIDDEN", "LAUNCHES",
            "GRID_LAUNCHES"]
 
@@ -494,6 +494,27 @@ def _check_two_layer_elu(spec: MLPSpec):
             "reference architecture); use the plain epoch loop otherwise")
 
 
+class DeviceNet(NamedTuple):
+    """A net held on the device between whole-run launches: its float32
+    weights [W1, b1, W2, b2] and the cells of the run (None until the
+    first launch builds them). A launch on it returns the next one."""
+    W: list
+    cells: Optional[Cells] = None
+
+    @classmethod
+    def of(cls, net: KnodeMLP) -> "DeviceNet":
+        return cls([t.detach().to(torch.float32).contiguous()
+                    for wb in net.weights() for t in wb])
+
+    def write_to(self, net: KnodeMLP) -> KnodeMLP:
+        """Copy the weights into ``net``'s parameters (on the device, no
+        synchronisation)."""
+        with torch.no_grad():
+            for P, w in zip(net.parameters(), self.W):
+                P.copy_(w)
+        return net
+
+
 def make_run(p: RodParams, spec: MLPSpec, cfg, n_epochs: int, fn,
              max_cells: int = MAX_CELLS):
     """run(net, trajs, controls, opt_state=None) over a whole-run function
@@ -503,20 +524,21 @@ def make_run(p: RodParams, spec: MLPSpec, cfg, n_epochs: int, fn,
     hyper = _hyper(cfg)
     keypoints = tuple(cfg.keypoints)
 
-    def run(net: KnodeMLP, trajs, controls, opt_state=None):
-        with annotate("k4.cells"):
-            cells = precompute(p, spec, keypoints, trajs, controls)
-        if cells.x.shape[0] > max_cells:
-            raise ValueError(f"{cells.x.shape[0]} cells > {max_cells}")
-        W = [t.detach().to(torch.float32).contiguous()
-             for wb in net.weights() for t in wb]
+    def run(net, trajs, controls, opt_state=None):
+        held = net if isinstance(net, DeviceNet) else DeviceNet.of(net)
+        cells = held.cells
+        if cells is None:
+            with annotate("k4.cells"):
+                cells = precompute(p, spec, keypoints, trajs, controls)
+            count("train.cells_built", 1)
+            if cells.x.shape[0] > max_cells:
+                raise ValueError(f"{cells.x.shape[0]} cells > {max_cells}")
         if opt_state is None:
-            opt_state = fresh_state(W)
-        W_out, losses, state = fn(cells, W, opt_state, n_epochs, hyper)
-        out = copy.deepcopy(net)
-        with torch.no_grad():
-            for P, w in zip(out.parameters(), W_out):
-                P.copy_(w)
+            opt_state = fresh_state(held.W)
+        W_out, losses, state = fn(cells, held.W, opt_state, n_epochs, hyper)
+        out = DeviceNet(W_out, cells)
+        if held is not net:
+            out = out.write_to(copy.deepcopy(net))
         return out, losses, state
 
     return run
@@ -528,7 +550,10 @@ def make_fused_training_run(p: RodParams, spec: MLPSpec, cfg, n_epochs: int,
     (B,T,4), opt_state=None) -> (net', losses (n_epochs,), opt_state'),
     matching training.train.make_epoch_scan driven by make_optimizer(cfg)
     to float32 rounding. ``net`` is left as it is; net' is a copy with the
-    trained weights.
+    trained weights. ``net`` may instead be a :class:`DeviceNet`: net' is
+    then the DeviceNet of the trained weights, which carries the cells
+    built by the first such call, so a chain of calls on the same data
+    (train_knode's chunks) builds them once and copies nothing.
 
     cfg: a TrainConfig (lr, weight_decay, keypoints, clamp_weights,
     plateau_*). opt_state: None for a fresh run or the state a previous

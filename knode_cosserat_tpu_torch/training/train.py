@@ -20,8 +20,11 @@ best-DTW weights are kept.
 Epoch chunks run on kernel K4 (ops/train.py), or on K6 (ops/train_wide.py)
 for wide nets, where the configuration and the device allow it (see
 ``TrainConfig.fused``), else on the plain epoch loop of
-:func:`make_epoch_scan`. The validation rollouts of a CUDA rod run
-on K2 (``rollout_with_nn(impl="mega")``).
+:func:`make_epoch_scan`. A fused run stays on the device for the whole
+call: its cells are built once, each launch takes the last one's weights
+and optimizer state, and the host reads back only where a checkpoint, a
+validation, a log line or the return needs a value. The validation
+rollouts of a CUDA rod run on K2 (``rollout_with_nn(impl="mega")``).
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import torch
 from ..core.params import RodParams
 from ..core.stepper import simulate
 from ..models.mlp import KnodeMLP, MLPSpec, clamp_nonnegative, init_mlp
-from ..utils.profiling import annotate, new_call
+from ..utils.profiling import annotate, count, new_call
 from .loss import DEFAULT_KEYPOINTS_FAST, teacher_forced_loss
 
 __all__ = ["TrainConfig", "TrainResult", "train_knode", "make_train_step",
@@ -501,21 +504,30 @@ def train_knode(
     if sharded is not None:
         make_runner = lambda n: (lambda *_: sharded.run(n))
     elif fused_mode in ("wide", "wide_plain"):
-        from ..ops.train import fused_state_from_optimizer, load_fused_state
         from ..ops.train_wide import make_wide_training_run
         make_runner = lambda n: make_wide_training_run(
             p_mod, spec, cfg, n, plain=fused_mode == "wide_plain")
     elif fused_mode:
-        from ..ops.train import (fused_state_from_optimizer, load_fused_state,
-                                 make_fused_training_run)
+        from ..ops.train import make_fused_training_run
         make_runner = lambda n: make_fused_training_run(
             p_mod, spec, cfg, n, plain=fused_mode == "plain")
     else:
         make_runner = lambda n: make_epoch_scan(
             p_mod, spec, optimizer, cfg.keypoints, cfg.clamp_weights, n)
     run_chunk = make_runner(chunk)
+    if fused_mode:
+        # the run stays on the device for the whole call: each launch takes
+        # the last one's weights, moments and scalars, and the cells built
+        # by the first; the net, the optimizer and the loss history are
+        # written back only where a checkpoint, a validation, a log line or
+        # the return needs them
+        from ..ops.train import (DeviceNet, fused_state_from_optimizer,
+                                 load_fused_state)
+        held = DeviceNet.of(net)
+        fstate = fused_state_from_optimizer(optimizer)
 
     loss_hist = list(resumed_loss)
+    pending = []          # the chunks' losses not yet read back, on device
     dtw_hist = []
     best_dtw, best_params = np.inf, net
     ckpt_writer = None
@@ -525,6 +537,13 @@ def train_knode(
     cuda = device.type == "cuda"
     t_start = time.perf_counter()
     t0_compiled = None
+
+    def read_back():
+        with annotate("train.wait"):
+            host = torch.cat(pending).cpu().numpy()
+        count("train.readbacks", 1)
+        loss_hist.extend(float(x) for x in host)
+        pending.clear()
 
     epoch = 0
     while epoch <= cfg.epochs:
@@ -538,6 +557,8 @@ def train_knode(
                 else:
                     if sharded is not None:
                         net = sharded.gathered()[0]
+                    elif fused_mode:
+                        held.write_to(net)
                     traj = rollout_with_nn(eval_rod, validation_controls,
                                            spec, _on_rod(net, eval_rod),
                                            impl=eval_impl)
@@ -558,24 +579,27 @@ def train_knode(
             n = min(chunk, cfg.epochs + 1 - epoch)
             runner = run_chunk if n == chunk else make_runner(n)
             if fused_mode:
-                new, losses, fstate = runner(
-                    net, trajs, controls_t,
-                    fused_state_from_optimizer(optimizer))
-                with torch.no_grad():
-                    for P, Q in zip(net.parameters(), new.parameters()):
-                        P.copy_(Q)
-                load_fused_state(optimizer, fstate)
+                held, losses, fstate = runner(held, trajs, controls_t, fstate)
             else:
                 losses = runner(net, trajs, controls_t)
-            with annotate("train.wait"):
-                losses = losses.detach().cpu().numpy()
-            loss_hist.extend(float(x) for x in losses)
+            pending.append(losses.detach())
             if t0_compiled is None:
                 if cuda:
-                    torch.cuda.synchronize(device)
+                    with annotate("train.wait"):
+                        torch.cuda.synchronize(device)
                 t0_compiled = time.perf_counter()
             epoch += n
             due = checkpoint_path and (epoch % cfg.checkpoint_every) < n
+            logged = log and (epoch // chunk) % max(
+                1, cfg.log_every // chunk) == 0
+            last = epoch > cfg.epochs
+            if not fused_mode or due or logged or last:
+                read_back()
+            if fused_mode and (due or last):
+                held.write_to(net)
+                if due:
+                    load_fused_state(optimizer, fstate)
+                    count("train.readbacks", 1)
             if due and sharded is not None:
                 # the gather is a collective: every rank joins it, rank 0
                 # writes
@@ -591,9 +615,9 @@ def train_knode(
                     from .checkpoint import save_checkpoint
                     save_checkpoint(checkpoint_path, tree,
                                     meta={"epoch": epoch})
-            if log and (epoch // chunk) % max(1, cfg.log_every // chunk) == 0:
+            if logged:
                 log(f"Epoch {epoch - 1} of {cfg.epochs}")
-                log(f"Total loss: {losses[-1]:.6e}")
+                log(f"Total loss: {loss_hist[-1]:.6e}")
 
     if ckpt_writer is not None:
         ckpt_writer.close()   # every queued checkpoint is on disk

@@ -431,6 +431,48 @@ def test_train_knode_runs_on_the_kernels(dev):
     assert r.device == torch.cuda.get_device_name(dev)
 
 
+# validation every 10 epochs with a log line every chunk; or a checkpoint
+# after epochs 15 and 25 of chunks of 5, and no log
+@pytest.mark.parametrize("fused", ["on", "wide"])
+@pytest.mark.parametrize("case", [dict(eval_every=10, eval_len=8),
+                                  dict(log_every=5, checkpoint_every=12)])
+def test_train_knode_on_the_card_equals_the_chunk_by_chunk_chain(
+        dev, fused, case, tmp_path, monkeypatch):
+    """train_knode's fused run held on the card across its chunks (K4, or
+    K6) == make_fused_training_run / make_wide_training_run composed chunk
+    by chunk with the state poured through the optimizer, bit for bit:
+    losses, net, validation DTWs, log lines and checkpoints."""
+    from fused_chain import chained, flat
+    from knode_cosserat_tpu_torch.training import checkpoint as kckpt
+    p, cfg, _, trajs, ctls = _train_case(dev, fused=fused, epochs=24,
+                                         **case)
+    evals = ((None, None) if "eval_every" not in case else
+             K.make_validation_reference(K.apply_mod(None, device=dev),
+                                         ("sine", 1.25), 8))
+    saved, lines = [], []
+    monkeypatch.setattr(kckpt, "save_checkpoint",
+                        lambda path, tree, meta: saved.append(
+                            (meta["epoch"], tree)))
+    ckpt = str(tmp_path / "ck") if "checkpoint_every" in case else None
+    r = K.train_knode(p, trajs, ctls, cfg, *evals, checkpoint_path=ckpt,
+                      log=lines.append if ckpt is None else None)
+    hist, net, dtws, want_lines, want_saved = chained(
+        p, trajs, ctls, cfg, *evals, checkpoint=ckpt is not None)
+    np.testing.assert_array_equal(r.loss_history, np.asarray(hist))
+    for a, b in zip(r.params.parameters(), net.parameters()):
+        assert torch.equal(a, b)
+    assert r.dtw_history == dtws
+    if ckpt is None:
+        assert len(dtws) == 3 and lines == want_lines
+    else:
+        assert [e for e, _ in saved] == [e for e, _ in want_saved] == [15, 25]
+        for (_, got), (_, want) in zip(saved, want_saved):
+            (s1, l1), (s2, l2) = flat(got), flat(want)
+            assert s1 == s2
+            for a, b in zip(l1, l2):
+                np.testing.assert_array_equal(a, b)
+
+
 # hidden 512 x 10 rods: the multitrain eval's launch (10 cells of a mod)
 @pytest.mark.parametrize("hidden,rods", [(64, 5), (512, 10)])
 def test_step_kernel_per_rod_nets_match_single_net_launches(dev, hidden,

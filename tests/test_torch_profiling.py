@@ -157,16 +157,38 @@ def test_train_knode_records_a_chunk_span_a_chunk(case):
     rec = _profiled(lambda: train(case))
     chunks = [i for i, s in enumerate(rec.spans) if s.name == "train.chunk"]
     assert len(chunks) == CHUNKS
-    for i in chunks:
+    for k, i in enumerate(chunks):
         assert rec.spans[i].parent == -1
-        # the state's scalars and the losses read back; on a CPU rod K4's
-        # wrapper runs its plain version, which pours the state in itself
-        assert _names(rec, i) == ["k4.cells", "k4.launch", "train.wait",
-                                  "train.wait"]
+        # the cells are built in the first chunk; the losses are read back
+        # in the last, for the return
+        assert _names(rec, i) == (["k4.cells"] * (k == 0) + ["k4.launch"]
+                                  + ["train.wait"] * (k == CHUNKS - 1))
+        # on a CPU rod K4's wrapper runs its plain version, which pours the
+        # state into its own optimizer
         launch = next(j for j, s in enumerate(rec.spans)
                       if s.parent == i and s.name == "k4.launch")
         assert _names(rec, launch) == ["train.wait"]
     assert len({s.call for s in rec.spans}) == 1
+
+
+@pytest.mark.parametrize("checkpoint_every, readbacks", [
+    (None, 1),
+    # checkpoints after epochs 4 and 6 (chunks end at 2, 4, 6): the losses
+    # and the optimizer's state read back for each, nothing left at the end
+    (3, 4)])
+def test_train_knode_builds_the_cells_once_and_reads_back_where_needed(
+        case, tmp_path, checkpoint_every, readbacks):
+    p, _, _, trajs, ctls = case
+    kw = {} if checkpoint_every is None else dict(
+        checkpoint_every=checkpoint_every)
+    cfg = TrainConfig(epochs=EPOCHS, hidden=16, fused="on", dtype="float32",
+                      log_every=CHUNK, keypoints=(1, 3, 5), **kw)
+    rec = _profiled(lambda: train_knode(
+        p, trajs, ctls, cfg, log=None,
+        checkpoint_path=checkpoint_every and str(tmp_path / "ck")))
+    total = lambda n: sum(v for m, _, v in rec.counts if m == n)
+    assert total("train.cells_built") == 1
+    assert total("train.readbacks") == readbacks
 
 
 def test_the_chrome_trace_holds_the_spans_as_user_annotations(case,

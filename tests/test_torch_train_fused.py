@@ -79,6 +79,32 @@ def test_chunked_runs_compose():
     assert float(s20["scalars"][0]) == 20.0
 
 
+def test_a_chain_on_a_device_net_builds_the_cells_once():
+    """Runs on a DeviceNet return the next DeviceNet, with the cells the
+    first built, and equal runs on the net bit for bit."""
+    _, kcfg, _, net, trajs, ctls = _setup(hidden=16, train_len=6,
+                                          plateau_patience=3)
+    p = K.apply_mod("nsw", device="cpu")
+    t, c = torch.tensor(trajs), torch.tensor(ctls)
+    half = kt.make_fused_training_run(p, kcfg.spec(), kcfg, 10)
+    mid, la, sa = half(net, t, c)
+    end, lb, sb = half(mid, t, c, sa)
+    before = [w.clone() for w in net.parameters()]
+    held = kt.DeviceNet.of(net)
+    assert held.cells is None
+    h1, ha, s1 = half(held, t, c)
+    h2, hb, s2 = half(h1, t, c, s1)
+    assert h1.cells is not None and h2.cells is h1.cells
+    assert torch.equal(torch.cat([ha, hb]), torch.cat([la, lb]))
+    for a, b in zip(h2.write_to(mid).parameters(), end.parameters()):
+        assert torch.equal(a, b)
+    for a, b in zip(s2["moments"] + (s2["scalars"],),
+                    sb["moments"] + (sb["scalars"],)):
+        assert torch.equal(a, b)
+    for a, b in zip(net.parameters(), before):
+        assert torch.equal(a, b)          # the net itself is left as it is
+
+
 def test_state_converts_to_and_from_the_optimizer():
     _, kcfg, _, net, _, _ = _setup(hidden=8)
     opt = ktrain.make_optimizer(kcfg, net)
