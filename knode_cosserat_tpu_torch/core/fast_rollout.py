@@ -85,15 +85,20 @@ def _build_kernels(p, spec, impl, method="euler"):
 
 
 def fd_newton(k_res, G, yh, zh, tf, nn_params=None, *, tol, max_iter,
-              n_alphas, jacobian_refresh, fd_order):
+              n_alphas, jacobian_refresh, fd_order, sweeps=None):
     """Rod-batched damped Newton on the tip residual with a finite-difference
     Jacobian: k_res(G (R',6), yh, zh, tf, nn) -> (R',6). Returns
     (G (R,6), r2 (R,), iters (R,) int32 — each rod's own iteration count).
+    ``sweeps``: None, or an int (R,) tensor to which each rod's sweeps are
+    added as K2 runs them (ops/step.py): the first residual, the probes of
+    each iteration, and of the candidates (all evaluated here at once)
+    alpha = 1 alone, then K2's tiles up to the first improving one.
 
     Lanes that stop improving hold their G and retry with a growing
     Levenberg-Marquardt term (the ladder constants live in ops/step.py).
     The loop ends when no rod is active or after ``max_iter`` iterations."""
-    from ..ops.step import _LM_GROWTH, _LM_LAMBDA0, _MAX_ESCALATIONS, fd1_eps
+    from ..ops.step import (_LANES, _LM_GROWTH, _LM_LAMBDA0, _MAX_ESCALATIONS,
+                            fd1_eps)
 
     R, dtype, device = G.shape[0], G.dtype, G.device
     if fd_order == 2:
@@ -157,7 +162,22 @@ def fd_newton(k_res, G, yh, zh, tf, nn_params=None, *, tol, max_iter,
         fails = torch.where(no_improve, fails + 1,
                             torch.where(active, 0, fails))
         iters = iters + active.int()
+        if sweeps is not None:
+            sweeps += active * (n_probe + _k2_candidates(pick, found,
+                                                         n_alphas, _LANES))
+    if sweeps is not None:
+        sweeps += 1
     return G, r2, iters
+
+
+def _k2_candidates(pick, found, n_alphas: int, tile: int):
+    """The line-search sweeps K2 runs for an iteration that picks
+    candidate ``pick`` (or none): alpha = 1 alone, then tiles of ``tile``
+    candidates up to the tile that holds the pick, or all of them."""
+    upto = 1 + tile * torch.div(pick - 1 + tile, tile, rounding_mode="floor")
+    return torch.where(found & (pick == 0), 1,
+                       torch.where(found, upto.clamp_max(n_alphas),
+                                   n_alphas))
 
 
 def _history(p, y, z, y_prev, z_prev, tensions):

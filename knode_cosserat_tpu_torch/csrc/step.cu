@@ -13,7 +13,11 @@
 //   take the first alpha = 0.5**k (k < n_alphas) with r2(G + alpha dG) < r2
 //   success: lam = 0, fails = 0; stall: hold G, lam = max(lam*growth,
 //        lam0), fails += 1
-// then a final sweep records y (B, N, 19) and z (B, N-1, 6).
+// then a final sweep records y (B, N, 19) and z (B, N-1, 6). Where
+// `sweeps` is not null (only while a profiler runs: ops/step.py) each rod's
+// count of the sweeps its solve took is written there: the first
+// residual, the probes, the line-search candidates it ran (alpha = 1 alone,
+// then tiles) and the recording sweep.
 //
 // The net is one for all rods, or one per rod (nn_per_rod = 1: rod b reads
 // the b-th of B nets stacked on a leading axis, each tensor at b times its
@@ -68,7 +72,7 @@ struct RodState {
   T cG[STEP_LANES][6], cr[STEP_LANES][6];   // the lanes' G and residual
   T red[STEP_LANES + 1][25];                // mlp_coop's block scratch
   T r2, lam;
-  int phase, it, fails, k0, count, pad_;    // count lanes run alpha k0+l
+  int phase, it, fails, k0, count, sweeps;  // count lanes run alpha k0+l
 };
 static_assert(sizeof(RodState<float>) == 1264, "ops/step.py::_STATE_BYTES");
 static_assert(sizeof(RodState<double>) == 2504, "ops/step.py::_STATE_BYTES");
@@ -144,7 +148,11 @@ __device__ __forceinline__ void next_iteration(RodState<T>& S,
 template <typename T>
 __device__ void advance(RodState<T>& S, const NewtonArgs& na, int b,
                         T* __restrict__ G_out, T* __restrict__ r2_out,
-                        int* __restrict__ iters) {
+                        int* __restrict__ iters, int* __restrict__ sweeps) {
+  // the sweeps of the phase just run: one lane, the 6 probes, or the
+  // tile of candidates
+  if (S.phase != PH_DONE)
+    S.sweeps += S.phase == PH_PROBE ? 6 : S.phase == PH_ALPHA ? S.count : 1;
   switch (S.phase) {
     case PH_FIRST: {
 #pragma unroll
@@ -214,6 +222,7 @@ __device__ void advance(RodState<T>& S, const NewtonArgs& na, int b,
       for (int i = 0; i < 6; ++i) G_out[6 * (size_t)b + i] = S.G[i];
       r2_out[b] = S.r2;
       iters[b] = S.it;
+      if (sweeps) sweeps[b] = S.sweeps;
       S.phase = PH_DONE;
       break;
     }
@@ -239,7 +248,7 @@ __global__ void __launch_bounds__(step_threads<NNIN>())
                 const T* __restrict__ zh, const T* __restrict__ tf,
                 T* __restrict__ G_out, T* __restrict__ y_out,
                 T* __restrict__ z_out, T* __restrict__ r2_out,
-                int* __restrict__ iters) {
+                int* __restrict__ iters, int* __restrict__ sweeps) {
   constexpr int GS = NNIN ? WARP : 1;
   constexpr int RPB = NNIN ? 1 : STEP_PHYS_RODS;
   extern __shared__ double smem_d[];
@@ -285,7 +294,7 @@ __global__ void __launch_bounds__(step_threads<NNIN>())
     for (int i = 0; i < 6; ++i) S.G[i] = G_in[6 * bb + i];
     S.lam = T(0);
     S.phase = PH_FIRST;
-    S.it = S.fails = S.k0 = 0;
+    S.it = S.fails = S.k0 = S.sweeps = 0;
     S.count = 1;
   }
   __syncthreads();
@@ -340,7 +349,7 @@ __global__ void __launch_bounds__(step_threads<NNIN>())
       }
     }
     __syncthreads();
-    if (leader && live) advance(S, na, b, G_out, r2_out, iters);
+    if (leader && live) advance(S, na, b, G_out, r2_out, iters, sweeps);
     // the leaders' own word on whether their rods go on (another
     // thread could still see the phase before this advance)
     if (!__syncthreads_or(leader && live && S.phase != PH_DONE)) break;
@@ -352,8 +361,8 @@ static int launch(const RodConstsHost* h, const NewtonArgs& na,
                   const Mlp<T>& mlp, const NetTableHost* deep, int per_rod,
                   int B, int N, const void* G, const void* yh, const void* zh,
                   const void* tf, void* G_out, void* y, void* z, void* r2,
-                  void* iters, int threads, int smem, int staged,
-                  cudaStream_t stream) {
+                  void* iters, void* sweeps, int threads, int smem,
+                  int staged, cudaStream_t stream) {
   constexpr int RPB = NNIN ? 1 : STEP_PHYS_RODS;
   if (threads != step_threads<NNIN>() || (staged && !NNIN))
     return (int)cudaErrorInvalidValue;
@@ -369,7 +378,7 @@ static int launch(const RodConstsHost* h, const NewtonArgs& na,
       kern<<<grid, threads, smem, stream>>>(
           cast_consts<T>(*h), *deep, na, B, N, per_rod, w_bytes,
           (const T*)G, (const T*)yh, (const T*)zh, (const T*)tf, (T*)G_out,
-          (T*)y, (T*)z, (T*)r2, (int*)iters);
+          (T*)y, (T*)z, (T*)r2, (int*)iters, (int*)sweeps);
       return 0;
     }
   }
@@ -378,7 +387,7 @@ static int launch(const RodConstsHost* h, const NewtonArgs& na,
     return (int)cudaErrorInvalidValue;
   void (*kern)(const RodConsts<T>, const Mlp<T>, const NewtonArgs, int, int,
                int, size_t, const T*, const T*, const T*, const T*, T*, T*,
-               T*, T*, int*) = step_kernel<T, NNIN, RK4, NET_GLOBAL>;
+               T*, T*, int*, int*) = step_kernel<T, NNIN, RK4, NET_GLOBAL>;
   if constexpr (NNIN > 0) {
     if (staged) kern = step_kernel<T, NNIN, RK4, NET_SMEM>;
   }
@@ -386,7 +395,7 @@ static int launch(const RodConstsHost* h, const NewtonArgs& na,
   kern<<<grid, threads, smem, stream>>>(
       cast_consts<T>(*h), mlp, na, B, N, per_rod, w_bytes, (const T*)G,
       (const T*)yh, (const T*)zh, (const T*)tf, (T*)G_out, (T*)y, (T*)z,
-      (T*)r2, (int*)iters);
+      (T*)r2, (int*)iters, (int*)sweeps);
   return 0;
 }
 
@@ -395,14 +404,14 @@ static int launch_m(int rk4, const RodConstsHost* h, const NewtonArgs& na,
                     const Mlp<T>& mlp, const NetTableHost* deep, int per_rod,
                     int B, int N, const void* G, const void* yh,
                     const void* zh, const void* tf, void* G_out, void* y,
-                    void* z, void* r2, void* iters, int threads, int smem,
-                    int staged, cudaStream_t stream) {
+                    void* z, void* r2, void* iters, void* sweeps, int threads,
+                    int smem, int staged, cudaStream_t stream) {
   return rk4 ? launch<T, NNIN, true>(h, na, mlp, deep, per_rod, B, N, G, yh,
-                                     zh, tf, G_out, y, z, r2, iters, threads,
-                                     smem, staged, stream)
+                                     zh, tf, G_out, y, z, r2, iters, sweeps,
+                                     threads, smem, staged, stream)
              : launch<T, NNIN, false>(h, na, mlp, deep, per_rod, B, N, G, yh,
-                                      zh, tf, G_out, y, z, r2, iters, threads,
-                                      smem, staged, stream);
+                                      zh, tf, G_out, y, z, r2, iters, sweeps,
+                                      threads, smem, staged, stream);
 }
 
 template <typename T>
@@ -412,23 +421,23 @@ static int launch_t(int nn_in, int rk4, const RodConstsHost* h,
                     const NetTableHost* deep, int per_rod, int B, int N,
                     const void* G, const void* yh, const void* zh,
                     const void* tf, void* G_out, void* y, void* z, void* r2,
-                    void* iters, int threads, int smem, int staged,
-                    cudaStream_t stream) {
+                    void* iters, void* sweeps, int threads, int smem,
+                    int staged, cudaStream_t stream) {
   const Mlp<T> mlp{(const T*)W1, (const T*)b1, (const T*)W2, (const T*)b2,
                    hidden, act};
   switch (nn_in) {
     case 0:
       return launch_m<T, 0>(rk4, h, na, mlp, nullptr, 0, B, N, G, yh, zh, tf,
-                            G_out, y, z, r2, iters, threads, smem, staged,
-                            stream);
+                            G_out, y, z, r2, iters, sweeps, threads, smem,
+                            staged, stream);
     case 28:
       return launch_m<T, 28>(rk4, h, na, mlp, deep, per_rod, B, N, G, yh, zh,
-                             tf, G_out, y, z, r2, iters, threads, smem,
-                             staged, stream);
+                             tf, G_out, y, z, r2, iters, sweeps, threads,
+                             smem, staged, stream);
     case 53:
       return launch_m<T, 53>(rk4, h, na, mlp, deep, per_rod, B, N, G, yh, zh,
-                             tf, G_out, y, z, r2, iters, threads, smem,
-                             staged, stream);
+                             tf, G_out, y, z, r2, iters, sweeps, threads,
+                             smem, staged, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -439,7 +448,8 @@ static int launch_t(int nn_in, int rk4, const RodConstsHost* h,
 // and hidden with `deep` null; a net of three layers or more as the layer
 // table `deep` (a host pointer; W1 .. b2 unused). threads, smem and staged
 // come from ops/step.py::launch_plan and are checked against the kernel's
-// own shape. Returns the first CUDA error of the shared-memory attribute
+// own shape. `sweeps` (int, B) is null or receives each rod's sweep
+// count. Returns the first CUDA error of the shared-memory attribute
 // or the launch, 0 on success.
 extern "C" int knode_step(int is_f64, int nn_in, int act, int rk4, int B,
                           int N, const RodConstsHost* consts, double tol,
@@ -450,8 +460,8 @@ extern "C" int knode_step(int is_f64, int nn_in, int act, int rk4, int B,
                           const void* b1, const void* W2, const void* b2,
                           int hidden, const NetTableHost* deep,
                           int nn_per_rod, void* G_out, void* y, void* z,
-                          void* r2, void* iters, int threads, int smem,
-                          int staged, void* stream) {
+                          void* r2, void* iters, void* sweeps, int threads,
+                          int smem, int staged, void* stream) {
   if (B <= 0 || N < 2 || (nn_in && !deep && (!W1 || hidden <= 0)) ||
       (deep && !deep_table_ok(*deep, nn_in)) || n_alphas > 62 ||
       (nn_per_rod && !nn_in))
@@ -461,12 +471,12 @@ extern "C" int knode_step(int is_f64, int nn_in, int act, int rk4, int B,
   const int bad =
       is_f64 ? launch_t<double>(nn_in, rk4, consts, na, W1, b1, W2, b2,
                                 hidden, act, deep, nn_per_rod, B, N, G, yh,
-                                zh, tf, G_out, y, z, r2, iters, threads, smem,
-                                staged, (cudaStream_t)stream)
+                                zh, tf, G_out, y, z, r2, iters, sweeps,
+                                threads, smem, staged, (cudaStream_t)stream)
              : launch_t<float>(nn_in, rk4, consts, na, W1, b1, W2, b2, hidden,
                                act, deep, nn_per_rod, B, N, G, yh, zh, tf,
-                               G_out, y, z, r2, iters, threads, smem, staged,
-                               (cudaStream_t)stream);
+                               G_out, y, z, r2, iters, sweeps, threads, smem,
+                               staged, (cudaStream_t)stream);
   if (bad) return bad;
   return (int)cudaGetLastError();
 }

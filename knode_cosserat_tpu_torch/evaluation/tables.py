@@ -22,6 +22,7 @@ from ..core.params import RodParams, apply_mod
 from ..core.stepper import simulate, simulate_scan
 from ..models.mlp import MLPSpec, StackedMLP
 from ..training.train import _default_tol
+from ..utils.profiling import annotate
 from .metrics import pct_error, pose_mse, tip_dtw
 
 __all__ = ["EvalRecord", "make_eval_data", "evaluate_cells",
@@ -77,7 +78,8 @@ def _mega_rollouts(rod: RodParams, spec, nets, controls):
     if nets is None:
         trajs, res, _ = roll(controls[None])
     else:
-        stacked = StackedMLP(nets).to(dtype=rod.dtype, device=rod.device)
+        with annotate("eval.stack"):
+            stacked = StackedMLP(nets).to(dtype=rod.dtype, device=rod.device)
         trajs, res, _ = roll(controls[None].expand(len(nets), -1, -1), stacked)
     return trajs, res.amax(0)
 

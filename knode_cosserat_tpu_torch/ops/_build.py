@@ -236,11 +236,12 @@ def _declare(k: _Kernels):
     # knode_step(is_f64, nn_in, act, rk4, B, N, consts, tol, eps0, max_iter,
     #            n_alphas, lm_lambda0, lm_growth, max_escalations,
     #            G, yh, zh, tf, W1, b1, W2, b2, hidden, deep, nn_per_rod,
-    #            G_out, y, z, r2, iters, threads, smem, staged, stream)
+    #            G_out, y, z, r2, iters, sweeps, threads, smem, staged,
+    #            stream)
     k.knode_step.argtypes = [I, I, I, I, I, I, consts, D, D, I,
                                I, D, D, I,
                                P, P, P, P, P, P, P, P, I, table, I,
-                               P, P, P, P, P, I, I, I, P]
+                               P, P, P, P, P, P, I, I, I, P]
     k.knode_step.restype = I
     plan = ctypes.POINTER(TrainPlanC)
     # knode_train(args, plan, stream)

@@ -19,6 +19,10 @@ computes the net in the weights' dtype, as the JAX TPU kernel does (it
 reads only the spec's dims and activation), while the plain version
 applies the casts, as JAX's XLA path does. ``iters`` counts each rod's own Newton iterations (on the TPU it was one
 count per block of rods); compare it only through its maximum.
+
+While a profiler runs, the wrapper also counts each rod's sweeps (the
+counter ``k2.sweeps``): the kernel, or :func:`step_reference` on a CPU
+tensor, writes them into an int32 buffer that is made only then.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import torch
 
 from ..core.params import RodParams
 from ..models.mlp import MLPSpec
-from ..utils.profiling import annotate, count
+from ..utils.profiling import annotate, count, enabled
 from . import sweep as _sweep
 from .sweep import (WARP, check_inputs, check_spec, deep_plan,
                     net_smem_bytes, net_table, raise_on, rod_consts,
@@ -99,21 +103,29 @@ def fd1_eps(dtype: torch.dtype) -> float:
 def step_reference(p: RodParams, G, yh, zh, tf, nn_params=None,
                    tol: float = 1e-10,
                    max_iter: int = 30, n_alphas: int = 7,
-                   method: str = "euler"):
+                   method: str = "euler", sweeps=None):
     """Plain PyTorch version of K2, any device: the FD-Newton driver of
     core/fast_rollout.py over :func:`sweep_reference`, with forward
     differences and a Jacobian refreshed every iteration (K2's semantics).
     ``nn_params``: None, one net, or a StackedMLP (net b for rod b; the
     probe and candidate lanes of the FD-Newton loop are grouped by rod).
+    ``sweeps``: None, or an int32 (B,) tensor that receives each rod's
+    sweep count as the kernel counts it (the line search's candidates as
+    the kernel runs them: alpha = 1 alone, then tiles of up to 7).
     Like the kernel, it records no autograd graph."""
     from ..core.fast_rollout import fd_newton
 
     k_res = lambda Gx, a, b, c, nn: sweep_reference(p, Gx, a, b, c, nn,
                                                     method, want_rod=False)
+    if sweeps is not None:
+        sweeps.zero_()
     G_new, r2, iters = fd_newton(k_res, G, yh, zh, tf, nn_params, tol=tol,
                                  max_iter=max_iter, n_alphas=n_alphas,
-                                 jacobian_refresh=1, fd_order=1)
+                                 jacobian_refresh=1, fd_order=1,
+                                 sweeps=sweeps)
     _, y, z = sweep_reference(p, G_new, yh, zh, tf, nn_params, method)
+    if sweeps is not None:
+        sweeps += 1
     return G_new, y, z, r2, iters
 
 
@@ -127,30 +139,34 @@ def make_step_kernel(p: RodParams, spec: MLPSpec | None = None,
     cache = {}
 
     def fn(G, yh, zh, tf, nn_params=None):
+        sweeps = (torch.empty(G.shape[0], dtype=torch.int32, device=G.device)
+                  if enabled() else None)
         with annotate("k2.launch"):
-            out = launch(G, yh, zh, tf, nn_params)
+            out = launch(G, yh, zh, tf, nn_params, sweeps)
         count("k2.newton_iters", out[4])
         count("k2.rod_steps", G.shape[0])
+        if sweeps is not None:
+            count("k2.sweeps", sweeps)
         return out
 
-    def launch(G, yh, zh, tf, nn_params):
+    def launch(G, yh, zh, tf, nn_params, sweeps):
         nn_params = nn_params if spec is not None else None
         if G.device.type == "cpu":
             return step_reference(p, G, yh, zh, tf, nn_params, tol, max_iter,
-                                  n_alphas, method)
+                                  n_alphas, method, sweeps)
         if G.device.type != "cuda":
             raise ValueError(f"no step kernel for device {G.device}")
         if "consts" not in cache:
             check_spec(spec)
             cache["consts"] = rod_consts(p)
         return _launch(p, cache["consts"], spec, tol, max_iter, n_alphas,
-                       method, G, yh, zh, tf, nn_params)
+                       method, G, yh, zh, tf, nn_params, sweeps)
 
     return fn
 
 
 def _launch(p, consts, spec, tol, max_iter, n_alphas, method, G, yh, zh, tf,
-            nn_params):
+            nn_params, sweeps=None):
     global LAUNCHES
     from ._build import library
 
@@ -178,7 +194,8 @@ def _launch(p, consts, spec, tol, max_iter, n_alphas, method, G, yh, zh, tf,
             None if table is None else ctypes.byref(table), per_rod,
             G_out.data_ptr(),
             y.data_ptr(), z.data_ptr(), r2.data_ptr(), iters.data_ptr(),
-            plan.threads, plan.smem_bytes, int(plan.staged), stream_of(G))
+            None if sweeps is None else sweeps.data_ptr(), plan.threads,
+            plan.smem_bytes, int(plan.staged), stream_of(G))
     raise_on(code, "K2 step")
     LAUNCHES += 1
     return G_out, y, z, r2, iters

@@ -17,6 +17,8 @@ PyTorch counterpart of ``knode_cosserat_tpu/utils/profiling.py``:
 - ``count(name, value)``: a counter, kept only while a profiler runs; a
   tensor value is kept as it is (no device operation, no synchronisation)
   and summed when the record is read.
+- ``enabled()``: whether a profiler runs (what ``annotate`` and ``count``
+  check), for a hot path that makes something only for a counter.
 - ``drain()``: the record (spans, counters, entries dropped past
   ``LIMIT``), which it clears.
 
@@ -31,8 +33,8 @@ from typing import List, NamedTuple
 
 import torch
 
-__all__ = ["trace", "annotate", "count", "new_call", "drain", "Span",
-           "Record", "LIMIT"]
+__all__ = ["trace", "annotate", "count", "enabled", "new_call", "drain",
+           "Span", "Record", "LIMIT"]
 
 LIMIT = 65536           # spans, and counter entries, the record keeps
 
@@ -110,6 +112,11 @@ class _Span:
 def annotate(name: str):
     """A named span: recorded only while a profiler runs (module doc)."""
     return _Span(name) if _on() else _NULL
+
+
+def enabled() -> bool:
+    """Whether a profiler runs (the one check of annotate and count)."""
+    return _on()
 
 
 def count(name: str, value):

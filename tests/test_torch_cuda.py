@@ -163,6 +163,72 @@ def test_step_kernel_physics_rk4_matches_plain(dev):
         torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-10)
 
 
+# K2 with the KNODE net of 28 inputs and hidden 512 and the RK4 sweep
+# (node_step<RK4=true>: four net calls a node): float64 at N=10 to the f64
+# step tolerances, float32 at N=40 (the sim-nsw-h512-rk4n40 rod) to the f32
+# ones. In float64 the kernel and its plain version take the same path, so
+# their sweep counts agree rod for rod (from a far start too, where the
+# line search runs its tile of the other candidates).
+@pytest.mark.parametrize("dtype,N,start", [(torch.float64, 10, 0.0),
+                                           (torch.float64, 10, 3.0),
+                                           (torch.float32, 40, 0.0)])
+def test_step_kernel_hybrid_rk4_matches_plain(dev, dtype, N, start):
+    p = K.experimental_rod("nsw", N=N, device=dev).to(dtype=dtype)
+    G, yh, zh, tf = _inputs(p, 24, 12, dev)
+    G = start * G
+    spec = K.MLPSpec.for_knode(512)
+    net = K.init_mlp(spec, torch.Generator().manual_seed(2), dtype, dev)
+    with torch.no_grad():
+        for t in net.parameters():
+            t.mul_(1e-3)
+    f64 = dtype == torch.float64
+    tol = 1e-18 if f64 else 1e-13   # both to the floor
+    got_sw = torch.empty(24, dtype=torch.int32, device=dev)
+    want_sw = torch.zeros(24, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        got = kstep._launch(p, ksweep.rod_consts(p), spec, tol, 30, 7, "rk4",
+                            G, yh, zh, tf, net, got_sw)
+        want = kstep.step_reference(p, G, yh, zh, tf, net, tol=tol,
+                                    method="rk4", sweeps=want_sw)
+    torch.cuda.synchronize()
+    if f64:
+        solved = want[3] <= 1e-18
+        for a, b in zip(got[:4], want[:4]):
+            torch.testing.assert_close(a[solved], b[solved], rtol=1e-9,
+                                       atol=1e-10)
+        assert torch.equal(got_sw[solved], want_sw[solved])
+        assert bool((got[3][~solved] > 1e-18).all())
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+        assert bool((got_sw >= 2 + 7 * got[4]).all())
+
+
+def test_step_kernel_counts_sweeps_only_under_a_profiler(dev):
+    """The wrapper hands K2 a sweep buffer only while a profiler runs; the
+    counter then sums the plain version's counts on the same inputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from knode_cosserat_tpu_torch.utils import profiling as P
+    p = K.experimental_rod("nsw", N=10, device=dev).to(dtype=torch.float64)
+    G, yh, zh, tf = _inputs(p, 16, 13, dev)
+    G = torch.zeros_like(G)
+    spec, net = _net(False, torch.float64, dev, 1e-2)
+    fn = kstep.make_step_kernel(p, spec, tol=1e-18, method="rk4")
+    P.drain()
+    with torch.no_grad():
+        fn(G, yh, zh, tf, net)
+        assert P.drain().counts == []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            fn(G, yh, zh, tf, net)
+        want_sw = torch.zeros(16, dtype=torch.int32, device=dev)
+        kstep.step_reference(p, G, yh, zh, tf, net, tol=1e-18, method="rk4",
+                             sweeps=want_sw)
+    counted = [v for n, _, v in P.drain().counts if n == "k2.sweeps"]
+    assert counted == [float(want_sw.sum())]
+
+
 def test_step_kernel_far_start_matches_plain(dev):
     """From a far start alpha = 1 often fails, so the line search runs its
     second tile (the other candidates at once): each rod the plain version

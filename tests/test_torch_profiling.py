@@ -12,7 +12,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import knode_cosserat_tpu_torch as K
 from knode_cosserat_tpu_torch.core.fast_rollout import make_fast_rollout
+from knode_cosserat_tpu_torch.evaluation.tables import _mega_rollouts
 from knode_cosserat_tpu_torch.models.mlp import MLPSpec, init_mlp
+from knode_cosserat_tpu_torch.ops import step as kstep
 from knode_cosserat_tpu_torch.serving import CompiledStepper
 from knode_cosserat_tpu_torch.training.train import TrainConfig, train_knode
 from knode_cosserat_tpu_torch.utils import profiling as P
@@ -59,7 +61,13 @@ def train(case):
     train_knode(p, trajs, ctls, cfg, log=None)
 
 
-PATHS = {"serve": serve, "rollout": rollout, "train": train}
+def eval_rollouts(case):
+    p, spec, net, _, _ = case
+    _mega_rollouts(p, spec, [net, net], torch.full((T, 4), 5.0))
+
+
+PATHS = {"serve": serve, "rollout": rollout, "train": train,
+         "eval": eval_rollouts}
 
 
 @pytest.fixture(autouse=True)
@@ -254,3 +262,67 @@ def test_new_call_numbers_the_spans_calls_and_drain_ends_open_spans():
     assert two.call == one.call + 1 and two.end_ns >= two.start_ns
     (three,) = P.drain().spans
     assert three.parent == -1 and three.call == two.call
+
+
+def test_the_eval_records_its_stacking_of_the_nets(case):
+    rec = _profiled(lambda: eval_rollouts(case))
+    assert _names(rec, -1)[0] == "eval.stack"
+    assert _names(rec, -1).count("eval.stack") == 1
+    assert _names(rec, -1).count("rollout.step") == T - 1
+
+
+def _k2_case(case, far):
+    """A float64 K2 step of 5 rods on the CPU (its plain version); from a far
+    start the line search also runs its tile of the other candidates."""
+    p, spec, _, _, _ = case
+    p = p.to(dtype=torch.float64)
+    net = init_mlp(spec, torch.Generator().manual_seed(3), torch.float64,
+                   torch.device("cpu"))
+    g = torch.Generator().manual_seed(4)
+    G = (3.0 if far else 0.0) * torch.randn(5, 6, generator=g,
+                                            dtype=torch.float64)
+    yh = 1e-3 * torch.randn(5, p.N, 19, generator=g, dtype=torch.float64)
+    zh = 1e-3 * torch.randn(5, p.N, 6, generator=g, dtype=torch.float64)
+    tf = torch.randn(5, 3, generator=g, dtype=torch.float64)
+    return p, spec, net, (G, yh, zh, tf)
+
+
+@pytest.mark.parametrize("method", ["euler", "rk4"])
+@pytest.mark.parametrize("far", [False, True])
+def test_k2_counts_the_sweeps_of_its_plain_twin(case, method, far):
+    """Under a profiler K2's wrapper counts ``k2.sweeps``: on the CPU its
+    plain version fills the buffer, and the count is the twin's own on the
+    same inputs. Rod by rod it is the first residual, 6 probes and alpha =
+    1 an iteration, a tile of the 6 other candidates for each iteration
+    whose alpha = 1 did not improve, and the recording sweep."""
+    p, spec, net, ins = _k2_case(case, far)
+    fn = kstep.make_step_kernel(p, spec, tol=1e-18, max_iter=30,
+                                method=method)
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn(*ins, net)
+    rec = P.drain()
+    counted = [v for n, _, v in rec.counts if n == "k2.sweeps"]
+    sweeps = torch.zeros(5, dtype=torch.int32)
+    want = kstep.step_reference(p, *ins, net, tol=1e-18, max_iter=30,
+                                method=method, sweeps=sweeps)
+    assert counted == [float(sweeps.sum())]
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    extra = sweeps - 2 - 7 * want[4]
+    assert bool((extra >= 0).all()) and bool((extra % 6 == 0).all())
+    assert bool((extra > 0).any()) == far
+
+
+def test_k2_makes_no_sweep_buffer_without_a_profiler(case, monkeypatch):
+    p, spec, net, ins = _k2_case(case, False)
+    seen = []
+    orig = kstep.step_reference
+
+    def spy(*a, **k):
+        seen.append(a[10] if len(a) > 10 else k.get("sweeps"))
+        return orig(*a, **k)
+    monkeypatch.setattr(kstep, "step_reference", spy)
+    kstep.make_step_kernel(p, spec, tol=1e-18)(*ins, net)
+    assert seen == [None]
+    rec = P.drain()
+    assert rec.spans == [] and rec.counts == []

@@ -50,23 +50,26 @@ def test_simulate_scan_matches_jax(case):
     assert int(got.newton_iters.max()) == int(want.newton_iters.max())
 
 
-@pytest.fixture(scope="module")
-def jax_mega_rollout():
+@pytest.fixture(scope="module", params=["euler", "rk4"])
+def jax_mega_rollout(request):
+    """The JAX mega rollout of the hybrid rod (interpret mode) with the
+    Euler or the RK4 sweep."""
+    method = request.param
     pj = J.apply_mod("nsw")
     spec, params, kspec, net = _nets(8, False, seed=1)
     ctls = np.stack([J.calc_controls("sine", 1.0, float(pj.del_t), 6),
                      J.calc_controls("step", 1.0, float(pj.del_t), 6)])
     roll = jax.jit(jax_roll(pj, spec=spec, tol=1e-18, impl="mega", block_b=8,
-                            interpret=True))
+                            interpret=True, method=method))
     traj, res, iters = roll(jnp.asarray(ctls), params)
-    return ctls, kspec, net, np.asarray(traj), np.asarray(iters)
+    return method, ctls, kspec, net, np.asarray(traj), np.asarray(iters)
 
 
 @pytest.mark.parametrize("impl", ["plain", "mega"])
 def test_fast_rollout_matches_jax_mega(jax_mega_rollout, impl):
-    ctls, kspec, net, want, _ = jax_mega_rollout
+    method, ctls, kspec, net, want, _ = jax_mega_rollout
     pk = K.apply_mod("nsw", device="cpu")
-    roll = make_fast_rollout(pk, kspec, tol=1e-18, impl=impl)
+    roll = make_fast_rollout(pk, kspec, tol=1e-18, impl=impl, method=method)
     traj, res, iters = roll(torch.tensor(ctls), net)
     assert traj.shape == want.shape and res.shape == (5, 2)
     assert iters.shape == (5, 2) and iters.dtype == torch.int32
