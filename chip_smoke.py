@@ -968,14 +968,15 @@ def phase_train(K, dev):
 
 
 def k4_plan_line(ktrain, din, hidden, dev):
-    """K4's launch plan at (din, hidden) and how many of its clusters the
-    card holds at once."""
+    """K4's launch plan at (din, hidden), how many of its clusters the
+    card holds at once, and how many a run of 1,904 cells spreads over."""
     plan = ktrain.launch_plan(din, hidden)
+    resident = ktrain.max_active_clusters(din, hidden, dev)
     return (f"cluster {plan.cluster} x {plan.threads} threads, "
-            f"{plan.units} units per block ({plan.slots} slots), tile "
-            f"{plan.tile} cells, {plan.smem_bytes} B shared, "
-            f"{ktrain.max_active_clusters(din, hidden, dev)} clusters "
-            f"resident")
+            f"{plan.units} units per block ({plan.slots} slots), part "
+            f"{plan.tile} cells, {plan.smem_bytes} B shared, {resident} "
+            f"clusters resident, 1,904 cells on "
+            f"{ktrain.clusters_per_run(1904, 1, resident)} clusters a run")
 
 
 def phase_k4_timings(K, dev, name_power, data):

@@ -97,14 +97,18 @@ class TrainArgs(ctypes.Structure):
                 ("factor", ctypes.c_double), ("rtol", ctypes.c_double),
                 ("ds", ctypes.c_double),
                 ("inv", ctypes.c_double * 4),     # pos, states, eul, z
-                ("ds_grid", ctypes.c_void_p)]     # K5: (G,) float64; K4: 0
+                ("ds_grid", ctypes.c_void_p),     # K5: (G,) float64; K4: 0
+                ("part", ctypes.c_void_p),        # scratch, a slab a part
+                ("bar", ctypes.c_void_p)]         # (2 G,) int32 zeros
 
 
 class TrainPlanC(ctypes.Structure):
     """Mirror of ``TrainPlan`` in csrc/train.cu (ops/train.py::launch_plan):
-    threads, cluster, units, slots, tile, dynamic shared memory bytes."""
+    threads, cluster, units, slots, tile, dynamic shared memory bytes,
+    clusters a run."""
     _fields_ = [(f, ctypes.c_int) for f in
-                ("threads", "cluster", "units", "slots", "tile", "smem")]
+                ("threads", "cluster", "units", "slots", "tile", "smem",
+                 "clusters")]
 
 
 class WideArgs(ctypes.Structure):

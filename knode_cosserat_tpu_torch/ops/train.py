@@ -28,13 +28,17 @@ runs compose exactly; :func:`fused_state_from_optimizer` and
 ``train_run`` dispatches by device: cells on the CPU run
 :func:`train_run_reference`, cells on a CUDA device launch K4 (or raise).
 
-The kernel runs one thread-block cluster per run; its shape is
-:func:`launch_plan` (pure Python, a function of din and hidden alone),
-which the wrapper hands to the C entry and the C entry checks.
+The kernel spreads a run's cells, in parts of 128 (:func:`parts`), over
+P thread-block clusters, and folds the parts' gradients and losses in part
+order each epoch, so a run's bits do not depend on P. Its shape is
+:func:`launch_plan` (pure Python: din and hidden fix everything but P)
+with P from :func:`clusters_per_run` (the cell count, the runs a launch
+and the clusters the card holds at once); the wrapper hands it to the C
+entry and the C entry checks it.
 
 K5, the grid trainer (the JAX package's ``make_fused_grid_training_run``,
-``jax.vmap`` of the run over experiment cells), is the same kernel with one
-cluster per cell: :func:`train_grid_run` takes G cells' constants, nets and
+``jax.vmap`` of the run over experiment cells), is the same kernel over a
+grid of runs: :func:`train_grid_run` takes G cells' constants, nets and
 states stacked on a leading axis; its plain version
 :func:`train_grid_reference` runs :func:`train_run_reference` per cell.
 :func:`fused_state_from_jax` / :func:`fused_state_to_jax` convert the state
@@ -67,8 +71,9 @@ __all__ = ["make_fused_training_run", "make_fused_grid_training_run",
            "fresh_state", "fused_state_from_optimizer", "load_fused_state",
            "fused_state_from_jax", "fused_state_to_jax", "Cells",
            "DeviceNet", "TrainHyper", "launch_plan", "TrainPlan",
-           "max_active_clusters", "MAX_CELLS", "MAX_HIDDEN", "LAUNCHES",
-           "GRID_LAUNCHES"]
+           "max_active_clusters", "parts", "clusters_per_run",
+           "resident_clusters", "scratch_floats", "MAX_CELLS", "MAX_HIDDEN",
+           "LAUNCHES", "GRID_LAUNCHES"]
 
 MAX_CELLS = 8192
 MAX_HIDDEN = 512
@@ -78,41 +83,73 @@ LAUNCHES = 0
 #: K5 launches made by this module's grid wrapper since the last reset
 GRID_LAUNCHES = 0
 
-# the launch shape (csrc/train.cu checks it): a cluster of _CLUSTER blocks
-# of _THREADS threads per run, cells in tiles of _TILE
+# the launch shape (csrc/train.cu checks it): clusters of _CLUSTER blocks
+# of _THREADS threads, cells in parts of _TILE
 _THREADS = 512
 _CLUSTER = 8        # the portable maximum
-_TILE = 256
+_TILE = 128
 _OUT = 25
+
+#: the clusters of a plan the card holds at once, by (device, plan)
+_RESIDENT: dict = {}
 
 
 class TrainPlan(NamedTuple):
     """K4's launch shape (mirrored by ``TrainPlan`` in csrc/train.cu):
-    threads per block, blocks per cluster (one cluster per run), hidden
-    units owned by each block, unit slots per block (units rounded up to
-    a power of two, at least 8; thread t is slot t % slots of cell slice
-    t // slots), cells per tile, and dynamic shared memory in bytes."""
+    threads per block, blocks per cluster, hidden units owned by each
+    block, unit slots per block (units rounded up to a power of two, at
+    least 16; thread t is slot t % slots of cell slice t // slots), cells
+    per part (one tile), dynamic shared memory in bytes, and clusters a
+    run (P)."""
     threads: int
     cluster: int
     units: int
     slots: int
     tile: int
     smem_bytes: int
+    clusters: int = 1
 
 
 def launch_plan(din: int, hidden: int) -> TrainPlan:
     """K4's (and K5's) launch shape for ``din`` inputs and ``hidden``
-    units. It depends on nothing else (not on the cell count, nor on the
-    number of runs), so a K5 run equals a K4 launch on it bit for bit."""
+    units, on one cluster a run: threads, the hidden split over the
+    cluster's blocks, the slots, the part size and the shared memory
+    depend on (din, hidden) alone. A launch spreads each run over
+    :func:`clusters_per_run` clusters (``_replace(clusters=P)``), which
+    depends on the cell count and the runs a launch too; the bits of a run
+    do not depend on it, so a K5 run equals a K4 launch on it bit for bit."""
     if din not in (28, 53) or not 1 <= hidden <= MAX_HIDDEN:
         raise ValueError(f"K4 takes 28/53 inputs and hidden 1..{MAX_HIDDEN}; "
                          f"got din={din}, hidden={hidden}")
     units = -(-hidden // _CLUSTER)
-    slots = max(8, 1 << (units - 1).bit_length())
+    # a slice of threads takes at least one cell quad of a part
+    slots = max(_THREADS // (_TILE // 4), 1 << (units - 1).bit_length())
     row = _TILE + 4                     # row stride of the cell-wide buffers
     floats = ((din + 1) * row + slots * row + 2 * _OUT * row
               + (din + 1) * slots + _OUT * slots + 4 * 32)
     return TrainPlan(_THREADS, _CLUSTER, units, slots, _TILE, 4 * floats)
+
+
+def parts(C: int) -> int:
+    """The parts a run's C cells are cut into (the last one ragged): a
+    function of C alone, so the fold's order is the same for every P."""
+    return -(-C // _TILE)
+
+
+def clusters_per_run(C: int, G: int, resident: int) -> int:
+    """P, the clusters each of a launch's G runs spreads its C cells over:
+    as many as the card holds beside the other runs, at most one a part.
+    A grid whose runs fill the card keeps one cluster a run (its clusters
+    then run in waves); cells within one part keep one cluster."""
+    return min(parts(C), max(1, resident // G))
+
+
+def scratch_floats(plan: TrainPlan, din: int, C: int) -> int:
+    """Floats of K4's scratch a run (csrc/train.cu's ``run_floats``): a
+    slab a part for its partial gradient (each rank's (din + 26) x slots
+    entries), db2 and loss, and one slab for the weight exchange."""
+    slab = plan.cluster * (din + 1 + _OUT) * plan.slots + 32
+    return (parts(C) + 1) * slab
 
 
 def fused_trainer_supported(spec: MLPSpec, n_cells: int,
@@ -138,6 +175,10 @@ class Cells:
     e_tgt: torch.Tensor    # (C, 3) target Euler angles
     inv: tuple             # (pos, states, eul, z) mean denominators
     ds: float
+    # device buffers a kernel keeps across its launches on these cells (K4:
+    # the parts' scratch and the run barrier), made at the first launch
+    scratch: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,7 +390,10 @@ def check_run_args(cells: Cells, W, state, n_epochs: int, lead: tuple,
 
 def _launch(cells: Cells, W, state, n_epochs, hyper, ds_grid=None):
     """K4 (one run), or K5 when ``ds_grid`` holds the G cells' ds and every
-    tensor carries a leading grid axis G."""
+    tensor carries a leading grid axis G. Each run spreads over
+    :func:`clusters_per_run` clusters; the parts' scratch and the runs'
+    barriers are made at the cells' first launch and kept in
+    ``cells.scratch`` (launches on one set of cells run in stream order)."""
     global LAUNCHES, GRID_LAUNCHES
     from ..training.train import PLATEAU_RTOL
     from ._build import TrainArgs, library
@@ -381,16 +425,28 @@ def _launch(cells: Cells, W, state, n_epochs, hyper, ds_grid=None):
                                               hyper.factor, PLATEAU_RTOL)
     a.ds = cells.ds
     a.inv[:] = list(cells.inv)
-    plan = ctypes.byref(_c_plan(launch_plan(din, h)))
+    G = lead[0] if lead else 1
+    plan = launch_plan(din, h)._replace(clusters=clusters_per_run(
+        C, G, resident_clusters(din, h, dev)))
+    key = ("k4", plan, G)
+    if key not in cells.scratch:
+        cells.scratch[key] = (
+            torch.empty(G * scratch_floats(plan, din, C), dtype=torch.float32,
+                        device=dev),
+            torch.zeros(2 * G, dtype=torch.int32, device=dev))
+    part, bar = cells.scratch[key]
+    a.part, a.bar = part.data_ptr(), bar.data_ptr()
+    c_plan = ctypes.byref(_c_plan(plan))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if ds_grid is None:
-            code = library().knode_train(ctypes.byref(a), plan, stream)
+            code = library().knode_train(ctypes.byref(a), c_plan, stream)
         else:
             a.ds_grid = ds_grid.data_ptr()
-            code = library().knode_train_grid(ctypes.byref(a), lead[0], plan,
+            code = library().knode_train_grid(ctypes.byref(a), G, c_plan,
                                               stream)
     raise_on(code, what)
+    count("k4.clusters", plan.clusters)
     if ds_grid is None:
         LAUNCHES += 1
     else:
@@ -415,8 +471,8 @@ def _c_plan(plan: TrainPlan):
 
 def max_active_clusters(din: int, hidden: int, device=None) -> int:
     """How many K4 / K5 clusters of :func:`launch_plan` the card holds at
-    once (``cudaOccupancyMaxActiveClusters``): K5 runs that many runs side
-    by side."""
+    once (``cudaOccupancyMaxActiveClusters``): the clusters a launch's runs
+    share (:func:`clusters_per_run`)."""
     from ._build import library
     n = ctypes.c_int(0)
     with torch.cuda.device(device or torch.cuda.current_device()):
@@ -428,6 +484,15 @@ def max_active_clusters(din: int, hidden: int, device=None) -> int:
 
 
 # ------------------------------------------------------------- K5 (grid)
+
+def resident_clusters(din: int, hidden: int, device) -> int:
+    """:func:`max_active_clusters` on ``device``, asked once per device and
+    plan."""
+    key = (str(device), launch_plan(din, hidden))
+    if key not in _RESIDENT:
+        _RESIDENT[key] = max_active_clusters(din, hidden, device)
+    return _RESIDENT[key]
+
 
 def _cell(state: dict, g: int) -> dict:
     return {"moments": tuple(m[g] for m in state["moments"]),
@@ -456,10 +521,11 @@ def train_grid_reference(cells: Sequence[Cells], W: Sequence[torch.Tensor],
 
 def train_grid_run(cells: Sequence[Cells], W: Sequence[torch.Tensor],
                    state: dict, n_epochs: int, hyper: TrainHyper):
-    """K5: the G cells' runs in one launch, one cluster each. Same arguments
-    and returns as :func:`train_grid_reference`, which runs instead for
-    cells on the CPU. The cells must share C, din and the loss
-    denominators (one trajectory count per launch)."""
+    """K5: the G cells' runs in one launch, each on
+    :func:`clusters_per_run` clusters. Same arguments and returns as
+    :func:`train_grid_reference`, which runs instead for cells on the CPU.
+    The cells must share C, din and the loss denominators (one trajectory
+    count per launch)."""
     dev = cells[0].x.device
     if dev.type == "cpu":
         return train_grid_reference(cells, W, state, n_epochs, hyper)

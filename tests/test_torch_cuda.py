@@ -624,6 +624,63 @@ def test_grid_kernel_beyond_resident_clusters_equals_k4(dev):
             assert torch.equal(a, b)
 
 
+def test_k4_spread_over_the_card_at_train_real_equals_one_cluster_a_run(
+        dev):
+    """train-real's shape (1,904 cells, 28 inputs, hidden 512, AdamW 0.1):
+    K4 spreads the run over P > 1 clusters and equals, bit for bit, run 0 of
+    a K5 grid that fills the card (one cluster a run); it matches its plain
+    version at the K4 tolerances, repeats bit for bit, and counts its P
+    under a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from knode_cosserat_tpu_torch.models.mlp import StackedMLP
+    from knode_cosserat_tpu_torch.training.loss import DEFAULT_KEYPOINTS_REAL
+    from knode_cosserat_tpu_torch.utils import profiling as prof
+    trajs, ctls = K.make_training_data(
+        K.apply_mod(None, device=dev),
+        [("sine", 0.5), ("sine", 1.0), ("sine", 1.25), ("sine", 1.5)],
+        train_len=120)
+    cfg = K.TrainConfig(hidden=512, weight_decay=0.1,
+                        keypoints=DEFAULT_KEYPOINTS_REAL)
+    spec = cfg.spec()
+    p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+    C = trajs.shape[0] * (trajs.shape[1] - 1) * len(cfg.keypoints)
+    resident = ktrain.max_active_clusters(28, 512, dev)
+    P = ktrain.clusters_per_run(C, 1, resident)
+    G = max(resident, 2)
+    assert C == 1904 and P > 1 and ktrain.clusters_per_run(C, G, resident) == 1
+    nets = [K.init_mlp(spec, torch.Generator().manual_seed(s), torch.float32,
+                       dev) for s in range(G)]
+    run = ktrain.make_fused_training_run(p, spec, cfg, 30)
+    got = run(nets[0], trajs, ctls)
+    again = run(nets[0], trajs, ctls)
+    pg, lg, sg = ktrain.make_fused_grid_training_run(spec, cfg, 30)(
+        [p] * G, StackedMLP(nets), torch.stack([trajs] * G),
+        torch.stack([ctls] * G))
+    for losses, state, params in (
+            (again[1], again[2], again[0].parameters()),
+            (lg[0], {"moments": tuple(m[0] for m in sg["moments"]),
+                     "scalars": sg["scalars"][0]},
+             pg.unstack()[0].parameters())):
+        assert torch.equal(losses, got[1])
+        assert torch.equal(state["scalars"], got[2]["scalars"])
+        for a, b in zip(state["moments"], got[2]["moments"]):
+            assert torch.equal(a, b)
+        for a, b in zip(params, got[0].parameters()):
+            assert torch.equal(a, b)
+    want = ktrain.make_fused_training_run(p, spec, cfg, 30, plain=True)(
+        nets[0], trajs, ctls)
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=1e-9)
+    for a, b in zip(got[0].parameters(), want[0].parameters()):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-5)
+    prof.drain()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        run(nets[0], trajs, ctls)
+        torch.cuda.synchronize()
+    rec = prof.drain()
+    assert [v for n, _, v in rec.counts if n == "k4.clusters"] == [float(P)]
+
+
 def _wide_case(dev, hidden, big):
     """hidden 640 on the small data, or the train-real shape (1,904 cells,
     53 inputs, AdamW 0.1) on random data made as the JAX bench makes it,

@@ -326,3 +326,67 @@ def test_k2_makes_no_sweep_buffer_without_a_profiler(case, monkeypatch):
     assert seen == [None]
     rec = P.drain()
     assert rec.spans == [] and rec.counts == []
+
+
+@pytest.fixture
+def k4_library(monkeypatch):
+    """K4's C entries on CPU tensors: each call recorded and answered 0,
+    the occupancy query with 16 clusters."""
+    import contextlib
+
+    from knode_cosserat_tpu_torch.ops import _build
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def call(*args):
+                calls.append(name)
+                if name == "knode_train_clusters":
+                    args[-1]._obj.value = 16
+                return 0
+            return call
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    monkeypatch.setattr(ktrain, "_RESIDENT", {})
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: type("S", (), {"cuda_stream": 0})())
+    return calls
+
+
+def _k4_args(C, G):
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+    lead = (G,) if G > 1 else ()
+    g = torch.Generator().manual_seed(C)
+    mk = lambda *shape: torch.randn(*lead, *shape, generator=g)
+    cells = ktrain.Cells(mk(C, 28), mk(C, 19), mk(C, 6), mk(C, 19), mk(C, 6),
+                         mk(C, 3), (1.0,) * 4, 0.01)
+    W = [mk(64, 28), mk(64), mk(25, 64), mk(25)]
+    state = {"moments": tuple(torch.zeros_like(w) for w in W
+                              for _ in range(2)),
+             "scalars": torch.zeros(*lead, 4)}
+    ds = torch.full((G,), 0.01, dtype=torch.float64) if G > 1 else None
+    return cells, W, state, ds
+
+
+@pytest.mark.parametrize("C,G,want", [(1904, 1, 15), (232, 1, 2),
+                                      (100, 1, 1), (1904, 3, 5),
+                                      (1904, 40, 1)])
+def test_k4_counts_the_clusters_of_each_launch(k4_library, C, G, want):
+    """Under a profiler K4's and K5's wrapper counts ``k4.clusters``, the
+    plan's clusters a run, once a launch; with no profiler, nothing."""
+    from knode_cosserat_tpu_torch.ops import train as ktrain
+    hyper = ktrain.TrainHyper(1e-3, 0.0, 0.5, 10, True)
+    cells, W, state, ds = _k4_args(C, G)
+    ktrain._launch(cells, W, state, 3, hyper, ds_grid=ds)
+    assert P.drain().counts == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            ktrain._launch(cells, W, state, 3, hyper, ds_grid=ds)
+    rec = P.drain()
+    assert [(n, v) for n, _, v in rec.counts] == [("k4.clusters", want)] * 2
+    assert want == ktrain.clusters_per_run(C, G, 16)
+    launched = [n for n in k4_library if n.startswith("knode_train")
+                and n != "knode_train_clusters"]
+    assert len(launched) == 3

@@ -3,8 +3,10 @@ thread-block cluster per run) and K6 (ops/train_wide.py, register-tiled
 products over the card). Pure Python, so they are checked here on the CPU:
 each plan fits the H100's 232,448 bytes of dynamic shared memory, K4's
 cluster is portable (8 blocks at most), every hidden unit has exactly one
-owner, K4's plan does not depend on the cell count or the number of runs,
-and K6's scratch buffers are the sizes its plan gives the C entry."""
+owner, K4's plan depends on the cell count and the number of runs only
+through the clusters a run (P), which spreads a run over the card without
+leaving the clusters it holds at once, and the scratch buffers are the
+sizes the plans give the C entries."""
 import contextlib
 
 import pytest
@@ -74,8 +76,12 @@ def test_plans_refuse_bad_arguments():
             kwide.launch_plan(*args)
 
 
+RESIDENT = 16           # the recorder's answer to the occupancy query
+
+
 class _Recorder:
-    """Stands in for the kernel library: records each entry's arguments."""
+    """Stands in for the kernel library: records each entry's arguments;
+    the occupancy query reads RESIDENT clusters."""
 
     def __init__(self):
         self.calls = []
@@ -86,6 +92,8 @@ class _Recorder:
 
         def call(*args):
             self.calls.append((name, args))
+            if name == "knode_train_clusters":
+                args[-1]._obj.value = RESIDENT
             return 0
         return call
 
@@ -95,6 +103,7 @@ def recorder(monkeypatch):
     """The wrappers' launches on CPU tensors, into a _Recorder."""
     rec = _Recorder()
     monkeypatch.setattr(_build, "library", lambda: rec)
+    monkeypatch.setattr(ktrain, "_RESIDENT", {})
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
 
@@ -125,10 +134,24 @@ HYPER = ktrain.TrainHyper(lr=1e-3, weight_decay=0.0, factor=0.5, patience=10,
                           clamp=True)
 
 
+def _launches(recorder):
+    """(entry, runs, plan fields, args) of each recorded K4 / K5 launch."""
+    out = []
+    for name, args in recorder.calls:
+        if name == "knode_train":
+            out.append((name, 1, _fields(args[1]._obj), args[0]._obj))
+        elif name == "knode_train_grid":
+            out.append((name, args[1], _fields(args[2]._obj), args[0]._obj))
+    return out
+
+
 @pytest.mark.parametrize("din", DINS)
 def test_k4_plan_is_the_same_for_every_cell_count_and_grid(recorder, din):
     """K4 at 232 and 1,904 cells and K5 at 1 and 3 runs hand the C entries
-    one plan, launch_plan(din, hidden)'s, so K5's runs equal K4 launches."""
+    launch_plan(din, hidden)'s threads, hidden split, slots, part size and
+    shared memory; only the clusters a run differ, clusters_per_run's P for
+    (C, G, the card's resident clusters), which the kernel's fold keeps out
+    of the bits (the cuda tier holds K5 to K4 bit for bit)."""
     hidden = 100
     for C in (232, 1904):
         ktrain._launch(*_run_args(C, din, hidden), 5, HYPER)
@@ -136,10 +159,83 @@ def test_k4_plan_is_the_same_for_every_cell_count_and_grid(recorder, din):
             ds = torch.full((G,), 0.01, dtype=torch.float64)
             ktrain._launch(*_run_args(C, din, hidden, (G,)), 5, HYPER,
                            ds_grid=ds)
-    plans = {_fields(args[-2]._obj) if name == "knode_train_grid"
-             else _fields(args[1]._obj) for name, args in recorder.calls}
-    assert len(recorder.calls) == 6
-    assert plans == {tuple(ktrain.launch_plan(din, hidden))}
+    launches = _launches(recorder)
+    assert len(launches) == 6
+    base = tuple(ktrain.launch_plan(din, hidden))
+    got = []
+    for (name, G, plan, a), C in zip(launches, [232] * 3 + [1904] * 3):
+        assert plan[:-1] == base[:-1] and a.C == C
+        got.append((C, G, plan[-1]))
+        assert plan[-1] == ktrain.clusters_per_run(C, G, RESIDENT)
+    assert got == [(232, 1, 2), (232, 1, 2), (232, 3, 2),
+                   (1904, 1, 15), (1904, 1, 15), (1904, 3, 5)]
+    # asked once for the card's clusters
+    asked = [n for n, _ in recorder.calls if n == "knode_train_clusters"]
+    assert len(asked) == 1
+
+
+@pytest.mark.parametrize("C", [1, 128, 129, 232, 1904, 2048, 8192])
+def test_the_part_count_depends_on_the_cell_count_alone(C):
+    n = ktrain.parts(C)
+    assert (n - 1) * 128 < C <= n * 128
+    assert ktrain.launch_plan(28, 512).tile == 128
+    for G, resident in ((1, 16), (3, 16), (40, 16), (1, 1), (2, 132)):
+        assert 1 <= ktrain.clusters_per_run(C, G, resident) <= n
+
+
+@pytest.mark.parametrize("resident", [0, 1, 8, 16, 17, 132])
+def test_one_cluster_a_run_within_a_part_or_on_a_full_card(resident):
+    for G in (1, 2, 16, 40):
+        assert ktrain.clusters_per_run(100, G, resident) == 1
+        assert ktrain.clusters_per_run(128, G, resident) == 1
+        if G >= resident:
+            for C in (129, 232, 1904, 8192):
+                assert ktrain.clusters_per_run(C, G, resident) == 1
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 5, 8, 16])
+def test_the_runs_never_take_more_clusters_than_the_card_holds(G):
+    for resident in (1, 7, 16, 31, 132):
+        for C in range(1, 8193, 97):
+            P = ktrain.clusters_per_run(C, G, resident)
+            assert P <= ktrain.parts(C)
+            assert P <= max(1, resident // G)
+            assert G * P <= resident or P == 1
+            # as many as fit, up to one a part
+            assert P == ktrain.parts(C) or P == max(1, resident // G)
+
+
+def test_k4_at_train_real_spreads_over_the_card():
+    """train-real's 1,904 cells are 15 parts: one run on a card holding 16
+    clusters spreads over 15 of them; 16 runs keep one each."""
+    assert ktrain.parts(1904) == 15
+    assert ktrain.clusters_per_run(1904, 1, 16) == 15
+    assert ktrain.clusters_per_run(1904, 2, 16) == 8
+    assert ktrain.clusters_per_run(1904, 16, 16) == 1
+
+
+@pytest.mark.parametrize("din,C,G", [(28, 1904, 1), (53, 1904, 1),
+                                     (28, 232, 1), (28, 1904, 3)])
+def test_k4_scratch_is_what_the_plan_says_and_made_once(recorder, din, C, G):
+    """The wrapper hands the C entry a scratch of scratch_floats a run
+    (a slab a part and the weight exchange) and two zeroed barrier words a
+    run, made at the cells' first launch and reused by the next."""
+    hidden = 512
+    cells, W, state = _run_args(C, din, hidden, (G,) if G > 1 else ())
+    ds = torch.full((G,), 0.01, dtype=torch.float64) if G > 1 else None
+    for _ in range(2):
+        ktrain._launch(cells, W, state, 5, HYPER, ds_grid=ds)
+    (_, _, plan, a1), (_, _, _, a2) = _launches(recorder)
+    (part, bar), = cells.scratch.values()
+    plan = ktrain.TrainPlan(*plan)
+    slab = 8 * (din + 26) * plan.slots + 32
+    assert ktrain.scratch_floats(plan, din, C) == (ktrain.parts(C) + 1) * slab
+    assert part.numel() == G * ktrain.scratch_floats(plan, din, C)
+    assert part.dtype == torch.float32
+    assert bar.dtype == torch.int32 and bar.numel() == 2 * G
+    assert not bar.any()
+    assert a1.part == a2.part == part.data_ptr()
+    assert a1.bar == a2.bar == bar.data_ptr()
 
 
 @pytest.mark.parametrize("hidden", [64, 640, 2048, 8192])
