@@ -35,13 +35,13 @@ none). design's start is drawn from a ``torch.Generator`` seeded with 0.
 ``simulate --segments S`` rolls out by multiple shooting
 (core/multiple_shooting.py). ``replicate --dtype`` is the rods' precision
 (float32 by default; the training runs in float32). The JAX package's
-``bench`` command is not ported: it runs the benchmark's own file, and
-waits for the port's first benchmark. ``train --mesh`` and ``multitrain
---mesh d,s,m`` run over a ("data", "seq", "model") mesh of every rank of
-the process group (parallel/mesh.py): start one rank per card with
-``torchrun --nproc_per_node <cards>`` (NCCL), or CPU ranks with
-``--device cpu`` (gloo); without a launcher the mesh is a world of one.
-Only rank 0 prints and writes files.
+``bench`` command is not ported: it runs the JAX benchmark's own file; the
+port's benchmark is ``portbench/run.py`` (``BENCHMARK.json``). ``train
+--mesh`` and ``multitrain --mesh d,s,m`` run over a ("data", "seq",
+"model") mesh of every rank of the process group (parallel/mesh.py):
+start one rank per card with ``torchrun --nproc_per_node <cards>``
+(NCCL), or CPU ranks with ``--device cpu`` (gloo); without a launcher the
+mesh is a world of one. Only rank 0 prints and writes files.
 """
 from __future__ import annotations
 
@@ -267,7 +267,7 @@ def cmd_simulate(args):
 def cmd_multitrain(args) -> dict:
     """Train the grid, save each cell's net, evaluate, print the table and
     the phases. Returns {"result", "records", "seconds"} for callers that
-    time the run (chip_smoke.py)."""
+    check or time the run (tests/test_torch_cuda.py)."""
     import torch
 
     from .core.params import apply_mod

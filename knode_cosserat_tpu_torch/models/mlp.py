@@ -112,7 +112,7 @@ def _linear(spec: MLPSpec, x, W, b):
     ``spec.compute_dtype`` the operands are first rounded to it (the
     product of two bfloat16 numbers is exact in float32, so only the order
     of summation differs from the JAX package's mixed-precision dot). The
-    caller keeps TF32 off on a CUDA device (chip_smoke.py does)."""
+    caller keeps TF32 off on a CUDA device (ab_kernels.py does)."""
     dt = torch.promote_types(x.dtype, W.dtype)
     if spec.compute_dtype is None:
         return F.linear(x.to(dt), W.to(dt), b.to(dt))

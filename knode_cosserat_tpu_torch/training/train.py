@@ -340,7 +340,7 @@ def rollout_with_nn(p: RodParams, controls, spec: MLPSpec,
 
 # hidden width from which "auto" takes K6: the JAX package's threshold
 # (knode_cosserat_tpu/training/train.py:148-156, set on a TPU), kept for
-# parity of routing; chip_smoke.py times the crossover on the card
+# parity of routing; the H100's own crossover is not yet timed
 WIDE_FROM_HIDDEN = 2048
 
 

@@ -4,7 +4,13 @@ Marked ``cuda``: every test skips where no GPU is present. On a GPU machine:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 (``--noconftest``: tests/conftest.py sets up JAX, which a GPU machine
 need not have; this file imports only the port.)
-(chip_smoke.py runs the same comparisons at the model's full width.)
+Beside the small widths each kernel is held at the model's full width
+(``for_knode(512)``, every benchmark cell's), and each main path is run
+end to end on the card with its kernel launches counted: serving, the
+rollouts, train_knode, the multitrain grid, the study's CLI, the fused
+training step, the assemblies and their planners, the single-rod planner,
+identification and online adaptation, the fine rods, the deep nets and a
+mesh of one card.
 """
 import numpy as np
 import pytest
@@ -19,6 +25,10 @@ from knode_cosserat_tpu_torch.ops import train as ktrain
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float64: (1e-10, 1e-12), torch.float32: (1e-4, 1e-5)}
+# a rollout against its plain version, float32, both solved to the floor
+ROLLOUT_F32 = dict(rtol=1e-4, atol=1e-4)
+MODS = ["nsw", "short", "youngs", "lengthstiff"]
+SINES = [("sine", 0.5), ("sine", 1.0), ("sine", 1.25), ("sine", 1.5)]
 
 
 @pytest.fixture
@@ -39,8 +49,8 @@ def _inputs(p, B, seed, dev):
     return [torch.tensor(a, dtype=p.dtype, device=dev) for a in arrays]
 
 
-def _net(history, dtype, dev, scale=1.0):
-    spec = K.MLPSpec.for_knode(64, history=history)
+def _net(history, dtype, dev, scale=1.0, hidden=64):
+    spec = K.MLPSpec.for_knode(hidden, history=history)
     net = K.init_mlp(spec, torch.Generator().manual_seed(0), dtype, dev)
     with torch.no_grad():
         for t in net.parameters():
@@ -48,13 +58,37 @@ def _net(history, dtype, dev, scale=1.0):
     return spec, net
 
 
+def _sines(p, R, T):
+    """(R, T, 4) sine tensions, rod r's period 0.5 + 1.5 r / R s."""
+    return torch.tensor(np.stack([
+        K.calc_controls("sine", 0.5 + 1.5 * r / R, float(p.del_t), T)
+        for r in range(R)]), dtype=p.dtype, device=p.device)
+
+
+def test_sweep_kernel_one_node_without_the_rod_matches_plain(dev):
+    """K1 alone: a K3 sweep over N=2 (one node) at 1,792 lanes with the
+    for_knode(512) net, want_rod=False (the residual only), f32."""
+    p = K.experimental_rod(N=2, device=dev).to(dtype=torch.float32)
+    G, yh, zh, tf = _inputs(p, 1792, 0, dev)
+    spec, net = _net(False, torch.float32, dev, hidden=512)
+    with torch.no_grad():
+        got = ksweep.make_sweep_kernel(p, spec, want_rod=False)(G, yh, zh,
+                                                                tf, net)
+        want = ksweep.sweep_reference(p, G, yh, zh, tf, net, want_rod=False)
+    rtol, atol = TOL[torch.float32]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("N,hidden", [(10, 64), (10, 512), (40, 512)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("method", ["euler", "rk4"])
 @pytest.mark.parametrize("history", [None, False, True])
-def test_sweep_kernel_matches_plain(dev, dtype, method, history):
-    p = K.experimental_rod(N=10, device=dev).to(dtype=dtype)
+def test_sweep_kernel_matches_plain(dev, dtype, method, history, N, hidden):
+    p = K.experimental_rod(N=N, device=dev).to(dtype=dtype)
     G, yh, zh, tf = _inputs(p, 67, 0, dev)
-    spec, net = (None, None) if history is None else _net(history, dtype, dev)
+    spec, net = (None, None) if history is None else _net(
+        history, dtype, dev, hidden=hidden)
     before = ksweep.LAUNCHES
     with torch.no_grad():
         got = ksweep.make_sweep_kernel(p, spec, method=method)(G, yh, zh, tf, net)
@@ -66,18 +100,33 @@ def test_sweep_kernel_matches_plain(dev, dtype, method, history):
         torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("history", [None, False])
-def test_step_kernel_matches_plain(dev, dtype, history):
-    p = K.experimental_rod(N=10, device=dev).to(dtype=dtype)
+# hidden 64 at N=10, and at for_knode(512) the Euler and RK4 sweeps, both
+# nets (28 inputs; 53, whose float64 net is read from global memory) and
+# the physics-only rod at N=40
+@pytest.mark.parametrize("dtype,N,method,history,hidden", [
+    (torch.float64, 10, "euler", None, None),
+    (torch.float64, 10, "euler", False, 64),
+    (torch.float32, 10, "euler", None, None),
+    (torch.float32, 10, "euler", False, 64),
+    (torch.float64, 10, "euler", False, 512),
+    (torch.float64, 10, "euler", True, 512),
+    (torch.float64, 10, "rk4", False, 512),
+    (torch.float64, 40, "euler", None, None),
+    (torch.float32, 10, "euler", False, 512),
+    (torch.float32, 10, "rk4", True, 512),
+    (torch.float32, 40, "rk4", None, None)])
+def test_step_kernel_matches_plain(dev, dtype, N, method, history, hidden):
+    p = K.experimental_rod(N=N, device=dev).to(dtype=dtype)
     G, yh, zh, tf = _inputs(p, 45, 1, dev)
     G = torch.zeros_like(G)
-    spec, net = (None, None) if history is None else _net(history, dtype, dev,
-                                                          1e-2)
+    spec, net = (None, None) if history is None else _net(
+        history, dtype, dev, 1e-2, hidden)
     tol = 1e-18 if dtype == torch.float64 else 1e-13   # both to the floor
     with torch.no_grad():
-        got = kstep.make_step_kernel(p, spec, tol=tol)(G, yh, zh, tf, net)
-        want = kstep.step_reference(p, G, yh, zh, tf, net, tol=tol)
+        got = kstep.make_step_kernel(p, spec, tol=tol, method=method)(
+            G, yh, zh, tf, net)
+        want = kstep.step_reference(p, G, yh, zh, tf, net, tol=tol,
+                                    method=method)
     torch.cuda.synchronize()
     if dtype == torch.float64:
         for a, b in zip(got[:4], want[:4]):
@@ -85,6 +134,8 @@ def test_step_kernel_matches_plain(dev, dtype, history):
     else:
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+        assert bool(torch.isfinite(got[2]).all() and torch.isfinite(
+            got[3]).all())
 
 
 # a rod's result does not depend on the batch: K2 runs one block per rod
@@ -296,11 +347,13 @@ def _deep(dims, act, dtype, dev, scale=1.0, seed=0):
     return spec, net
 
 
+@pytest.mark.parametrize("N", [10, 40])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("method", ["euler", "rk4"])
 @pytest.mark.parametrize("dims,act", DEEP)
-def test_sweep_kernel_deep_net_matches_plain(dev, dtype, method, dims, act):
-    p = K.experimental_rod(N=10, device=dev).to(dtype=dtype)
+def test_sweep_kernel_deep_net_matches_plain(dev, dtype, method, dims, act,
+                                             N):
+    p = K.experimental_rod(N=N, device=dev).to(dtype=dtype)
     G, yh, zh, tf = _inputs(p, 67, 0, dev)
     spec, net = _deep(dims, act, dtype, dev, 0.1)
     before = ksweep.LAUNCHES
@@ -337,7 +390,7 @@ def test_step_kernel_deep_net_matches_plain(dev, dtype, dims, act):
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("dims,act", DEEP[:2])
+@pytest.mark.parametrize("dims,act", DEEP[:3])
 def test_step_kernel_deep_per_rod_nets_match_single_net_launches(dev, dims,
                                                                  act):
     from knode_cosserat_tpu_torch.models.mlp import StackedMLP
@@ -382,42 +435,93 @@ def test_next_segment_kernel_deep_net_matches_plain(dev, dtype, dims, act):
         torch.testing.assert_close(a, b, rtol=tol[0], atol=tol[1])
 
 
-def test_mega_rollout_matches_plain(dev):
+# K2 (impl "mega") and the FD-Newton driver over K3 (impl "sweep", forward
+# differences) with the net at hidden 64, 512 and three layers
+@pytest.mark.parametrize("width", [64, 512, "deep"])
+@pytest.mark.parametrize("impl", ["mega", "sweep"])
+def test_mega_rollout_matches_plain(dev, impl, width):
     p = K.experimental_rod(N=10, dtype=torch.float32, device=dev)
-    spec, net = _net(False, torch.float32, dev, 1e-3)
+    spec, net = (_deep(DEEP[2][0], DEEP[2][1], torch.float32, dev, 1e-3)
+                 if width == "deep" else
+                 _net(False, torch.float32, dev, 1e-3, width))
     ctl = torch.tensor(np.stack([K.calc_controls("sine", 0.5 + i / 8, 0.05, 12)
                                  for i in range(8)]), device=dev)
+    kern = kstep if impl == "mega" else ksweep
+    before = kern.LAUNCHES
     # both solvers run to the f32 floor: at tol=1e-10 each stops at its own
     # point inside |r| <= 1e-5, and the states differ by more than 1e-4
-    traj, _, _ = make_fast_rollout(p, spec, tol=1e-13, impl="mega")(ctl, net)
+    traj, _, _ = make_fast_rollout(p, spec, tol=1e-13, impl=impl,
+                                   fd_order=1)(ctl, net)
+    assert kern.LAUNCHES > before
     ref, _, _ = make_fast_rollout(p, spec, tol=1e-13, impl="plain",
                                   fd_order=1)(ctl, net)
-    torch.testing.assert_close(traj, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(traj, ref, **ROLLOUT_F32)
 
 
-def _train_case(dev, history=False, **cfg_kw):
-    ref = K.apply_mod(None, device=dev)
-    trajs, ctls = K.make_training_data(ref, [("sine", 0.5), ("sine", 1.0)],
-                                       train_len=8)
-    cfg = K.TrainConfig(hidden=64, history=history, **cfg_kw)
+def test_compiled_stepper_serves_256_rods_on_k2(dev):
+    """CompiledStepper(fast=True) answers 20 requests for 256 rods of the
+    measured-hardware rod with the for_knode(512) net: a K2 launch each,
+    each residual within 1e-5, every state finite."""
+    p = K.experimental_rod(N=10, dtype=torch.float32, device=dev)
+    spec, net = _net(False, torch.float32, dev, 1e-3, 512)
+    ctl = _sines(p, 256, 20)
+    stepper = K.CompiledStepper(p, spec, net, batch=256, fast=True)
+    state = stepper.reset()
+    before = kstep.LAUNCHES
+    for t in range(20):
+        state, info = stepper.step(state, ctl[:, t])
+        assert float(info["residual"]) <= 1e-5
+        assert bool(torch.isfinite(state.y).all())
+    assert kstep.LAUNCHES - before == 20
+
+
+def _train_data(dev, n_traj=2, train_len=8):
+    """Float32 training data of the first n_traj SINES made on the card:
+    2 x 30 steps are tests/golden/bench_data.npz's 232 cells."""
+    trajs, ctls = K.make_training_data(K.apply_mod(None, device=dev),
+                                       SINES[:n_traj], train_len=train_len)
+    return trajs.float(), ctls.float()
+
+
+def _train_case(dev, history=False, hidden=64, train_len=8, **cfg_kw):
+    trajs, ctls = _train_data(dev, train_len=train_len)
+    cfg = K.TrainConfig(hidden=hidden, history=history, **cfg_kw)
     p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
     net = K.init_mlp(cfg.spec(), torch.Generator().manual_seed(0),
                      torch.float32, dev)
-    return p, cfg, net, trajs.float(), ctls.float()
+    return p, cfg, net, trajs, ctls
+
+
+def test_training_data_made_on_the_card_matches_the_golden_data(dev):
+    """make_training_data on the card (the plain scan of the reference rod,
+    float64) against tests/golden/bench_data.npz: RMSE within 1e-7, the
+    controls equal."""
+    import os
+    d = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                             "bench_data.npz"))
+    trajs, ctls = K.make_training_data(K.apply_mod(None, device=dev),
+                                       SINES[:2], train_len=30)
+    want = torch.tensor(np.moveaxis(d["trajs"], 2, 3), device=dev)
+    assert float(((trajs - want) ** 2).mean().sqrt()) <= 1e-7
+    assert torch.equal(ctls, torch.tensor(d["controls"], device=dev))
 
 
 # K4 against its plain version: the tolerances of the JAX package's own
 # fused-vs-scan tests (tests/test_pallas_train.py): both run float32 and
-# sum in different orders
+# sum in different orders. At hidden 512 on the 232 cells of 2 x 30 steps
+# for 40 epochs, where the loss falls
+@pytest.mark.parametrize("hidden,train_len,epochs", [(64, 8, 30),
+                                                     (512, 30, 40)])
 @pytest.mark.parametrize("case", [dict(), dict(weight_decay=1e-4),
                                   dict(plateau_patience=4),
                                   dict(history=True)])
-def test_train_kernel_matches_plain(dev, case):
-    p, cfg, net, trajs, ctls = _train_case(dev, **case)
+def test_train_kernel_matches_plain(dev, case, hidden, train_len, epochs):
+    p, cfg, net, trajs, ctls = _train_case(dev, hidden=hidden,
+                                           train_len=train_len, **case)
     before = ktrain.LAUNCHES
-    got = ktrain.make_fused_training_run(p, cfg.spec(), cfg, 30)(net, trajs,
-                                                                 ctls)
-    want = ktrain.make_fused_training_run(p, cfg.spec(), cfg, 30,
+    got = ktrain.make_fused_training_run(p, cfg.spec(), cfg, epochs)(
+        net, trajs, ctls)
+    want = ktrain.make_fused_training_run(p, cfg.spec(), cfg, epochs,
                                           plain=True)(net, trajs, ctls)
     torch.cuda.synchronize()
     assert ktrain.LAUNCHES == before + 1
@@ -425,6 +529,29 @@ def test_train_kernel_matches_plain(dev, case):
     for a, b in zip(got[0].parameters(), want[0].parameters()):
         torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-5)
     torch.testing.assert_close(got[2]["scalars"], want[2]["scalars"])
+    if hidden == 512:
+        assert float(got[1][-1]) < float(got[1][0])
+
+
+# the train-real configuration (53 inputs, AdamW 0.1, its keypoints) on
+# random data of its shape at two seeds, after one epoch and after 40: the
+# weights at test_wide_kernel_matches_plain's bar for this shape (Adam's
+# first step is lr g / (|g| + eps), so a weight whose gradient sums to
+# within a few eps of 0 carries that sum's rounding into its step)
+@pytest.mark.parametrize("epochs", [1, 40])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_train_kernel_matches_plain_on_random_train_real_data(dev, seed,
+                                                             epochs):
+    p, cfg, net, trajs, ctls = _wide_case(dev, 512, True, seed)
+    got, want = (ktrain.make_fused_training_run(p, cfg.spec(), cfg, epochs,
+                                                plain=plain)(net, trajs, ctls)
+                 for plain in (False, True))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=1e-9)
+    for a, b in zip(got[0].parameters(), want[0].parameters()):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=2e-4)
+    if epochs > 1:
+        assert float(got[1][-1]) < float(got[1][0])
 
 
 # ragged widths: block r of the cluster owns units [r U, r U + U), U =
@@ -485,15 +612,23 @@ def test_train_kernel_chunks_compose(dev):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
 
 
-def test_train_knode_runs_on_the_kernels(dev):
-    p, cfg, _, trajs, ctls = _train_case(dev)
+# hidden 8192: fused="auto" routes to K6 (WIDE_FROM_HIDDEN)
+@pytest.mark.parametrize("hidden", [64, 512, 8192])
+def test_train_knode_runs_on_the_kernels(dev, hidden):
+    from knode_cosserat_tpu_torch.ops import train_wide as kwide
+    from knode_cosserat_tpu_torch.training.train import WIDE_FROM_HIDDEN
+    p, cfg, _, trajs, ctls = _train_case(dev, hidden=hidden)
     cfg.epochs, cfg.eval_every, cfg.eval_len = 20, 10, 8
     vc, vt = K.make_validation_reference(K.apply_mod(None, device=dev),
                                          ("sine", 1.25), 8)
-    k4, k2 = ktrain.LAUNCHES, kstep.LAUNCHES
+    k4, k6, k2 = ktrain.LAUNCHES, kwide.LAUNCHES, kstep.LAUNCHES
     r = K.train_knode(p, trajs, ctls, cfg, vc, vt, log=None)
-    assert ktrain.LAUNCHES - k4 == 3 and kstep.LAUNCHES > k2
+    assert (ktrain.LAUNCHES - k4, kwide.LAUNCHES - k6) == (
+        (0, 3) if hidden >= WIDE_FROM_HIDDEN else (3, 0))
+    assert kstep.LAUNCHES > k2
     assert r.loss_history.shape == (21,) and np.isfinite(r.best_dtw)
+    assert r.loss_history[-1] < r.loss_history[0]
+    assert all(np.isfinite(d) for _, d in r.dtw_history)
     assert r.device == torch.cuda.get_device_name(dev)
 
 
@@ -544,7 +679,8 @@ def test_train_knode_on_the_card_equals_the_chunk_by_chunk_chain(
 def test_step_kernel_per_rod_nets_match_single_net_launches(dev, hidden,
                                                             rods):
     """K2 with one net per rod (the eval tables' stacked cells) == one
-    single-net launch per rod, bit for bit."""
+    single-net launch per rod, bit for bit; and, both solved to the f32
+    floor, against its plain version with the same stack."""
     from knode_cosserat_tpu_torch.models.mlp import StackedMLP
     p = K.experimental_rod(N=10, device=dev).to(dtype=torch.float32)
     G, yh, zh, tf = _inputs(p, rods, 3, dev)
@@ -566,31 +702,44 @@ def test_step_kernel_per_rod_nets_match_single_net_launches(dev, hidden,
                      nets[b])
             for x, w in zip(got, want):
                 assert torch.equal(x[b:b + 1], w)
+        got = kstep.make_step_kernel(p, spec, tol=1e-13)(
+            G, yh, zh, tf, StackedMLP(nets))
+        want = kstep.step_reference(p, G, yh, zh, tf, StackedMLP(nets),
+                                    tol=1e-13)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
 
 
-def test_grid_kernel_matches_k4_bit_for_bit_and_plain(dev):
+# 4 runs at hidden 64; at hidden 512, 40 epochs, the multitrain grid's two
+# sub-grid shapes: 8 runs x 232 cells (2 x 30 steps) and 20 runs x 348
+# cells (3 x 30 steps)
+@pytest.mark.parametrize("G,n_traj,hidden,train_len,epochs", [
+    (4, 2, 64, 8, 30), (8, 2, 512, 30, 40), (20, 3, 512, 30, 40)])
+def test_grid_kernel_matches_k4_bit_for_bit_and_plain(dev, G, n_traj, hidden,
+                                                      train_len, epochs):
     """K5's cell g == a K4 launch on cell g (same rod, net, data), bit for
     bit; and K5 against its plain version at K4's tolerances."""
     from knode_cosserat_tpu_torch.models.mlp import StackedMLP
-    _, cfg, _, trajs, ctls = _train_case(dev)
-    mods = ["nsw", "short", "youngs", "nsw"]
-    rods = [K.apply_mod(m, dtype=torch.float32, device=dev) for m in mods]
+    trajs, ctls = _train_data(dev, n_traj, train_len)
+    cfg = K.TrainConfig(hidden=hidden)
+    rods = [K.apply_mod(MODS[g % 4], dtype=torch.float32, device=dev)
+            for g in range(G)]
     nets = [K.init_mlp(cfg.spec(), torch.Generator().manual_seed(s),
-                       torch.float32, dev) for s in range(len(mods))]
-    tg, cg = torch.stack([trajs] * 4), torch.stack([ctls] * 4)
+                       torch.float32, dev) for s in range(G)]
+    tg, cg = torch.stack([trajs] * G), torch.stack([ctls] * G)
     before = ktrain.GRID_LAUNCHES
-    pg, lg, sg = ktrain.make_fused_grid_training_run(cfg.spec(), cfg, 30)(
+    pg, lg, sg = ktrain.make_fused_grid_training_run(cfg.spec(), cfg, epochs)(
         rods, StackedMLP(nets), tg, cg)
     torch.cuda.synchronize()
     assert ktrain.GRID_LAUNCHES == before + 1
     for g, (rod, net) in enumerate(zip(rods, nets)):
-        p1, l1, s1 = ktrain.make_fused_training_run(rod, cfg.spec(), cfg, 30)(
-            net, trajs, ctls)
+        p1, l1, s1 = ktrain.make_fused_training_run(rod, cfg.spec(), cfg,
+                                                    epochs)(net, trajs, ctls)
         assert torch.equal(lg[g], l1)
         for a, b in zip(pg.unstack()[g].parameters(), p1.parameters()):
             assert torch.equal(a, b)
         assert torch.equal(sg["scalars"][g], s1["scalars"])
-    pp, lp, _ = ktrain.make_fused_grid_training_run(cfg.spec(), cfg, 30,
+    pp, lp, _ = ktrain.make_fused_grid_training_run(cfg.spec(), cfg, epochs,
                                                     plain=True)(
         rods, StackedMLP(nets), tg, cg)
     torch.testing.assert_close(lg, lp, rtol=2e-4, atol=1e-9)
@@ -681,19 +830,19 @@ def test_k4_spread_over_the_card_at_train_real_equals_one_cluster_a_run(
     assert [v for n, _, v in rec.counts if n == "k4.clusters"] == [float(P)]
 
 
-def _wide_case(dev, hidden, big):
+def _wide_case(dev, hidden, big, seed=0):
     """hidden 640 on the small data, or the train-real shape (1,904 cells,
-    53 inputs, AdamW 0.1) on random data made as the JAX bench makes it,
-    plus the identity quaternion (chip_smoke.py::train_real_data: random
-    quaternions put Euler angles at the loss's +-pi wrap, where two float32
-    runs part)."""
+    53 inputs, AdamW 0.1) on random data from ``seed`` made as the JAX bench
+    makes it (bench.py:612-623), plus the identity quaternion: the bench's
+    random quaternions put Euler angles at the loss's +-pi wrap, where two
+    float32 runs part; a real rod's orientation stays near identity."""
     from knode_cosserat_tpu_torch.training.loss import DEFAULT_KEYPOINTS_REAL
     if not big:
         p, cfg, _, trajs, ctls = _train_case(dev)
         cfg = K.TrainConfig(hidden=hidden)
     else:
         p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
-        g = np.random.default_rng(0)
+        g = np.random.default_rng(seed)
         trajs = torch.tensor(g.normal(size=(4, 120, p.N, 25)) * 0.01
                              + np.eye(1, 25, 3)[0], dtype=torch.float32,
                              device=dev)
@@ -707,31 +856,38 @@ def _wide_case(dev, hidden, big):
 
 
 # params: the JAX package's rtol 3e-3 / atol 3e-5 at hidden 640; at the
-# train-real shape, chip_smoke.py's RANDOM_PARAM: Adam's step divides by the
-# gradient's own size, so a weight whose gradient sums over the 1,904 cells
-# to within a few eps of 0 carries that sum's rounding (another order in
-# each version) into its step
-@pytest.mark.parametrize("hidden,big,param_atol", [(640, False, 3e-5),
-                                                   (8192, True, 2e-4)])
-def test_wide_kernel_matches_plain(dev, hidden, big, param_atol):
+# train-real shape (two seeds, after one epoch and after 20) atol 2e-4, a
+# fiftieth of lr: Adam's step divides by the gradient's own size (lr g /
+# (|g| + eps) at the first epoch), so a weight whose gradient sums over the
+# 1,904 cells to within a few eps of 0 carries that sum's rounding (another
+# order in each version) into its step, up to lr / 4 times its error
+@pytest.mark.parametrize("hidden,big,param_atol,seed,epochs", [
+    (640, False, 3e-5, 0, 20), (8192, True, 2e-4, 0, 20),
+    (8192, True, 2e-4, 1, 20), (8192, True, 2e-4, 0, 1),
+    (8192, True, 2e-4, 1, 1)])
+def test_wide_kernel_matches_plain(dev, hidden, big, param_atol, seed,
+                                   epochs):
     from knode_cosserat_tpu_torch.ops import train_wide as kwide
-    p, cfg, net, trajs, ctls = _wide_case(dev, hidden, big)
+    p, cfg, net, trajs, ctls = _wide_case(dev, hidden, big, seed)
     before = kwide.LAUNCHES
-    got = kwide.make_wide_training_run(p, cfg.spec(), cfg, 20)(net, trajs,
-                                                               ctls)
-    want = kwide.make_wide_training_run(p, cfg.spec(), cfg, 20, plain=True)(
+    got = kwide.make_wide_training_run(p, cfg.spec(), cfg, epochs)(
         net, trajs, ctls)
+    want = kwide.make_wide_training_run(p, cfg.spec(), cfg, epochs,
+                                        plain=True)(net, trajs, ctls)
     torch.cuda.synchronize()
     assert kwide.LAUNCHES == before + 1
     torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=1e-9)
     for a, b in zip(got[0].parameters(), want[0].parameters()):
         torch.testing.assert_close(a, b, rtol=3e-3, atol=param_atol)
     torch.testing.assert_close(got[2]["scalars"], want[2]["scalars"])
+    if epochs > 1:
+        assert float(got[1][-1]) < float(got[1][0])
 
 
-def test_wide_kernel_chunks_compose(dev):
+@pytest.mark.parametrize("hidden,big", [(640, False), (8192, True)])
+def test_wide_kernel_chunks_compose(dev, hidden, big):
     from knode_cosserat_tpu_torch.ops import train_wide as kwide
-    p, cfg, net, trajs, ctls = _wide_case(dev, 640, False)
+    p, cfg, net, trajs, ctls = _wide_case(dev, hidden, big)
     whole, l20, s20 = kwide.make_wide_training_run(p, cfg.spec(), cfg, 20)(
         net, trajs, ctls)
     run10 = kwide.make_wide_training_run(p, cfg.spec(), cfg, 10)
@@ -808,6 +964,155 @@ def test_assembly_kernel_matches_plain(dev, M, N, tol):
     assert float((got[1] - want[1]).abs().max()) < tol * float(
         want[1].abs().max())
     assert int(got[4]) == int(want[4])
+
+
+ASM_AMPS = (0.7, 1.0, 1.3)   # the JAX bench's sine parameter per rod
+
+
+def _assembly_controls(asm, T, amps=ASM_AMPS):
+    """(T, M, 4) sine tensions, rod i's parameter amps[i] (the JAX bench's
+    schedule, bench.py:517-525)."""
+    dt = float(asm.rods[0].del_t)
+    return torch.tensor(np.stack([K.calc_controls("sine", a, dt, T)
+                                  for a in amps[:asm.M]], axis=1),
+                        dtype=asm.dtype, device=asm.device)
+
+
+def _assembly_rollout(asm, ctl, solve_fn, tol):
+    """The coupled rollout with a given root solver: G (T-1, M, 6), plate
+    poses (T-1, 7), y (T-1, M, N, 19), iterations and residual norms
+    (T-1,)."""
+    from knode_cosserat_tpu_torch.core.assembly import (AssemblyCarry,
+                                                        assembly_step_carry)
+    carry, out = AssemblyCarry.initial(asm), [[] for _ in range(5)]
+    with torch.no_grad():
+        for u in ctl[:-1]:
+            carry, rec, plate7, G, stats = assembly_step_carry(
+                asm, carry, u, tol=tol, solve_fn=solve_fn)
+            for lst, v in zip(out, (G, plate7, rec[..., :19],
+                                    stats.iterations, stats.residual_norm)):
+                lst.append(v)
+    return tuple(torch.stack(v) for v in out)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+# f64, both solved to 1e-24 from a sine rollout's inputs. M = 2 (N = 6) and
+# 3 (N = 10): one step and 20-step rollouts, X, G and the plate within 1e-9
+# and y, z within 1e-9 of their largest, the same iterations but at up to 2
+# of the 20 steps, where both converged one iteration apart (a residual
+# after an iteration spans 1e-30 to 1e-18 over a rollout; where it lands
+# near the tolerance, the central differences' rounding decides the stop).
+# M = 6 and 9: one step within 1e-8 (test_assembly_kernel_matches_plain's
+# reason)
+@pytest.mark.parametrize("M,N,bar,steps", [(2, 6, 1e-9, 20),
+                                           (3, 10, 1e-9, 20),
+                                           (6, 10, 1e-8, 0),
+                                           (9, 10, 1e-8, 0)])
+def test_assembly_kernel_in_a_rollout_matches_plain(dev, M, N, bar, steps):
+    from knode_cosserat_tpu_torch.core.assembly import make_ring_assembly
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    asm = make_ring_assembly(n_rods=M, base_radius=0.05, N=N, device=dev)
+    ctl = _assembly_controls(asm, 21, ASM_AMPS if M <= 3
+                             else np.linspace(0.7, 1.3, M))
+    k = kasm.make_assembly_step_kernel(asm, tol=1e-24, max_iter=30)
+    plain = lambda *a: kasm.assembly_step_reference(asm, *a, tol=1e-24,
+                                                    max_iter=30)
+    grab = []
+    _assembly_rollout(asm, ctl[:5], lambda *a: grab.append(a) or k(*a),
+                      1e-24)
+    got, want = k(*grab[3]), plain(*grab[3])
+    assert float((got[0] - want[0]).abs().max()) <= bar
+    assert _rel(got[1], want[1]) <= bar and _rel(got[2], want[2]) <= bar
+    assert int(got[4]) == int(want[4])
+    if not steps:
+        return
+    before = kasm.LAUNCHES
+    rk = _assembly_rollout(asm, ctl[:steps + 1], k, 1e-24)
+    assert kasm.LAUNCHES - before == steps
+    rp = _assembly_rollout(asm, ctl[:steps + 1], plain, 1e-24)
+    assert float((rk[0] - rp[0]).abs().max()) <= bar
+    assert float((rk[1] - rp[1]).abs().max()) <= bar
+    assert _rel(rk[2], rp[2]) <= bar
+    apart = rk[3] != rp[3]
+    assert int(apart.sum()) <= 2
+    assert bool(((rk[3] - rp[3]).abs() <= 1).all())
+    assert bool((torch.maximum(rk[4], rp[4])[apart] ** 2 <= 1e-24).all())
+
+
+def test_assembly_kernel_f32_inside_the_f64_envelope(dev):
+    """K7 and its plain version at the JAX bench's assembly, float32, 20
+    steps at tol 1e-10: each one's G and plate poses within 3x the plain
+    coupled Newton's own float32 distance from the float64 truth (plus 1e-6
+    on G, 1e-7 on the plate), as the JAX package's
+    tests/test_assembly_fused.py holds them."""
+    from knode_cosserat_tpu_torch.core.assembly import (make_ring_assembly,
+                                                        simulate_assembly)
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    asm = make_ring_assembly(n_rods=3, base_radius=0.05, N=10,
+                             dtype=torch.float32, device=dev)
+    ctl = _assembly_controls(asm, 21)
+    truth = simulate_assembly(make_ring_assembly(
+        n_rods=3, base_radius=0.05, N=10, dtype=torch.float64, device="cpu"),
+        ctl.cpu().double(), tol=1e-24)
+    plain = simulate_assembly(asm, ctl)
+    err = lambda a, b: float((a.cpu().double() - b).abs().max())
+    eG, ep = (err(plain.Gs[1:], truth.Gs[1:]),
+              err(plain.plate_pose[1:], truth.plate_pose[1:]))
+    for solve in (kasm.make_assembly_step_kernel(asm, tol=1e-10),
+                  lambda *a: kasm.assembly_step_reference(asm, *a,
+                                                          tol=1e-10)):
+        Gs, plates, _, _, _ = _assembly_rollout(asm, ctl, solve, 1e-10)
+        assert err(Gs, truth.Gs[1:]) < 3.0 * eG + 1e-6
+        assert err(plates, truth.plate_pose[1:]) < 3.0 * ep + 1e-7
+
+
+def _plate_target(asm, carry, H):
+    """A sway of 1 cm in x and a lift of 0.1 mm of the plate, ramped over
+    the horizon from its start."""
+    ramp = torch.arange(1, H + 1, dtype=asm.dtype,
+                        device=asm.device)[:, None] / H
+    return carry.pp + ramp * torch.tensor((0.01, 0.0, 1e-4), dtype=asm.dtype,
+                                          device=asm.device)
+
+
+def test_assembly_planner_runs_on_k7(dev):
+    """make_assembly_planner(fused=True, w_du=0) at the JAX bench's
+    assembly, float32, horizon 8, 10 iterations: K7 launches, the cost
+    falls; the float64 gradient of the plan's first cost through K7's roots
+    against the one through the plain coupled Newton's, within 1e-6
+    relative. (With the default w_du 1e-4 the penalty on Adam's first
+    tension steps outweighs mm-to-cm errors on these stiff rods.)"""
+    from knode_cosserat_tpu_torch.control import (make_assembly_planner,
+                                                  rollout_plate)
+    from knode_cosserat_tpu_torch.core.assembly import (AssemblyCarry,
+                                                        make_ring_assembly)
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    H = 8
+    asm = make_ring_assembly(n_rods=3, base_radius=0.05, N=10,
+                             dtype=torch.float32, device=dev)
+    carry = AssemblyCarry.initial(asm)
+    target = _plate_target(asm, carry, H)
+    before = kasm.LAUNCHES
+    r = make_assembly_planner(asm, H, fused=True, w_du=0.0, opt_iters=10)(
+        carry, target)
+    assert kasm.LAUNCHES > before
+    costs = r.cost_history.cpu().numpy()
+    assert np.isfinite(costs).all() and costs[-1] < costs[0]
+    asm64 = make_ring_assembly(n_rods=3, base_radius=0.05, N=10,
+                               dtype=torch.float64, device=dev)
+    c64, tgt = AssemblyCarry.initial(asm64), target.double()
+    grads = []
+    for solve_fn in (kasm.make_assembly_step_kernel(asm64, tol=1e-20), None):
+        logits = torch.zeros((H, 3, 4), dtype=torch.float64, device=dev,
+                             requires_grad=True)
+        plates, _ = rollout_plate(asm64, c64, 20.0 * torch.sigmoid(logits),
+                                  tol=1e-20, solve_fn=solve_fn)
+        cost = ((plates[:, :3] - tgt) ** 2).sum(-1).mean()
+        grads.append(torch.autograd.grad(cost, logits)[0])
+    assert _rel(grads[0], grads[1]) <= 1e-6
 
 
 def test_fused_assembly_rollout_runs_on_the_kernel(dev):
@@ -951,8 +1256,9 @@ def test_batched_assembly_kernel_is_single_launches(dev, dtype):
 
 def test_batched_assembly_kernel_matches_batched_plain(dev):
     """One batched K7 launch against its batched plain version, f64, both
-    solved to 1e-24, at chip_smoke's phase_k7 bars: X within 1e-9, y and
-    z within 1e-9 of their largest, the same iterations per system."""
+    solved to 1e-24, at test_assembly_kernel_in_a_rollout_matches_plain's
+    bars: X within 1e-9, y and z within 1e-9 of their largest, the same
+    iterations per system."""
     from knode_cosserat_tpu_torch.core.assembly import make_ring_assembly
     from knode_cosserat_tpu_torch.ops import assembly as kasm
     asm = make_ring_assembly(n_rods=3, base_radius=0.05, N=10, device=dev)
@@ -965,6 +1271,139 @@ def test_batched_assembly_kernel_matches_batched_plain(dev):
         assert float((got[i] - want[i]).abs().max()) < 1e-9 * float(
             want[i].abs().max())
     assert torch.equal(got[4], want[4])
+
+
+def _batched_schedules(asm, B, T, seed=0):
+    """(B, T, M, 4) tensions 5 + U(0, 1) N, the JAX bench's batched
+    workload (bench.py:566-578), from a seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+    return (5.0 + torch.rand((B, T, asm.M, 4), generator=g,
+                             dtype=torch.float64)).to(dtype=asm.dtype,
+                                                      device=asm.device)
+
+
+# path G's step: K7 at B = 256 on the inputs of step 5 of the batched fused
+# rollout over the JAX bench's schedules, against 256 single launches bit
+# for bit; in f64 against its batched plain version at
+# test_assembly_kernel_in_a_rollout_matches_plain's bars, with up to 26
+# systems (that test's 2 of 20 steps, the same share) ending one iteration
+# apart, both converged
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-8),
+                                       (torch.float64, 1e-24)])
+def test_batched_assembly_kernel_at_256_systems(dev, dtype, tol):
+    from knode_cosserat_tpu_torch.core.assembly import (AssemblyCarry,
+                                                        assembly_step_carry,
+                                                        make_ring_assembly)
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    B = 256
+    asm = make_ring_assembly(n_rods=3, base_radius=0.05, N=10, dtype=dtype,
+                             device=dev)
+    ctl = _batched_schedules(asm, B, 8)
+    k, grab = kasm.make_assembly_step_kernel(asm, tol=tol, max_iter=30), []
+    carry = AssemblyCarry.initial(asm, B)
+    with torch.no_grad():
+        for t in range(6):
+            carry = assembly_step_carry(
+                asm, carry, ctl[:, t], tol=tol,
+                solve_fn=lambda *a: grab.append(a) or k(*a))[0]
+    ins = grab[5]
+    got = k(*ins)
+    for b in range(B):
+        for a, w in zip(got, k(*(t[b] for t in ins))):
+            assert torch.equal(a[b], w)
+    if dtype == torch.float32:
+        return
+    want = kasm.assembly_step_reference(asm, *ins, tol=tol, max_iter=30)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-9
+    assert _rel(got[1], want[1]) <= 1e-9 and _rel(got[2], want[2]) <= 1e-9
+    apart = got[4] != want[4]
+    assert int(apart.sum()) <= 26
+    assert bool(((got[4] - want[4]).abs() <= 1).all())
+    assert bool((torch.maximum(got[3], want[3])[apart] <= tol).all())
+
+
+def test_batched_assembly_rollout_runs_on_k7(dev):
+    """simulate_assembly(fused=True) over the JAX bench's 256 schedules
+    (T = 50, tol 1e-8, f32): one K7 launch a step for the batch, finite
+    outputs of the batched shapes; four of its systems against their
+    rollouts alone, the plate within 1e-6 and G within 1e-3 (the batch's
+    glue may round otherwise than one system's)."""
+    from knode_cosserat_tpu_torch.core.assembly import (make_ring_assembly,
+                                                        simulate_assembly)
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    B, T = 256, 50
+    asm = make_ring_assembly(n_rods=3, base_radius=0.05, N=10,
+                             dtype=torch.float32, device=dev)
+    ctl = _batched_schedules(asm, B, T)
+    before = kasm.LAUNCHES
+    res = simulate_assembly(asm, ctl, fused=True, tol=1e-8)
+    assert kasm.LAUNCHES - before == T - 1
+    assert [tuple(f.shape) for f in res] == [
+        (B, T, 3, 10, 50), (B, T, 7), (B, T, 3, 6), (B, T), (B, T)]
+    assert all(bool(torch.isfinite(f).all()) for f in res)
+    for b in (0, 85, 170, 255):
+        alone = simulate_assembly(asm, ctl[b], fused=True, tol=1e-8)
+        assert float((res.plate_pose[b] - alone.plate_pose).abs().max()) \
+            <= 1e-6
+        assert float((res.Gs[b] - alone.Gs).abs().max()) <= 1e-3
+
+
+def test_batched_plain_coupled_newton_matches_the_fused_batch(dev):
+    """The plain batched coupled Newton against the fused batch (K7) on 16
+    of the JAX bench's schedules x T = 11, f64, both solved to 1e-24: G and
+    the plate within 1e-9, the rods' states within 1e-9 of their largest;
+    in f32 both finite."""
+    from knode_cosserat_tpu_torch.core.assembly import (make_ring_assembly,
+                                                        simulate_assembly)
+    asms = {dt: make_ring_assembly(n_rods=3, base_radius=0.05, N=10,
+                                   dtype=dt, device=dev)
+            for dt in (torch.float32, torch.float64)}
+    ctl = _batched_schedules(asms[torch.float64], 16, 11)
+    truth = simulate_assembly(asms[torch.float64], ctl, tol=1e-24)
+    fused = simulate_assembly(asms[torch.float64], ctl, tol=1e-24, fused=True)
+    assert float((fused.Gs - truth.Gs).abs().max()) <= 1e-9
+    assert float((fused.plate_pose - truth.plate_pose).abs().max()) <= 1e-9
+    assert _rel(fused.traj, truth.traj) <= 1e-9
+    for fused32 in (False, True):
+        r = simulate_assembly(asms[torch.float32], ctl.float(), tol=1e-10,
+                              fused=fused32)
+        assert all(bool(torch.isfinite(f).all()) for f in r)
+
+
+def test_multistart_assembly_planner_runs_on_k7(dev):
+    """make_multistart_assembly_planner(restarts=8, fused=True, w_du=0) at
+    test_assembly_planner_runs_on_k7's plan: one K7 launch per forward step
+    for all restarts ((iterations + 1) x horizon), the winner's cost falls;
+    two restarts as one batch (3 iterations) against their two single
+    plans, the costs within 1e-4 relative and the tensions within 1e-3 N
+    (the batch's implicit backward solves its systems in one batched LU)."""
+    from knode_cosserat_tpu_torch.control import (
+        make_assembly_planner, make_multistart_assembly_planner)
+    from knode_cosserat_tpu_torch.core.assembly import (AssemblyCarry,
+                                                        make_ring_assembly)
+    from knode_cosserat_tpu_torch.ops import assembly as kasm
+    H, iters = 8, 10
+    asm = make_ring_assembly(n_rods=3, base_radius=0.05, N=10,
+                             dtype=torch.float32, device=dev)
+    carry = AssemblyCarry.initial(asm)
+    target = _plate_target(asm, carry, H)
+    plan = make_multistart_assembly_planner(asm, H, restarts=8, fused=True,
+                                            w_du=0.0, opt_iters=iters)
+    before = kasm.LAUNCHES
+    r = plan(carry, target, torch.Generator().manual_seed(0))
+    assert kasm.LAUNCHES - before == (iters + 1) * H
+    costs = r.cost_history.cpu().numpy()
+    assert np.isfinite(costs).all() and costs[-1] < costs[0]
+    two = make_assembly_planner(asm, H, fused=True, w_du=0.0, opt_iters=3)
+    g = torch.Generator().manual_seed(0)
+    starts = torch.cat([torch.zeros((1, H, 3, 4)), 2.0 * torch.randn(
+        (1, H, 3, 4), generator=g, dtype=torch.float64).float()]).to(dev)
+    both = two(carry, target, logits_init=starts)
+    for i, s in enumerate(starts):
+        one = two(carry, target, logits_init=s)
+        assert abs(float(both.cost[i]) - float(one.cost)) <= 1e-4 * abs(
+            float(one.cost))
+        assert float((both.tensions[i] - one.tensions).abs().max()) <= 1e-3
 
 
 def _segment_cells(B, dtype, dev, seed=1):
@@ -1037,42 +1476,95 @@ def test_next_segment_raises_when_the_card_refuses(dev, monkeypatch):
     assert kseg.LAUNCHES == before
 
 
-def test_fused_train_step_runs_on_the_kernel(dev):
-    """make_train_step(use_pallas=True) launches K8 once per step and
-    tracks the plain step (f32, 5 steps, losses within rtol 1e-4)."""
+def _path_c_case(dev, kind, dtype=torch.float32):
+    """(rod, config, net, trajs, ctls) of the fused training path: hidden 64
+    on one 8-step trajectory; hidden 512 on the 232 cells of 2 x 30 steps;
+    the train-real shape (53 inputs, AdamW 0.1, 1,904 random cells,
+    _wide_case's data); the four-layer history net on the 232 cells."""
+    from knode_cosserat_tpu_torch.training.loss import DEFAULT_KEYPOINTS_REAL
+    p = K.apply_mod("nsw", dtype=dtype, device=dev)
+    if kind == "train-real":
+        _, cfg, _, trajs, ctls = _wide_case(dev, 512, True)
+    else:
+        trajs, ctls = (_train_data(dev, 1, 8) if kind == "h64" else
+                       _train_data(dev, 2, 30))
+        cfg = (K.TrainConfig(history=True, keypoints=DEFAULT_KEYPOINTS_REAL)
+               if kind == "deep" else
+               K.TrainConfig(hidden=64 if kind == "h64" else 512))
+    if kind == "deep":
+        spec, net = _deep(*DEEP[3], dtype, dev)
+    else:
+        spec = cfg.spec()
+        net = K.init_mlp(spec, torch.Generator().manual_seed(0), dtype, dev)
+    return p, cfg, spec, net, trajs.to(dtype), ctls.to(dtype)
+
+
+# K8 on the cells path C hands it (taken from grow_predictions) at the
+# benchmark's width: the 232 cells of 28 inputs and the train-real shape's
+# 1,904 cells of 53 inputs. f64 to rounding; f32, where the net's 512-term
+# sums run in another order, 1e-5 (~5e-7 on y_grown ~ 2 on an H100)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("kind", ["h512", "train-real"])
+def test_next_segment_kernel_on_path_c_cells_matches_plain(dev, kind, dtype,
+                                                           tol):
+    from knode_cosserat_tpu_torch.ops import next_segment as kseg
+    from knode_cosserat_tpu_torch.training.loss import grow_predictions
+    p, cfg, spec, net, trajs, ctls = _path_c_case(dev, kind, dtype)
+    grab = []
+    grow_predictions(p, spec, net, trajs, ctls, cfg.keypoints,
+                     fused_fn=lambda n, *xs: grab.append(xs) or xs[::2])
+    cells = grab[0]
+    assert cells[0].shape[0] == (232 if kind == "h512" else 1904)
+    before = kseg.LAUNCHES
+    with torch.no_grad():
+        got = kseg.make_fused_next_segment(p, spec)(net, *cells)
+        want = kseg.next_segment_reference(p, spec, *cells, *[
+            t for wb in net.weights() for t in wb])
+    torch.cuda.synchronize()
+    assert kseg.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+# make_train_step(use_pallas=True) launches K8 once per step and tracks the
+# plain step from the same net (f32, losses within rtol 1e-4): 5 steps at
+# hidden 64, 200 on the 232 cells at hidden 512, 20 at the train-real
+# shape, 20 with the four-layer history net
+@pytest.mark.parametrize("kind,steps", [("h64", 5), ("h512", 200),
+                                        ("train-real", 20), ("deep", 20)])
+def test_fused_train_step_runs_on_the_kernel(dev, kind, steps):
     import copy
 
     from knode_cosserat_tpu_torch.ops import next_segment as kseg
     from knode_cosserat_tpu_torch.training.train import (make_optimizer,
                                                          make_train_step)
-    cfg = K.TrainConfig(hidden=64)
-    p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
-    trajs, ctls = K.make_training_data(K.apply_mod(None, device=dev),
-                                       [("sine", 0.5)], train_len=8)
-    trajs, ctls = trajs.float(), ctls.float()
-    net = K.init_mlp(cfg.spec(), torch.Generator().manual_seed(0),
-                     torch.float32, dev)
+    p, cfg, spec, net, trajs, ctls = _path_c_case(dev, kind)
     losses = []
     for fused in (True, False):
         n = copy.deepcopy(net)
-        step, _ = make_train_step(p, cfg.spec(), make_optimizer(cfg, n),
-                                  cfg.keypoints, True, use_pallas=fused)
+        step, _ = make_train_step(p, spec, make_optimizer(cfg, n),
+                                  cfg.keypoints, cfg.clamp_weights,
+                                  use_pallas=fused)
         kseg.LAUNCHES = 0
-        losses.append(torch.stack([step(n, trajs, ctls) for _ in range(5)]))
-        assert kseg.LAUNCHES == (5 if fused else 0)
+        losses.append(torch.stack([step(n, trajs, ctls)
+                                   for _ in range(steps)]))
+        assert kseg.LAUNCHES == (steps if fused else 0)
     assert torch.allclose(losses[0], losses[1], rtol=1e-4, atol=0)
 
 
-@pytest.mark.parametrize("hybrid", [False, True])
-def test_planner_roots_run_on_k2(dev, hybrid):
-    """make_planner on a CUDA rod: every forward root a K2 launch
-    ((iterations + 2) x horizon, none in the implicit backward), the cost
-    falls; in float64 the cost history through K2's roots equals the one
-    through newton_solve's within rtol 1e-6."""
+@pytest.mark.parametrize("hidden", [None, 64, 512])
+def test_planner_roots_run_on_k2(dev, hidden):
+    """make_planner on a CUDA rod, physics only or with the net: every
+    forward root a K2 launch ((iterations + 2) x horizon, none in the
+    implicit backward), the cost falls; in float64 the first cost's
+    gradient and the cost history through K2's roots equal those through
+    newton_solve's within rtol 1e-6."""
     from knode_cosserat_tpu_torch.control import mpc
     H, iters = 3, 3
-    spec, net = _net(False, torch.float32, dev, 1e-3) if hybrid else (None,
-                                                                      None)
+    hybrid = hidden is not None
+    spec, net = (_net(False, torch.float32, dev, 1e-3, hidden) if hybrid
+                 else (None, None))
     p = K.experimental_rod(N=6, dtype=torch.float32, device=dev)
     u = torch.tensor([[2.0, 3.0, 6.0, 1.0], [7.0, 4.0, 5.0, 1.5],
                       [12.0, 5.0, 4.0, 2.0]], device=dev)
@@ -1097,24 +1589,35 @@ def test_planner_roots_run_on_k2(dev, hybrid):
             for root in ("k2", "newton"))
     np.testing.assert_allclose(a.cost_history.cpu().numpy(),
                                b.cost_history.cpu().numpy(), rtol=1e-6)
+    grads = []
+    for root in ("k2", "newton"):
+        logits = torch.zeros((H, 4), dtype=torch.float64, device=dev,
+                             requires_grad=True)
+        tips, _ = mpc.rollout_tips(p64, mpc.PlanState.initial(p64),
+                                   20.0 * torch.sigmoid(logits), spec,
+                                   net64, tol=1e-20, _root=root)
+        cost = ((tips - target.double()) ** 2).sum(-1).mean()
+        grads.append(torch.autograd.grad(cost, logits)[0])
+    assert _rel(grads[0], grads[1]) <= 1e-6
 
 
+@pytest.mark.parametrize("hidden", [64, 512])
 @pytest.mark.parametrize("history", [False, True])
-def test_step_kernel_bf16_spec_computes_the_net_in_f32(dev, history):
+def test_step_kernel_bf16_spec_computes_the_net_in_f32(dev, history, hidden):
     """A spec with compute_dtype="bfloat16": K2 computes the net in the
     weights' float32, as the JAX TPU kernel does, so it matches its plain
     version with the compute dtype dropped."""
     p = K.experimental_rod(N=10, dtype=torch.float32, device=dev)
     G, yh, zh, tf = _inputs(p, 45, 1, dev)
     G = torch.zeros_like(G)
-    spec16 = K.MLPSpec.for_knode(64, history=history,
+    spec16 = K.MLPSpec.for_knode(hidden, history=history,
                                  compute_dtype="bfloat16")
     net16 = K.init_mlp(spec16, torch.Generator().manual_seed(0),
                        torch.float32, dev)
     with torch.no_grad():
         for t in net16.parameters():
             t.mul_(1e-2)
-    spec, net = _net(history, torch.float32, dev, 1e-2)
+    spec, net = _net(history, torch.float32, dev, 1e-2, hidden)
     net.load_state_dict(net16.state_dict())
     with torch.no_grad():
         got = kstep.make_step_kernel(p, spec16, tol=1e-13)(G, yh, zh, tf,
@@ -1125,7 +1628,9 @@ def test_step_kernel_bf16_spec_computes_the_net_in_f32(dev, history):
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
 
 
-def test_fine_rod_and_reference_solvers_on_the_card(dev):
+# the fine rod of N - 1 = 39 = 3 x 13 nodes in 3 and 13 segments
+@pytest.mark.parametrize("N,S", [(13, 4), (40, 3), (40, 13), (10, None)])
+def test_fine_rod_and_reference_solvers_on_the_card(dev, N, S):
     """simulate_scan_ms (structured and dense) and simulate_fsolve with the
     residual on the card, float64, against physics-only K2 rollouts."""
     from knode_cosserat_tpu_torch.controls import calc_controls
@@ -1134,23 +1639,22 @@ def test_fine_rod_and_reference_solvers_on_the_card(dev):
     from knode_cosserat_tpu_torch.core.reference_solver import \
         simulate_fsolve
 
-    for N, S in ((13, 4), (10, None)):
-        p = K.experimental_rod(N=N, dtype=torch.float64, device=dev)
-        ctl = torch.tensor(calc_controls("sine", 1.0, float(p.del_t), 6),
-                           dtype=torch.float64, device=dev)
-        with torch.no_grad():
-            ref = make_fast_rollout(p, None, tol=1e-20, impl="mega")(
-                ctl[None])[0][0]
-        if S is None:
-            got = torch.from_numpy(simulate_fsolve(p, ctl.cpu().numpy()))
-            rmse = float(((got - ref.cpu()) ** 2).mean().sqrt())
-            assert rmse < 1e-7, rmse
-            continue
-        for solver in ("structured", "dense"):
-            o = simulate_scan_ms(p, ctl, S, tol=1e-20, solver=solver)
-            assert o.traj.device == ref.device
-            rel = float((o.traj - ref).abs().max() / ref.abs().max())
-            assert rel < 1e-9, (solver, rel)
+    p = K.experimental_rod(N=N, dtype=torch.float64, device=dev)
+    ctl = torch.tensor(calc_controls("sine", 1.0, float(p.del_t), 6),
+                       dtype=torch.float64, device=dev)
+    with torch.no_grad():
+        ref = make_fast_rollout(p, None, tol=1e-20, impl="mega")(
+            ctl[None])[0][0]
+    if S is None:
+        got = torch.from_numpy(simulate_fsolve(p, ctl.cpu().numpy()))
+        rmse = float(((got - ref.cpu()) ** 2).mean().sqrt())
+        assert rmse < 1e-7, rmse
+        return
+    for solver in ("structured", "dense"):
+        o = simulate_scan_ms(p, ctl, S, tol=1e-20, solver=solver)
+        assert o.traj.device == ref.device
+        rel = float((o.traj - ref).abs().max() / ref.abs().max())
+        assert rel < 1e-9, (solver, rel)
 
 
 @pytest.mark.parametrize("objective", ["teacher", "rollout"])
@@ -1187,3 +1691,387 @@ def test_batched_sysid_fit_equals_its_starts_solo_fits(dev, objective):
     torch.testing.assert_close(res.loss_history,
                                hist[int(torch.argmin(finals))], rtol=0,
                                atol=0)
+
+
+def test_bf16_train_knode_runs_on_the_plain_loop_with_k2_validations(dev):
+    """train_knode(nn_dtype="bfloat16", fused="off") at for_knode(512) on
+    the 232 cells of 2 x 30 steps, 20 epochs, validations at 0 and 20:
+    the loss falls, the master weights stay float32, no K4 launch, K2 in
+    the validation."""
+    p, cfg, _, trajs, ctls = _train_case(
+        dev, hidden=512, train_len=30, epochs=20, eval_every=20, eval_len=20,
+        nn_dtype="bfloat16", fused="off")
+    vc, vt = K.make_validation_reference(K.apply_mod(None, device=dev),
+                                         ("sine", 1.25), 20)
+    k4, k2 = ktrain.LAUNCHES, kstep.LAUNCHES
+    r = K.train_knode(p, trajs, ctls, cfg, vc, vt, log=None)
+    assert ktrain.LAUNCHES == k4 and kstep.LAUNCHES > k2
+    assert np.isfinite(r.loss_history).all()
+    assert r.loss_history[-1] < r.loss_history[0]
+    assert {t.dtype for t in r.params.parameters()} == {torch.float32}
+    assert r.params.spec.compute_dtype == "bfloat16"
+
+
+def test_replicate_runs_on_the_card(dev, tmp_path):
+    """replicate at its CPU test's size (a step experiment, short settle
+    and tail, 3 epochs of an 8-unit net; the C++ firmware built with the
+    host's g++): the bag, prepared, estimated and model files, a finite
+    ingest DTW, a falling loss, K4 launched."""
+    import os
+
+    from knode_cosserat_tpu_torch import cli
+    out = tmp_path / "rep"
+    k4 = ktrain.LAUNCHES
+    summ = cli.main(["replicate", "--out_dir", str(out), "--experiment",
+                     "step_x", "--parameter", "1", "--settle", "0.3",
+                     "--tail", "0.7", "--epochs", "3", "--layers", "8",
+                     "--trim", "2", "--train_len", "12"])
+    assert ktrain.LAUNCHES > k4
+    assert all(os.path.exists(summ[k]) for k in ("bag", "prepared",
+                                                 "estimated", "model"))
+    assert np.isfinite(summ["dtw"])
+    assert summ["loss_final"] < summ["loss_initial"]
+
+
+def test_multitrain_runs_on_k5_and_k2(dev, tmp_path, monkeypatch):
+    """The multitrain command at a small grid (2 datas x 2 mods x 2 seeds,
+    hidden 64, 20 epochs): K5 trains the grid; the eval launches K2 once a
+    step per mod for the stacked cells and once per mod for the baselines;
+    every cell's loss falls and every DTW is finite."""
+    from knode_cosserat_tpu_torch import cli
+    monkeypatch.setitem(cli.DATAS, False, ["sine 0.5", "sine sine 0.5 1.0"])
+    monkeypatch.setitem(cli.EVAL_SETS, False, ["sine 1.5"])
+    monkeypatch.setattr(cli, "MODS", ["nsw", "short"])
+    monkeypatch.setattr(cli, "TRAIN_LEN", 8)
+    monkeypatch.setattr(cli, "EVAL_LEN", 6)
+    k5, k2 = ktrain.GRID_LAUNCHES, kstep.LAUNCHES
+    out = cli.main(["multitrain", "--n_seeds", "2", "--epochs", "20",
+                    "--layers", "64", "--save_dir", str(tmp_path / "saved"),
+                    "--evals_dir", str(tmp_path / "evals")])
+    res, records = out["result"], out["records"]
+    assert len(res.cells) == 8 and ktrain.GRID_LAUNCHES > k5
+    assert kstep.LAUNCHES - k2 == 2 * 2 * 1 * (6 - 1)
+    assert np.isfinite(res.loss_history).all()
+    assert (res.loss_history[-1] < res.loss_history[0]).all()
+    assert all(np.isfinite(r.dtw) for r in records)
+
+
+def test_the_studys_train_and_simulate_commands_run_on_the_kernels(
+        dev, tmp_path):
+    """train on the nsw rod (K4; the validation on K2), then simulate
+    --model of its checkpoint with --fast (K2 with the net, a launch a
+    step) against the plain scan (float32 rollouts, both to the floor)."""
+    import os
+
+    from knode_cosserat_tpu_torch import cli
+    saved = tmp_path / "saved"
+    k4 = ktrain.LAUNCHES
+    res = cli.main(["train", "sine", "sine", "0.5", "1.0", "--mod", "nsw",
+                    "--epochs", "40", "--layers", "64", "--train_len", "8",
+                    "--save_dir", str(saved)])
+    assert ktrain.LAUNCHES > k4
+    lh = res.loss_history
+    assert np.isfinite(lh).all() and lh[-1] < lh[0]
+    assert np.isfinite(res.best_dtw)
+    (name,) = os.listdir(saved)
+    trajs = []
+    for fast in (["--fast"], []):
+        k2 = kstep.LAUNCHES
+        trajs.append(torch.as_tensor(cli.main([
+            "simulate", "--model", str(saved / name), "--steps", "20",
+            "--save", str(tmp_path / f"sim{len(trajs)}.npz"), *fast])))
+        assert kstep.LAUNCHES - k2 == (19 if fast else 0)
+    torch.testing.assert_close(trajs[0], trajs[1], **ROLLOUT_F32)
+
+
+def test_the_real_data_commands_run_on_the_kernels(dev, tmp_path):
+    """simulate --fast (physics-only K2) at the sinesine preset's two sine
+    periods, saved as prepare's files; estimate of each (with the simulated
+    rod's del_t the estimated velocities within 0.05, mean abs, of the
+    simulator's, as tests/test_realworld.py:69-78 holds them; the command,
+    which estimates with the reference rod's del_t, the same scaled);
+    train-real on them (K4), its loss falling; and where this host has
+    pandas, prepare and estimate of tests/fixtures/sil_step_1100."""
+    import importlib.util
+    import os
+
+    from knode_cosserat_tpu_torch import cli
+    from knode_cosserat_tpu_torch.realworld import estimate_state, fit_curve
+    datas = tmp_path / "datas"
+    datas.mkdir()
+    p_sim = K.apply_mod(None, dtype=torch.float32, device=dev)
+    p_est = K.make_rod(device=dev)
+    train_len = 12
+    for fname, period in zip(cli.REAL_PRESETS["sinesine"], (1.0, 3.0)):
+        out = str(tmp_path / f"{fname}_sim.npz")
+        k2 = kstep.LAUNCHES
+        traj = cli.main(["simulate", "--fast", "--type", "sine", "--arg",
+                         str(period), "--steps",
+                         str(cli.REAL_TRIM + train_len + 10), "--save", out])
+        assert kstep.LAUNCHES > k2
+        ctl = np.load(out)["controls"]
+        np.savez_compressed(
+            datas / f"{fname}.npz", t=np.arange(len(traj)) * float(
+                p_sim.del_t), traj=traj, controls=ctl,
+            interpolated=np.moveaxis(traj[:, :, :7], 1, 2),
+            positions=traj[:, cli.MARKER_NODES, :3])
+        cli.main(["estimate", fname, "--data_dir", str(datas)])
+        est = np.load(datas / f"{fname}_estimated.npz")["traj"]
+        sim = np.moveaxis(traj, 1, 2).astype(np.float64)      # (T, 50, N)
+        grid = fit_curve(sim[:, :7, cli.MARKER_NODES], cli.MARKER_LOC,
+                         p_sim.N)
+        mine, _ = estimate_state(grid, ctl, p_sim)
+        assert np.abs(mine[5:-5, 13:16, 5] - sim[5:-5, 13:16, 5]).mean() \
+            < 0.05
+        ratio = float(p_sim.del_t) / float(p_est.del_t)
+        assert np.isfinite(est).all()
+        assert np.abs(est[:, 13:16] / ratio - mine[:, 13:16]).max() < 1e-9
+    k4 = ktrain.LAUNCHES
+    res = cli.main(["train-real", "--data", "sinesine", "--data_dir",
+                    str(datas), "--epochs", "20", "--layers", "64",
+                    "--train_len", str(train_len), "--save_path",
+                    str(tmp_path / "real_model")])
+    assert ktrain.LAUNCHES > k4
+    lh = res.loss_history
+    assert np.isfinite(lh).all() and lh[-1] < lh[0]
+    if importlib.util.find_spec("pandas") is None:
+        return
+    fix = tmp_path / "fixture"
+    cli.main(["prepare", os.path.join(os.path.dirname(__file__), "fixtures",
+                                      "sil_step_1100"),
+              "--out_dir", str(fix)])
+    cli.main(["estimate", "sil_step_1100", "--data_dir", str(fix)])
+    prep = np.load(fix / "sil_step_1100.npz")
+    est = np.load(fix / "sil_step_1100_estimated.npz")
+    T = len(prep["t"])
+    assert prep["traj"].shape == (T, 10, 50)
+    assert prep["traj"].dtype == np.float64
+    assert est["traj"].shape == (T, 25, 10)
+    assert np.isfinite(prep["traj"]).all() and np.isfinite(est["traj"]).all()
+
+
+def test_simulate_assembly_command_on_the_card(dev, tmp_path):
+    """simulate-assembly at its defaults (3 rods, N=10), 20 steps: the
+    file's arrays of the command's shapes, finite."""
+    from knode_cosserat_tpu_torch import cli
+    path = tmp_path / "assembly.npz"
+    cli.main(["simulate-assembly", "--steps", "20", "--save", str(path)])
+    d = np.load(path)
+    assert {k: d[k].shape for k in d.files} == {
+        "traj": (20, 3, 10, 50), "plate_pose": (20, 7),
+        "controls": (20, 3, 4)}
+    assert np.isfinite(d["traj"]).all()
+
+
+def test_simulate_fast_of_a_three_layer_checkpoint_matches_the_scan(
+        dev, tmp_path):
+    """simulate --model of a (28, 512, 512, 25) ELU checkpoint: --fast (K2
+    with the three-layer net, a launch a step) against the plain scan
+    (float32, 50 steps)."""
+    from knode_cosserat_tpu_torch import cli
+    from knode_cosserat_tpu_torch.training.checkpoint import save_checkpoint
+    from knode_cosserat_tpu_torch.training.train import _net_tree
+    _, net = _deep(*DEEP[2], torch.float32, dev, 1e-3)
+    ckpt = str(tmp_path / "deep")
+    save_checkpoint(ckpt, {"params": _net_tree(net)},
+                    meta={"train": {"activation": DEEP[2][1]}})
+    trajs = []
+    for fast in (["--fast"], []):
+        k2 = kstep.LAUNCHES
+        trajs.append(torch.as_tensor(cli.main([
+            "simulate", "--model", ckpt, "--steps", "50", "--save",
+            str(tmp_path / f"sim{len(trajs)}.npz"), *fast])))
+        assert kstep.LAUNCHES - k2 == (49 if fast else 0)
+    torch.testing.assert_close(trajs[0], trajs[1], **ROLLOUT_F32)
+
+
+def test_multistart_planner_and_controller_run_on_k2(dev):
+    """make_multistart_planner (8 restarts, 2 iterations, horizon 10) on a
+    CUDA rod: one K2 launch per horizon step for all restarts ((iterations
+    + 2) x horizon), a finite best cost; five MPCController.act calls
+    (2 iterations, then 2) give finite tips."""
+    from knode_cosserat_tpu_torch.control import mpc
+    H, iters = 10, 2
+    p = K.experimental_rod(N=10, dtype=torch.float32, device=dev)
+    # the tip track of a reachable schedule, every tendon its own ramp (so
+    # no tension's gradient vanishes by symmetry)
+    sched = np.stack([np.linspace(a, b, H) for a, b in
+                      ((2.0, 12.0), (3.0, 5.0), (6.0, 4.0), (1.0, 2.0))],
+                     axis=1)
+    state = mpc.PlanState.initial(p)
+    with torch.no_grad():
+        target, _ = mpc.rollout_tips(p, state, torch.tensor(
+            sched, dtype=p.dtype, device=dev))
+    before = kstep.LAUNCHES
+    r = mpc.make_multistart_planner(p, H, restarts=8, opt_iters=iters,
+                                    w_du=0.0)(
+        state, target, torch.Generator().manual_seed(0))
+    assert kstep.LAUNCHES - before == (iters + 2) * H
+    assert np.isfinite(float(r.cost))
+    ctl = mpc.MPCController(p, horizon=H, first_iters=iters, replan_iters=2,
+                            w_du=0.0)
+    tips = torch.stack([ctl.act(target)[1]["tip"] for _ in range(5)])
+    assert bool(torch.isfinite(tips).all())
+
+
+@pytest.mark.parametrize("argv", [
+    ["sysid", "--length", "6", "--steps", "3"],
+    ["sysid", "--n_starts", "4", "--length", "6", "--steps", "3"],
+    ["sysid", "--objective", "rollout", "--length", "4", "--steps", "2"],
+    ["sysid", "--assembly", "2", "--length", "4", "--steps", "2"],
+    ["design", "--horizon", "3", "--steps", "2"],
+], ids=["teacher", "teacher-4-starts", "rollout", "assembly", "design"])
+def test_sysid_and_design_commands_on_the_card(dev, argv, tmp_path):
+    """sysid (teacher, with 4 starts as one batch, rollout, --assembly 2)
+    and design on the card at their CPU tests' sizes: the loss falls
+    (every start's loss finite), or the design's information grows."""
+    from knode_cosserat_tpu_torch import cli
+    if argv[0] == "design":
+        res = cli.main(argv + ["--save", str(tmp_path / "designed.npz")])
+        assert res.info_final > res.info_initial
+        return
+    res = cli.main(argv)
+    h = res.loss_history.cpu().numpy()
+    assert np.isfinite(h).all() and h[-1] < h[0]
+    if "--n_starts" in argv:
+        assert res.start_losses.shape == (4,)
+        assert bool(torch.isfinite(res.start_losses).all())
+
+
+def test_posterior_ensemble_equals_its_draws_solo_rollouts(dev):
+    """16 draws of a Laplace posterior of E (std 0.05, made by hand) rolled
+    out as one simulate_scan of the stack (N=10, T=20, f64): the tips
+    spread; the first and the last draw equal their solo rollouts (the
+    same iterations, the states within 1e-12)."""
+    from knode_cosserat_tpu_torch.core.params import rod_at
+    from knode_cosserat_tpu_torch.training import sysid as ks
+    plant = K.experimental_rod(N=10, dtype=torch.float64, device=dev)
+    post = ks.LaplacePosterior(labels=["E"],
+                               theta=ks.theta_init(plant, ("E",)),
+                               covariance=np.array([[0.05 ** 2]]),
+                               std=np.array([0.05]), sigma2=0.0,
+                               n_residuals=0)
+    draws = ks.sample_posterior(plant, post, torch.Generator().manual_seed(0),
+                                16)
+    ctl = torch.tensor(K.calc_controls("sine", 1.0, float(plant.del_t), 20),
+                       dtype=torch.float64, device=dev)
+    ens = K.simulate_scan(draws, ctl)
+    assert ens.traj.shape == (16, 20, 10, 50)
+    assert float(ens.traj[:, :, -1, 0:3].std(0).max()) > 0
+    for i in (0, 15):
+        solo = K.simulate_scan(rod_at(draws, i), ctl)
+        assert torch.equal(solo.newton_iters, ens.newton_iters[i])
+        assert float((solo.traj - ens.traj[i]).abs().max()) <= 1e-12
+
+
+def test_online_adapter_on_k2_rollout_frames(dev):
+    """An OnlineAdapter on the damping-fault model fed 100 frames of the
+    true rod rolled out on K2: its window loss falls below the physics
+    model's, and an update is certified."""
+    from knode_cosserat_tpu_torch.training.online import (OnlineAdapter,
+                                                          OnlineConfig)
+    true = K.experimental_rod(N=10, dtype=torch.float32, device=dev)
+    model = K.apply_mod("damping", dtype=torch.float32, device=dev)
+    stream = _sines(true, 1, 100)[0]
+    before = kstep.LAUNCHES
+    frames = make_fast_rollout(true, impl="mega", tol=1e-10)(
+        stream[None])[0][0]
+    assert kstep.LAUNCHES > before
+    ad = OnlineAdapter(model, OnlineConfig(window=64, min_fill=16,
+                                           steps_per_update=4, hidden=64))
+    for t in range(100):
+        ad.observe(frames[t], stream[t])
+        if ad.ready and t % 2 == 0:
+            ad.update()
+    assert ad.window_loss() < ad.physics_loss()
+    assert ad.certified_params is not None
+
+
+# a world of one on the card (NCCL refuses two ranks on one card; the world
+# of two runs on the CPU in tests/test_torch_parallel.py), in a process of
+# its own so that no group outlives the test
+_MESH_RUN = r"""
+import os, socket
+import numpy as np
+import torch
+import torch.distributed as dist
+import knode_cosserat_tpu_torch as K
+from knode_cosserat_tpu_torch.core.multiple_shooting import simulate_scan_ms
+from knode_cosserat_tpu_torch.ops import step as kstep
+from knode_cosserat_tpu_torch.ops import train as ktrain
+from knode_cosserat_tpu_torch.parallel import (build_grid, grid_train,
+                                               init_distributed, make_mesh,
+                                               simulate_scan_ms_halo)
+
+torch.backends.cuda.matmul.allow_tf32 = False
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                  WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+assert init_distributed()
+mesh = make_mesh(1, 1, 1)
+dev = torch.device("cuda", 0)
+try:
+    # grid_train(mesh=): K5, every cell the unsharded grid's bit for bit
+    ref = K.apply_mod(None, dtype=torch.float32, device=dev)
+    cells = build_grid(["sine sine 0.5 1.0"], ["nsw", "short", "youngs",
+                                               "lengthstiff"], 2)
+    cfg = K.TrainConfig(hidden=512, epochs=40)
+    k5 = ktrain.GRID_LAUNCHES
+    sharded = grid_train(cells, cfg, reference_rod=ref, mesh=mesh)
+    assert ktrain.GRID_LAUNCHES > k5
+    one = grid_train(cells, cfg, reference_rod=ref)
+    assert np.array_equal(sharded.loss_history, one.loss_history)
+    for x, y in zip(sharded.params, one.params):
+        for a, b in zip(x.parameters(), y.parameters()):
+            assert torch.equal(a, b)
+    # train_knode(mesh=) (K4 declined under a mesh; K2 in its validation)
+    # against the unsharded plain loop, losses within 1e-4 relative
+    trajs, ctls = K.make_training_data(ref, [("sine", 0.5), ("sine", 1.0)],
+                                       train_len=30)
+    vc, vt = K.make_validation_reference(ref, ("sine", 1.25), 20)
+    p = K.apply_mod("nsw", dtype=torch.float32, device=dev)
+    runs = {}
+    for label, m, fused, val in (("mesh", mesh, "auto", (vc, vt)),
+                                 ("plain", None, "off", (None, None))):
+        cfg = K.TrainConfig(hidden=512, epochs=200, eval_every=200,
+                            eval_len=20, fused=fused)
+        k2, k4 = kstep.LAUNCHES, ktrain.LAUNCHES
+        runs[label] = K.train_knode(p, trajs, ctls, cfg, *val, log=None,
+                                    mesh=m)
+        if label == "mesh":
+            assert (kstep.LAUNCHES - k2, ktrain.LAUNCHES - k4) == (19, 0)
+    a, b = (np.asarray(runs[k].loss_history) for k in ("mesh", "plain"))
+    assert np.all(np.abs(a - b) <= 1e-4 * np.abs(b))
+    # simulate_scan_ms(mesh=) and simulate_scan_ms_halo at D = 1 against
+    # simulate_scan_ms, N=40, S=3, f64
+    p = K.experimental_rod(N=40, device=dev).to(dtype=torch.float64)
+    ctl = torch.tensor(K.calc_controls("sine", 0.5, float(p.del_t), 10),
+                       device=dev)
+    want = simulate_scan_ms(p, ctl, 3).traj
+    for got in (simulate_scan_ms(p, ctl, 3, mesh=mesh).traj,
+                simulate_scan_ms_halo(p, ctl, 3, mesh).traj):
+        assert float((got - want).abs().max()) <= 1e-9 * float(
+            want.abs().max())
+finally:
+    dist.destroy_process_group()
+print("mesh of one: ok")
+"""
+
+
+def test_mesh_of_one_card(dev):
+    """make_mesh(1, 1, 1) over an NCCL world of one started by
+    init_distributed: grid_train(mesh=) on K5 equals the unsharded grid
+    bit for bit; train_knode(mesh=) declines K4, validates on K2 and
+    tracks the plain loop; the sharded multiple-shooting rollouts equal
+    the unsharded one."""
+    import os
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", _MESH_RUN],
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))),
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "mesh of one: ok" in out.stdout

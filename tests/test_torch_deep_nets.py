@@ -32,7 +32,7 @@ from knode_cosserat_tpu_torch.ops import sweep as ksweep
 torch.set_num_threads(1)
 SWEEP_TOL = (1e-10, 1e-12)           # tests/test_torch_sweep.py's bar
 STEP_TOL = (1e-9, 1e-10)             # tests/test_torch_step.py's
-SEG_TOL = (1e-12, 1e-12)             # K8 in float64 (chip_smoke.K8_TOL)
+SEG_TOL = (1e-12, 1e-12)             # K8 in float64 (test_torch_cuda.py's)
 SPECS = [((28, 32, 32, 25), "elu"), ((53, 16, 16, 16, 25), "tanh")]
 IDS = ["3-layer", "4-layer-history"]
 
